@@ -1,0 +1,67 @@
+"""The CUDA NDT terms kernel against its plain version, on the GPU.
+
+These tests build csrc/ndt_terms.cu with nvcc and run on a CUDA device;
+without one their fixture skips them. On a GPU machine (the tests' conftest
+imports JAX, which that machine need not have):
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+"""
+
+import pytest
+import torch
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (the kernel has no CPU "
+                    "mode; its plain version is tested in "
+                    "test_torch_ndt_terms.py)")
+    return torch.device("cuda")
+
+
+def _assert_close(got, ref):
+    # each block of H and half of b within 1e-4 of its own largest
+    # magnitude (float32 sums in another order); matched exactly equal
+    import chip_smoke
+
+    for (label, a), (_, b) in zip(chip_smoke.terms_blocks(got),
+                                  chip_smoke.terms_blocks(ref)):
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * float(b.abs().max()), label
+    assert float(got[3]) == float(ref[3])
+
+
+@pytest.mark.parametrize("q", [2, 4, 8])
+def test_kernel_matches_plain_on_edge_case(cuda, q):
+    import chip_smoke
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms, ndt_terms_plain
+
+    args = chip_smoke.random_terms_case(cuda, q=q, seed=q)
+    before = ndt_terms.launches
+    got = ndt_terms(*args)
+    torch.cuda.synchronize()
+    assert ndt_terms.launches == before + 1
+    _assert_close(got, ndt_terms_plain(*args))
+
+
+def test_kernel_empty_and_mixed_devices(cuda):
+    import chip_smoke
+    from tpu_slam_torch.kernels.ndt_terms import TermsSlots, ndt_terms
+
+    slots, rows, T, gamma, max_corr, dims = chip_smoke.random_terms_case(
+        cuda)
+    empty = TermsSlots(points=torch.zeros(0, 3, device=cuda),
+                       cell=torch.zeros(0, dtype=torch.int32, device=cuda),
+                       valid=torch.zeros(0, dtype=torch.bool, device=cuda),
+                       inside=torch.zeros(0, dtype=torch.bool, device=cuda))
+    H, b, c, m = ndt_terms(empty, rows, T, gamma, max_corr, dims)
+    assert float(H.abs().sum()) == 0 and float(c) == 0 and float(m) == 0
+    with pytest.raises(ValueError):
+        ndt_terms(slots, rows.cpu(), T, gamma, max_corr, dims)
+    # every launch is identical run to run (fixed-order reduction)
+    outs = [ndt_terms(slots, rows, T, gamma, max_corr, dims)
+            for _ in range(3)]
+    for o in outs[1:]:
+        for a, b in zip(o, outs[0]):
+            assert torch.equal(a, b)
