@@ -1,7 +1,8 @@
-"""The CUDA NDT terms kernel against its plain version, on the GPU.
+"""The CUDA kernels (NDT terms, brute-force NN) against their plain
+versions, on the GPU.
 
-These tests build csrc/ndt_terms.cu with nvcc and run on a CUDA device;
-without one their fixture skips them. On a GPU machine (the tests' conftest
+These tests build csrc/*.cu with nvcc and run on a CUDA device; without
+one their fixture skips them. On a GPU machine (the tests' conftest
 imports JAX, which that machine need not have):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -14,9 +15,9 @@ import torch
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc (the kernel has no CPU "
-                    "mode; its plain version is tested in "
-                    "test_torch_ndt_terms.py)")
+        pytest.skip("needs a CUDA device and nvcc (the kernels have no "
+                    "CPU mode; their plain versions are tested in "
+                    "test_torch_ndt_terms.py and test_torch_nn_search.py)")
     return torch.device("cuda")
 
 
@@ -65,3 +66,50 @@ def test_kernel_empty_and_mixed_devices(cuda):
     for o in outs[1:]:
         for a, b in zip(o, outs[0]):
             assert torch.equal(a, b)
+
+
+def _nn_equal(q, t):
+    from tpu_slam_torch.kernels.nn_search import (nearest_neighbors,
+                                                  nearest_neighbors_plain)
+
+    before = nearest_neighbors.launches
+    gi, g2 = nearest_neighbors(q, t, squared=True)
+    torch.cuda.synchronize()
+    assert nearest_neighbors.launches == before + 1
+    pi, p2 = nearest_neighbors_plain(q, t, squared=True)
+    # the kernel rounds each op as the plain version does: equal indices,
+    # bit-equal squared distances
+    assert torch.equal(gi, pi)
+    assert torch.equal(g2, p2)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_nn_kernel_matches_plain_on_edge_case(cuda, seed):
+    import chip_smoke
+
+    q, t, _, _ = chip_smoke.nn_edge_case(cuda, seed=seed)
+    _nn_equal(q, t)
+    _nn_equal(q[None], t[None])
+
+
+@pytest.mark.parametrize("b, n, m", [(6, 4096, 4096), (3, 257, 1025),
+                                     (1, 1, 1)])
+def test_nn_kernel_matches_plain_batched(cuda, b, n, m):
+    g = torch.Generator(device="cpu").manual_seed(b * n + m)
+    q = (torch.rand(b, n, 3, generator=g) * 20 - 10).to(cuda)
+    t = (torch.rand(b, m, 3, generator=g) * 20 - 10).to(cuda)
+    if m > 1:
+        t[:, m // 2:] = 1e8                 # padding targets
+    _nn_equal(q, t)
+
+
+def test_nn_kernel_rejects_bad_inputs(cuda):
+    from tpu_slam_torch.kernels.nn_search import nearest_neighbors
+
+    q = torch.zeros(4, 3, device=cuda)
+    with pytest.raises(ValueError):
+        nearest_neighbors(q, q.cpu())
+    with pytest.raises(ValueError):
+        nearest_neighbors(q.double(), q.double())
+    idx, d = nearest_neighbors(q[:0], q)
+    assert idx.shape == (0,) and d.shape == (0,)

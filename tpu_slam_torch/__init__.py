@@ -1,19 +1,29 @@
-"""tpu_slam_torch — the dense-window LiDAR odometry engine in PyTorch + CUDA.
+"""tpu_slam_torch — the dense-window LiDAR SLAM engine in PyTorch + CUDA.
 
 A port of the JAX package ``tpu_slam`` to PyTorch on an NVIDIA H100. Module
 paths and public names follow ``tpu_slam`` so each function's counterpart is
 easy to find; the JAX package stays the reference and this package imports
 nothing of it (nor of JAX).
 
-Layer map of what is ported so far (the dense odometry main path):
+Layer map of what is ported so far (full SLAM on the dense odometry
+engine):
 
-    pipeline/      DenseLidarOdometry, config, metrics, state hand-over
-    registration/  NDT registration (kernel path: frozen-bin terms + LM)
+    pipeline/      SLAMSystem (keyframes, loop sweeps, graph, re-anchor),
+                   DenseLidarOdometry, config, metrics, state hand-over,
+                   checkpoint/resume
+    graph/         pose graph (GN + matrix-free PCG), loop-closure
+                   candidates and batched symmetric ICP verification,
+                   scan-context descriptors
+    registration/  NDT registration (kernel path: frozen-bin terms + LM),
+                   brute-force ICP (one pair or a batch), k-NN normals,
+                   robust weights
     mapping/       dense moment window (insert, scroll, NDT field)
     kernels/       voxel hashing, downsampling, the NDT terms kernel
-                   (csrc/ndt_terms.cu, built with nvcc at first use)
-    ingest/        synthetic worlds and the VLP-16 simulator
-    core/          SE(3), symmetric 3x3 closed forms, padded point clouds
+                   (csrc/ndt_terms.cu) and the brute-force NN kernel
+                   (csrc/nn_search.cu), built with nvcc at first use
+    ingest/        synthetic worlds, routes and the VLP-16 simulator
+    core/          SE(3) (batched), symmetric 3x3 closed forms, padded
+                   point clouds, the deterministic scatter-add
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; a
 missing GPU raises instead of silently falling back.

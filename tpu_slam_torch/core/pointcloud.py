@@ -69,7 +69,7 @@ class PointCloud:
 
     def sanitize(self) -> "PointCloud":
         """Force invalid rows onto the sentinel (idempotent)."""
-        pts = torch.where(self.mask[:, None], self.points, PAD_COORD)
+        pts = torch.where(self.mask[..., None], self.points, PAD_COORD)
         return dataclasses.replace(self, points=pts)
 
     def compact(self) -> "PointCloud":

@@ -1,8 +1,9 @@
 """Synthetic LiDAR worlds and the VLP-16 sensor simulation.
 
-Copy of the parts of ``tpu_slam.ingest.synthetic`` the odometry slice
-needs: planar-patch worlds with vectorized ray casting, the VLP-16 ring
-model, and the office and grid-city worlds. The numpy chunk path is the
+Copy of the parts of ``tpu_slam.ingest.synthetic`` the ported slices
+need: planar-patch worlds with vectorized ray casting, the VLP-16 ring
+model, the office, grid-city and ring-corridor worlds, and the corridor
+route of the SLAM workload. The numpy chunk path is the
 reference's, unchanged, so small scenes are bit-identical to it; the large
 single-origin ray-plane pass runs the same algebra in torch on the given
 device (CUDA by default).
@@ -249,3 +250,120 @@ def dense_city(extent: float = 200.0, block_pitch: float = 24.0,
                       e([0, 0, dd[2]])),
             ]
     return World(patches)
+
+
+def ring_corridor(outer: Tuple[float, float, float] = (30.0, 22.0, 3.0),
+                  inner: Tuple[float, float] = (18.0, 10.0)) -> World:
+    """A rectangular ring corridor (office-building floor around a core).
+
+    The drift workload for the SLAM backend benches: inside a straight
+    corridor leg a lidar sees two parallel walls + floor + ceiling, so the
+    along-corridor translation is constrained only by whatever end-wall
+    geometry is in range — odometry drifts along the leg and loop closure
+    on completing the lap must pull it back. Two small pillars mid-leg
+    give the scene just enough texture that odometry does not fail
+    outright.
+    """
+    ox, oy, oz = outer
+    ix, iy = inner
+    # sparse wall cabinets: enough texture that odometry degrades
+    # gracefully (m-scale lap drift) instead of failing outright
+    pillars = [
+        (np.array([-ix / 4, -oy / 2 + 0.6, 0.0]),
+         np.array([-ix / 4 + 0.5, -oy / 2 + 1.1, 2.2])),
+        (np.array([ix / 4, oy / 2 - 1.1, 0.0]),
+         np.array([ix / 4 + 0.5, oy / 2 - 0.6, 2.2])),
+        (np.array([ox / 2 - 1.0, -iy / 4, 0.0]),
+         np.array([ox / 2 - 0.4, -iy / 4 + 0.8, 1.4])),
+        (np.array([-ox / 2 + 0.4, iy / 4, 0.0]),
+         np.array([-ox / 2 + 1.0, iy / 4 + 0.8, 1.4])),
+        (np.array([0.0, -iy / 2 - 0.9, 0.0]),
+         np.array([0.6, -iy / 2 - 0.3, 1.8])),
+        (np.array([-0.6, iy / 2 + 0.3, 0.0]),
+         np.array([0.0, iy / 2 + 0.9, 1.8])),
+    ]
+    # shallow door frames every ~6 m along the outer walls (0.15 m deep):
+    # the along-corridor fix a real office floor provides
+    for x in np.arange(-ox / 2 + 4.0, ox / 2 - 3.0, 6.0):
+        pillars.append((np.array([x, -oy / 2, 0.0]),
+                        np.array([x + 0.25, -oy / 2 + 0.15, 2.1])))
+        pillars.append((np.array([x + 1.1, oy / 2 - 0.15, 0.0]),
+                        np.array([x + 1.35, oy / 2, 2.1])))
+    for y in np.arange(-oy / 2 + 4.0, oy / 2 - 3.0, 6.0):
+        pillars.append((np.array([-ox / 2, y, 0.0]),
+                        np.array([-ox / 2 + 0.15, y + 0.25, 2.1])))
+        pillars.append((np.array([ox / 2 - 0.15, y + 1.1, 0.0]),
+                        np.array([ox / 2, y + 1.35, 2.1])))
+    return make_room(size=outer,
+                     boxes=[(np.array([-ix / 2, -iy / 2, 0.0]),
+                             np.array([ix / 2, iy / 2, oz]))] + pillars)
+
+
+def corridor_route(n_poses: int, step: float = 0.45,
+                   half: Tuple[float, float] = (12.0, 8.0),
+                   corner_r: float = 3.0, z: float = 1.2,
+                   speed_var: float = 0.0) -> np.ndarray:
+    """(N, 4, 4) poses along the ring-corridor centerline, arc corners.
+
+    The rounded-rectangle centerline at x = +-half[0], y = +-half[1];
+    heading follows the direction of travel (counter-clockwise, starting
+    on the south leg heading east). ``speed_var`` sinusoidally modulates
+    the per-scan step by +-that fraction (a platform does not move at
+    perfectly constant speed; the constant-velocity prediction then
+    carries honest error into observability-poor corridor stretches).
+    """
+    hx, hy = half
+    r = corner_r
+    lx, ly = 2 * (hx - r), 2 * (hy - r)     # straight leg lengths
+    qa = math.pi / 2 * r                     # corner arc length
+    per = 2 * lx + 2 * ly + 4 * qa
+    poses = []
+    s_acc = 0.0
+    for k in range(n_poses):
+        if speed_var > 0.0 and k > 0:
+            s_acc += step * (1.0 + speed_var * math.sin(2 * math.pi * k
+                                                        / 23.0))
+        elif k > 0:
+            s_acc += step
+        s = s_acc % per
+        if s < lx:                                       # south leg, east
+            poses.append(se2_pose(-hx + r + s, -hy, 0.0, z=z))
+            continue
+        s -= lx
+        if s < qa:                                       # SE corner
+            th = s / r
+            poses.append(se2_pose(hx - r + r * math.sin(th),
+                                  -hy + r * (1 - math.cos(th)), th, z=z))
+            continue
+        s -= qa
+        if s < ly:                                       # east leg, north
+            poses.append(se2_pose(hx, -hy + r + s, math.pi / 2, z=z))
+            continue
+        s -= ly
+        if s < qa:                                       # NE corner
+            th = s / r
+            poses.append(se2_pose(hx - r * (1 - math.cos(th)),
+                                  hy - r + r * math.sin(th),
+                                  math.pi / 2 + th, z=z))
+            continue
+        s -= qa
+        if s < lx:                                       # north leg, west
+            poses.append(se2_pose(hx - r - s, hy, math.pi, z=z))
+            continue
+        s -= lx
+        if s < qa:                                       # NW corner
+            th = s / r
+            poses.append(se2_pose(-hx + r - r * math.sin(th),
+                                  hy - r * (1 - math.cos(th)),
+                                  math.pi + th, z=z))
+            continue
+        s -= qa
+        if s < ly:                                       # west leg, south
+            poses.append(se2_pose(-hx, hy - r - s, 1.5 * math.pi, z=z))
+            continue
+        s -= ly
+        th = s / r                                       # SW corner
+        poses.append(se2_pose(-hx + r * (1 - math.cos(th)),
+                              -hy + r - r * math.sin(th),
+                              1.5 * math.pi + th, z=z))
+    return np.stack(poses)

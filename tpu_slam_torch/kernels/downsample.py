@@ -1,11 +1,11 @@
 """Voxel-centroid downsampling via sorted segment sums.
 
 Port of ``tpu_slam.kernels.downsample``. Points are stable-sorted by voxel
-key and each run of equal keys is summed with ``index_put_(accumulate=True)``
-— on CUDA a sort-based, atomic-free reduction, so results are identical run
-to run. Padding points each get a segment id of their own (their sorted
-position, past every real segment), so no single index collects the whole
-padded tail.
+key and each run of equal keys is summed with
+``core.scatter.accumulate_rows`` — a sort-based, atomic-free reduction, so
+results are identical run to run. Padding points each get a segment id of
+their own (their sorted position, past every real segment), so no single
+index collects the whole padded tail.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from tpu_slam_torch.core.pointcloud import PAD_COORD, PointCloud
+from tpu_slam_torch.core.scatter import accumulate_rows
 from tpu_slam_torch.kernels.voxel_hash import (INVALID_KEY, VoxelGridSpec,
                                                segment_ids_from_sorted_keys,
                                                sort_by_key)
@@ -24,7 +25,7 @@ def segment_sum(values: torch.Tensor, seg_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Deterministic segment sum: out[s] = sum of values[i] with seg_ids[i]=s."""
     out = values.new_zeros((num_segments,) + values.shape[1:])
-    return out.index_put_((seg_ids.long(),), values, accumulate=True)
+    return accumulate_rows(out, seg_ids.long(), values)
 
 
 def voxel_downsample(cloud: PointCloud, spec: VoxelGridSpec,

@@ -3,9 +3,10 @@
 Port of ``tpu_slam.mapping.dense_map``: ``rows`` (G, 10) float32 per-cell
 moments [n, s(3), outer-triu(6)] taken about each cell's own corner, and
 ``origin_cell`` (3,) int32 placing window cell (0, 0, 0) on the global cell
-lattice of a VoxelGridSpec. Insert is one sort-based ``index_put_``
-accumulate (no float atomics); the NDT field comes straight from the window
-moments (three separable 3x3x3 passes + closed-form floored inverses).
+lattice of a VoxelGridSpec. Insert is one sort-based accumulate
+(``core.scatter.accumulate_rows``, no float atomics); the NDT field comes
+straight from the window moments (three separable 3x3x3 passes +
+closed-form floored inverses).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Tuple, Union
 import torch
 
 from tpu_slam_torch.core.pointcloud import PointCloud
+from tpu_slam_torch.core.scatter import accumulate_rows
 from tpu_slam_torch.kernels.voxel_hash import VoxelGridSpec
 
 
@@ -77,7 +79,7 @@ def grid_insert(grid: DenseMomentGrid, cloud: PointCloud,
 
     ``weight`` scales every point's contribution (0 = no-op insert, the
     branch-free reject path). Points outside the window are dropped.
-    Accumulation is ``index_put_(accumulate=True)``: a stable sort of the
+    Accumulation is ``core.scatter.accumulate_rows``: a stable sort of the
     cell indices, then each cell's points summed in input order.
     """
     wx, wy, wz = grid.dims
@@ -109,7 +111,7 @@ def grid_insert(grid: DenseMomentGrid, cloud: PointCloud,
         local[:, 0:1] * lw[:, 0:3],            # oxx oxy oxz
         local[:, 1:2] * lw[:, 1:3],            # oyy oyz
         local[:, 2:3] * lw[:, 2:3]], dim=1)    # ozz
-    rows = grid.rows.index_put((cell,), contrib, accumulate=True)
+    rows = accumulate_rows(grid.rows.clone(), cell, contrib)
     return DenseMomentGrid(rows=rows, origin_cell=grid.origin_cell,
                            dims=grid.dims)
 

@@ -1,30 +1,19 @@
-"""Configuration of the odometry pipeline.
+"""Configuration of the odometry and SLAM pipelines.
 
-Port of ``tpu_slam.pipeline.config.OdometryConfig``: the same fields and
-defaults, as a frozen dataclass. ``ICPParams`` is a copy of the reference's
-dataclass (the ICP engine itself is not ported yet); ``SLAMConfig`` waits
-for the SLAM port.
+Port of ``tpu_slam.pipeline.config``: ``OdometryConfig`` and ``SLAMConfig``
+with the reference's fields and defaults, as frozen dataclasses.
+``ICPParams`` lives in ``registration.icp``, as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from tpu_slam_torch.graph.loop_closure import LoopClosureParams
+from tpu_slam_torch.graph.pose_graph import GraphSolveParams
 from tpu_slam_torch.kernels.voxel_hash import VoxelGridSpec
+from tpu_slam_torch.registration.icp import ICPParams
 from tpu_slam_torch.registration.ndt import NDTParams
-
-
-@dataclasses.dataclass(frozen=True)
-class ICPParams:
-    """Static ICP configuration (copy of the reference's fields)."""
-
-    max_iterations: int = 30
-    tolerance: float = 1e-4
-    max_corr_dist: float = 1.0
-    huber_delta: float = 0.5
-    point_to_plane: bool = False
-    damping: float = 1e-6
-    nn_impl: str = "auto"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,3 +69,40 @@ class OdometryConfig:
     def scan_spec(self) -> VoxelGridSpec:
         return VoxelGridSpec.centered(leaf=self.downsample_leaf,
                                       half_extent=self.map_half_extent)
+
+
+@dataclasses.dataclass(frozen=True)
+class SLAMConfig:
+    """Full SLAM system configuration (odometry + graph backend)."""
+
+    odometry: OdometryConfig = OdometryConfig()
+    odometry_engine: str = "host"       # 'host' (sparse-map engine, not
+                                        # ported yet) | 'dense' (the
+                                        # dense-window engine; needs
+                                        # odometry.ndt.window_dims)
+
+    # Keyframe policy
+    keyframe_translation: float = 0.5   # new keyframe after this motion (m)
+    keyframe_rotation: float = 0.3      # ... or this rotation (rad)
+    keyframe_capacity: int = 512
+    keyframe_cloud_capacity: int = 8192  # stored downsampled points per kf
+    window_evict_fraction: float = 0.25  # fixed-lag window: when keyframe or
+                                        # edge capacity fills, this fraction
+                                        # of the oldest keyframes is evicted
+                                        # (their poses archived first)
+
+    # Loop closure / graph
+    loop_every: int = 5                 # run detection every k keyframes
+    loop: LoopClosureParams = LoopClosureParams()
+    # robust (redescending Cauchy) kernel on by default: one wrong accepted
+    # closure must not fold the trajectory
+    graph: GraphSolveParams = GraphSolveParams(gn_iterations=8,
+                                               robust_delta=2.0,
+                                               robust_kernel="cauchy")
+    edge_capacity: int = 2048
+    odom_edge_info: float = 100.0       # information weight of odometry edges
+    loop_edge_info: float = 25.0        # loop-closure edge weight
+    rebuild_map_after_loop: bool = True
+    reanchor_after_loop: bool = True    # False = loosely coupled: the graph
+                                        # keeps the optimized trajectory and
+                                        # odometry free-runs
