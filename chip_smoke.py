@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one GPU: dense odometry (bench config 2)
-and full SLAM on the dense engine (bench config 4).
+"""Drive the PyTorch/CUDA port on one GPU: dense odometry (bench config 2),
+full SLAM on the dense engine (bench config 4), pair ICP on both tiers
+(bench config 1) and the gather probes.
 
     python3 chip_smoke.py
 
@@ -34,6 +35,22 @@ Phases, each printing one JSON line:
                of the slam run's own keyframes (6 pairs x 4,096 points) and
                a seeded edge case (ties, padding, ragged sizes, one pair);
                indices equal, squared distances bit-equal, times and bound
+  pair_icp     config 1 at 8k, 16k, 32k, 64k and 128k points: the raster
+               tier (icp_raster, coarse then fine call) and the brute tier
+               (icp)
+               timed as registrations/s by slope_time, recovery errors,
+               matched fractions, the tier icp_auto picks, launches, host
+               syncs and device idle share a registration
+  kernels      icp_terms against its plain version: config 1's coarse and
+               fine stage inputs at 8k and 32k, the windows of
+               benchmarks/_probe_icp_kernel.py (with the source binning
+               timed) and a seeded edge case (ties, cells over capacity,
+               the x = 0 and x = Wx-1 planes, padding); nmatch equal
+  probes       the ports of the three gather probes (tpu_slam_torch/
+               benchmarks) at their original sizes, then gather_rows,
+               gather_row_sum and onehot_gather against their plain
+               versions at the probes' shapes: bit-equal, times, bound and
+               the one PyTorch call that computes the same function
 
 then the script's total seconds, the card's name and power limit
 (nvidia-smi), one JSON line with every kernel's numbers, and as the last
@@ -71,6 +88,28 @@ C4_SCANS = 230
 C4_KF_ATE_BAR_M = 0.30
 C4_MIN_LOOPS = 40
 C4_KEYFRAMES = (200, 230)
+# Config 1 of bench.py (bench_icp_pair): pair ICP in the default office,
+# the source the target moved by exp(C1_XI)^-1. The bars are the
+# reference's recovery errors (raster 12.44 mm, brute 11.1 mm at 8k) with
+# room for another float summation order
+C1_XI = [0.15, -0.1, 0.05, 0.02, -0.02, 0.04]
+# azimuths (x 16 rays): the reference's 8k and 32k, and 16k, 64k and 128k
+# to bracket the tiers' crossover on this card
+C1_SIZES = ((512, "8k"), (1024, "16k"), (2048, "32k"), (4096, "64k"),
+            (8192, "128k"))
+C1_RASTER_BAR_MM = 15.0        # at 8k
+C1_BRUTE_BAR_MM = 13.0         # at 8k
+C1_LARGE_BAR_MM = 20.0         # both tiers at the larger sizes
+C1_PERM = (2, 0, 1)            # world z on window x
+C1_ORIGIN = (-4.0, -8.0, -8.0)     # (z, x, y)
+C1_COARSE = dict(dims=(8, 16, 16), leaf=1.0)
+C1_FINE = dict(dims=(16, 32, 32), leaf=0.5)
+# slope_time's (K1, K2) per tier and size: the reference's at 8k and 32k
+C1_SLOPE_K = {("raster", "8k"): (5, 55), ("brute", "8k"): (3, 23),
+              ("raster", "16k"): (3, 23), ("brute", "16k"): (2, 8),
+              ("raster", "32k"): (3, 23), ("brute", "32k"): (2, 8),
+              ("raster", "64k"): (3, 23), ("brute", "64k"): (2, 8),
+              ("raster", "128k"): (3, 23), ("brute", "128k"): (2, 8)}
 # kernel vs plain: each 3x3 block of H, each half of b, and the cost within
 # this fraction of that part's own largest magnitude (float32 sums in
 # another order); matched count exactly equal, since both round the
@@ -82,11 +121,19 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def nvidia_smi_line(query: str = "name,power.limit") -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def clocks_now() -> str:
+    """SM clock and its maximum, power draw and temperature, sampled right
+    after a kernel's timing loop: times differ between calls of the same
+    code, and this says whether the card's clocks differed."""
+    return nvidia_smi_line("clocks.sm,clocks.max.sm,power.draw,"
+                           "temperature.gpu")
 
 
 # ---------------------------------------------------------------------------
@@ -302,60 +349,82 @@ def device_time_us(fn, reps):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            out[e.key] = e.self_device_time_total / reps
+    # a profiled cycle can come back without device events on the card;
+    # profile up to twice more
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+                out[e.key] = e.self_device_time_total / reps
+        if out:
+            break
     return out, prof
 
 
-def check_terms_case(name, args):
-    """Kernel vs plain on one case; returns the case's numbers."""
+def check_sums_case(name, kernel, plain, args, blocks, count_at, work,
+                    build=None):
+    """A reduction kernel (NDT or ICP terms) vs its plain version on one
+    case: each part of ``blocks(out)`` within RTOL_OF_MAX of its own
+    largest magnitude, the matched count ``out[count_at]`` exactly equal
+    and above 0; times, the bound from ``work`` = (bytes, flops, counts),
+    and the source binning ``build`` timed beside the pass if given."""
     import torch
 
-    from tpu_slam_torch.kernels.ndt_terms import ndt_terms, ndt_terms_plain
-
-    slots, rows16, T, gamma, max_corr, dims = args
-    got = ndt_terms(*args)
-    ref = ndt_terms_plain(*args)
+    label0 = f"{kernel.__name__} {name}"
+    got = kernel(*args)
+    ref = plain(*args)
     torch.cuda.synchronize()
     errs, rel = [], {}
-    for (label, a), (_, b) in zip(terms_blocks(got), terms_blocks(ref)):
+    for (label, a), (_, b) in zip(blocks(got), blocks(ref)):
         err = float((a - b).abs().max())
         scale = float(b.abs().max())
         if not err <= RTOL_OF_MAX * max(scale, 1e-30):
-            raise AssertionError(f"ndt_terms {name}: {label} off by {err} "
+            raise AssertionError(f"{label0}: {label} off by {err} "
                                  f"(scale {scale})")
         errs.append(err)
         rel[label] = err / max(scale, 1e-30)
-    if float(got[3]) != float(ref[3]):
-        raise AssertionError(f"ndt_terms {name}: matched {float(got[3])} "
-                             f"!= plain {float(ref[3])}")
-    if not float(ref[3]) > 0:
-        raise AssertionError(f"ndt_terms {name}: nothing matched")
-    ms = time_ms(lambda: ndt_terms(*args), 50)
-    plain_ms = time_ms(lambda: ndt_terms_plain(*args), 5)
+    if float(got[count_at]) != float(ref[count_at]):
+        raise AssertionError(f"{label0}: matched {float(got[count_at])} "
+                             f"!= plain {float(ref[count_at])}")
+    if not float(ref[count_at]) > 0:
+        raise AssertionError(f"{label0}: nothing matched")
+    ms = time_ms(lambda: kernel(*args), 50)
+    clocks = clocks_now()
+    plain_ms = time_ms(lambda: plain(*args), 5)
     # the event time above includes the wrapper's host work when that is
     # longer than the device work; the profiler splits out the kernel
-    per_kernel, _ = device_time_us(lambda: ndt_terms(*args), 20)
-    kernel_us = sum(t for k, t in per_kernel.items()
-                    if "ndt_terms_kernel" in k)
-    nbytes, flops, counts = terms_work(slots, rows16, T, max_corr, dims)
+    per_kernel, _ = device_time_us(lambda: kernel(*args), 20)
+    key = kernel.__name__.replace("_raster", "") + "_kernel"
+    kernel_us = sum(t for k, t in per_kernel.items() if key in k)
+    nbytes, flops, counts = work
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
-    return dict(case=name, dims=list(dims), n_slots=slots.cell.shape[0],
-                matched=float(got[3]), max_abs_err=max(errs),
+    extra = {} if build is None else dict(build_ms=time_ms(build, 20))
+    return dict(case=name, n_slots=args[0].cell.shape[0],
+                matched=float(got[count_at]), max_abs_err=max(errs),
                 rel_err_of_block_max=rel, ms=ms, plain_ms=plain_ms,
                 kernel_device_us=kernel_us or None,
                 wrapper_device_us=sum(per_kernel.values()) or None,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, flops=flops, **counts)
+                bytes=nbytes, flops=flops, clocks_after_timing=clocks,
+                **counts, **extra)
+
+
+def check_terms_case(name, args):
+    """ndt_terms vs its plain version on one case."""
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms, ndt_terms_plain
+
+    slots, rows16, T, _, max_corr, dims = args
+    return dict(check_sums_case(name, ndt_terms, ndt_terms_plain, args,
+                                terms_blocks, 3,
+                                terms_work(slots, rows16, T, max_corr,
+                                           dims)), dims=list(dims))
 
 
 # ---------------------------------------------------------------------------
@@ -843,18 +912,13 @@ def check_nn_case(name, q, t, q_mask, t_mask):
     pd = nearest_neighbors_plain(q, t)[1]
     err = float((gd - pd).abs().max())
     ms = time_ms(lambda: nearest_neighbors(q, t), 20)
+    clocks = clocks_now()
     plain_ms = time_ms(lambda: nearest_neighbors_plain(q, t), 3)
     library_ms = time_ms(lambda: torch.cdist(
         q, t, compute_mode="donot_use_mm_for_euclid_dist").min(-1), 5)
     per_kernel, _ = device_time_us(lambda: nearest_neighbors(q, t), 10)
     kernel_us = sum(v for k, v in per_kernel.items()
                     if "nn_search_kernel" in k)
-    if not kernel_us:
-        # a profiled cycle has come back without device events on the
-        # card; profile once more
-        per_kernel, _ = device_time_us(lambda: nearest_neighbors(q, t), 10)
-        kernel_us = sum(v for k, v in per_kernel.items()
-                        if "nn_search_kernel" in k)
     nbytes, flops = nn_work(q, t, q_mask, t_mask)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
@@ -868,7 +932,7 @@ def check_nn_case(name, q, t, q_mask, t_mask):
                     key=lambda kv: -kv[1])[:4],
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, flops=flops)
+                bytes=nbytes, flops=flops, clocks_after_timing=clocks)
 
 
 def nn_edge_case(device, seed=0):
@@ -924,6 +988,552 @@ def phase_nn_kernels(run):
     return cases
 
 
+# ---------------------------------------------------------------------------
+# Config 1: pair ICP, raster and brute tiers (bench.py:158-276)
+# ---------------------------------------------------------------------------
+
+def config1_pair(device, n_azimuth):
+    """(source, target, xi): one VLP-16 revolution in the default office
+    from z = 1.5 m, and the same cloud moved by exp(xi)^-1."""
+    import torch
+
+    from tpu_slam_torch.core import se3
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.ingest import synthetic as syn
+
+    T0 = np.eye(4)
+    T0[:3, 3] = [0, 0, 1.5]
+    pts, valid = syn.simulate_vlp16_revolution(
+        syn.default_office(), T0, n_azimuth=n_azimuth, device=device)
+    tgt = PointCloud.from_points_host(pts[valid], capacity=n_azimuth * 16,
+                                      device=device)
+    xi = torch.tensor(C1_XI, dtype=torch.float32, device=device)
+    return tgt.transform(se3.inverse(se3.exp(xi))), tgt, xi
+
+
+def config1_params():
+    """(brute, coarse raster, fine raster) ICPParams of bench_icp_pair."""
+    import dataclasses
+
+    from tpu_slam_torch.registration.icp import ICPParams
+
+    params = ICPParams(max_iterations=30, max_corr_dist=1.5)
+    return (params,
+            dataclasses.replace(params, max_iterations=8, tolerance=1e-3),
+            dataclasses.replace(params, max_iterations=8, tolerance=5e-4))
+
+
+def raster_register(src, tgt, init_T=None):
+    """The raster tier of config 1: a coarse call (leaf 1.0), then a fine
+    call (leaf 0.5) from its result, both with world z on window x.
+    Returns (coarse result, fine result)."""
+    import torch
+
+    from tpu_slam_torch.registration.icp import icp_raster
+
+    _, coarse, fine = config1_params()
+    origin = torch.tensor(C1_ORIGIN, device=src.points.device)
+    r0 = icp_raster(src, tgt, init_T=init_T, params=coarse,
+                    origin_world=origin, axis_perm=C1_PERM, **C1_COARSE)
+    return r0, icp_raster(src, tgt, init_T=r0.T, params=fine,
+                          origin_world=origin, axis_perm=C1_PERM, **C1_FINE)
+
+
+def brute_register(src, tgt, init_T=None):
+    from tpu_slam_torch.registration.icp import icp
+
+    return icp(src, tgt, init_T=init_T, params=config1_params()[0])
+
+
+def registration_loop(register, device):
+    """bench_icp_pair's timed loop: K registrations, each started from the
+    last result moved by sin(i) * 0.05 in x, so every one depends on the
+    one before; returns a scalar that depends on all of them."""
+    import torch
+
+    def run(k):
+        Tc = torch.eye(4, device=device)
+        acc = torch.zeros((), device=device)
+        for i in range(k):
+            Ti = Tc.clone()
+            Ti[0, 3] += math.sin(i) * 0.05
+            r = register(Ti)
+            Tc, acc = r.T, acc + r.error
+        return Tc[0, 3] + acc
+
+    return run
+
+
+def recovery_err_mm(xi, T):
+    from tpu_slam_torch.core import se3
+
+    return float(se3.log(se3.inverse(se3.exp(xi)) @ T).norm()) * 1e3
+
+
+def registration_profile(fn, counter):
+    """One call of ``fn`` on the host clock, then the same call under
+    torch.profiler: kernel launches, host syncs (device-to-host scalar
+    reads; host-to-device copies from pageable memory, which wait for the
+    stream too), device busy time, the device's idle share of the
+    unprofiled call, the host ops that take the most CPU time, and how far
+    ``counter()`` (a kernel's launch count) moved in the profiled call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    before = counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    top_cpu = sorted(((e.key[:60], e.self_cpu_time_total, e.count)
+                      for e in ka if e.device_type == DeviceType.CPU),
+                     key=lambda r: -r[1])[:8]
+    busy_us = sum(e.self_device_time_total for e in ka
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation)
+    return dict(
+        wall_us=wall_us, device_busy_us=busy_us,
+        device_idle_share=1.0 - busy_us / wall_us,
+        counted_launches=counter() - before,
+        kernel_launches=sum(e.count for e in ka if e.key in (
+            "cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")),
+        host_syncs=sum(e.count for e in ka
+                       if e.key == "aten::_local_scalar_dense"),
+        htod_copies=sum(e.count for e in ka if "Memcpy HtoD" in e.key),
+        top_cpu_us=top_cpu)
+
+
+def phase_pair_icp():
+    """Config 1 at 8k to 128k points: both tiers' registrations/s
+    (slope of a K-registration loop), recovery errors, matched fractions,
+    the tier icp_auto picks, and launches and syncs a registration."""
+    import torch
+
+    from tpu_slam_torch.kernels.icp_terms import (icp_terms_plain,
+                                                  icp_terms_raster)
+    from tpu_slam_torch.kernels.nn_search import (nearest_neighbors,
+                                                  nearest_neighbors_plain)
+    from tpu_slam_torch.registration.icp import AUTO_CROSSOVER, icp_auto
+    from tpu_slam_torch.utils.devtime import slope_time
+
+    dev = torch.device("cuda")
+    pairs = {label: config1_pair(dev, n_az) for n_az, label in C1_SIZES}
+    plain_before = (icp_terms_plain.launches, nearest_neighbors_plain.launches)
+    torch.cuda.synchronize()
+    icp_terms_raster.launches = 0
+    nearest_neighbors.launches = 0
+    out, rate = {}, {}
+    for label, (src, tgt, xi) in pairs.items():
+        at_start = (icp_terms_raster.launches, nearest_neighbors.launches)
+        r0, rr = raster_register(src, tgt)
+        rb = brute_register(src, tgt)
+        torch.cuda.synchronize()
+        for tier, reg in (("raster", lambda T, s=src, t=tgt:
+                           raster_register(s, t, T)[1]),
+                          ("brute", lambda T, s=src, t=tgt:
+                           brute_register(s, t, T))):
+            dt = slope_time(registration_loop(reg, dev),
+                            *C1_SLOPE_K[(tier, label)], device=dev)
+            rate[(tier, label)] = 1.0 / dt
+        n_valid = int(src.mask.sum())
+        prof_r = registration_profile(lambda: raster_register(src, tgt),
+                                      lambda: icp_terms_raster.launches)
+        prof_b = registration_profile(lambda: brute_register(src, tgt),
+                                      lambda: nearest_neighbors.launches)
+        iters_r = int(r0.iterations) + int(rr.iterations)
+        out[label] = dict(
+            points=int(src.capacity), valid_points=n_valid,
+            raster_registrations_per_sec=rate[("raster", label)],
+            brute_registrations_per_sec=rate[("brute", label)],
+            raster_recovery_err_mm=recovery_err_mm(xi, rr.T),
+            brute_recovery_err_mm=recovery_err_mm(xi, rb.T),
+            raster_iterations=[int(r0.iterations), int(rr.iterations)],
+            brute_iterations=int(rb.iterations),
+            raster_iters_per_sec=iters_r * rate[("raster", label)],
+            brute_iters_per_sec=int(rb.iterations) * rate[("brute", label)],
+            raster_matched_fraction=float(rr.matched_fraction),
+            brute_matched_fraction=float(rb.matched_fraction),
+            # one registration from the identity each (the timed loops
+            # start each one from the last result, so take fewer steps)
+            raster_profile=prof_r, brute_profile=prof_b,
+            # this size's share of the phase's launches
+            icp_terms_launches=icp_terms_raster.launches - at_start[0],
+            nn_search_launches=nearest_neighbors.launches - at_start[1])
+
+    # the tier icp_auto routes each size to, seen from the kernel counters
+    auto = {}
+    _, _, fine = config1_params()
+    origin = torch.tensor(C1_ORIGIN, device=dev)
+    for label, (src, tgt, _) in pairs.items():
+        nn0 = nearest_neighbors.launches
+        icp_auto(src, tgt, params=fine, origin_world=origin,
+                 axis_perm=C1_PERM, **C1_FINE)
+        auto[label] = "brute" if nearest_neighbors.launches > nn0 else "raster"
+    torch.cuda.synchronize()
+    launches = icp_terms_raster.launches
+    nn_launches = nearest_neighbors.launches
+    faster = [label for _, label in C1_SIZES
+              if rate[("raster", label)] > rate[("brute", label)]]
+    e8 = out["8k"]
+    # bench_icp_pair's keys at 8k and 32k; its iters_per_sec counts the
+    # fine call's iterations
+    emit("pair_icp", sizes=out, auto_crossover=AUTO_CROSSOVER,
+         raster_faster_at=faster,
+         registrations_per_sec=e8["raster_registrations_per_sec"],
+         iters_per_sec=e8["raster_iterations"][1]
+         * e8["raster_registrations_per_sec"],
+         recovery_err_mm=e8["raster_recovery_err_mm"],
+         brute_registrations_per_sec=e8["brute_registrations_per_sec"],
+         brute_recovery_err_mm=e8["brute_recovery_err_mm"],
+         raster_32k_registrations_per_sec=out["32k"][
+             "raster_registrations_per_sec"],
+         brute_32k_registrations_per_sec=out["32k"][
+             "brute_registrations_per_sec"],
+         auto_tier_8k=auto["8k"], auto_tier_32k=auto["32k"], auto_tiers=auto,
+         points=e8["points"], icp_terms_launches=launches,
+         nn_search_launches=nn_launches)
+    if (icp_terms_plain.launches,
+            nearest_neighbors_plain.launches) != plain_before:
+        raise AssertionError("config 1 ran a plain kernel version")
+    if launches <= 0 or nn_launches <= 0:
+        raise AssertionError("config 1 launched no icp_terms or no nn_search "
+                             "kernel")
+    for label, r in out.items():
+        bars = ((C1_RASTER_BAR_MM, C1_BRUTE_BAR_MM) if label == "8k"
+                else (C1_LARGE_BAR_MM, C1_LARGE_BAR_MM))
+        for tier, bar in zip(("raster", "brute"), bars):
+            err = r[f"{tier}_recovery_err_mm"]
+            if not err <= bar:
+                raise AssertionError(f"config 1 {label} {tier}: recovery "
+                                     f"error {err} mm above {bar} mm")
+    return launches, nn_launches, pairs
+
+
+def icp_work(slots, table, T, dims, qt):
+    """Bytes the ICP terms pass must move and the float32 operations it
+    does on this data. Bytes: every slot's valid flag; the point (12) and
+    cell (4) of each kept slot; of each target slot in a touched cell, its
+    point and flag (16) when valid, else the flag (4); T and the 30
+    outputs. Flops: 18 a kept slot for the transform and ~40 for the 6x6
+    expansion, 9 a visited valid target slot (residual, d2, compare)."""
+    import torch
+
+    wx, wy, wz = dims
+    g = wx * wy * wz
+    v = slots.valid
+    c = slots.cell.long()
+    cx, cy, cz = c // (wy * wz), (c // wz) % wy, c % wz
+    tvalid = (table[:, 3] > 0.5).view(g, qt)
+    touched, visited = [], 0
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                nx, ny, nz = cx + dx, cy + dy, cz + dz
+                ok = (v & (nx >= 0) & (nx < wx) & (ny >= 0) & (ny < wy)
+                      & (nz >= 0) & (nz < wz))
+                nc = torch.clamp((nx * wy + ny) * wz + nz, 0, g - 1)
+                touched.append(nc[ok])
+                visited += int((ok[:, None] & tvalid[nc]).sum())
+    cells = torch.unique(torch.cat(touched))
+    n_full = int(tvalid[cells].sum())
+    n_slots = int(cells.numel()) * qt
+    n = slots.cell.shape[0]
+    n_valid = int(v.sum())
+    nbytes = (n + n_valid * (12 + 4) + n_full * 16 + (n_slots - n_full) * 4
+              + 64 + 30 * 4)
+    flops = n_valid * (18 + 40) + visited * 9
+    return nbytes, flops, dict(slots=n_valid, touched_cells=int(cells.numel()),
+                               touched_valid_target_slots=n_full,
+                               visited_pairs=visited)
+
+
+def icp_blocks(out):
+    """(label, tensor) for each part of an ICP terms result held to its own
+    scale, as terms_blocks does for NDT."""
+    H, b, err, _, wsum = out
+    return [("H_tt", H[:3, :3]), ("H_tr", H[:3, 3:]), ("H_rt", H[3:, :3]),
+            ("H_rr", H[3:, 3:]), ("b_t", b[:3]), ("b_r", b[3:]),
+            ("err", err), ("wsum", wsum)]
+
+
+def check_icp_case(name, args, build=None):
+    """icp_terms vs its plain version on one case."""
+    from tpu_slam_torch.kernels.icp_terms import (icp_terms_plain,
+                                                  icp_terms_raster)
+
+    slots, table, T, _, _, dims, qs, qt = args
+    return dict(check_sums_case(name, icp_terms_raster, icp_terms_plain,
+                                args, icp_blocks, 3,
+                                icp_work(slots, table, T, dims, qt),
+                                build=build), dims=list(dims), qs=qs, qt=qt)
+
+
+def config1_stage_args(src, tgt, init_T, stage):
+    """The terms pass's inputs at the entry of a config-1 raster call:
+    the source binned at the call's initial pose, the target table."""
+    import torch
+
+    from tpu_slam_torch.kernels.ndt_terms import build_terms_raster
+    from tpu_slam_torch.registration.icp import raster_problem
+
+    _, coarse, fine = config1_params()
+    params, geo = (coarse, C1_COARSE) if stage == "coarse" else (fine,
+                                                                 C1_FINE)
+    origin = torch.tensor(C1_ORIGIN, device=src.points.device)
+    prob = raster_problem(src, tgt, init_T, geo["dims"], geo["leaf"], 8,
+                          origin, C1_PERM)
+    slots, _ = build_terms_raster(prob.source.points, prob.source.mask,
+                                  prob.init_T, prob.origin, geo["leaf"],
+                                  geo["dims"], 8)
+    return (slots, prob.tgt_table, prob.init_T, params.max_corr_dist,
+            params.huber_delta, geo["dims"], 8, 8)
+
+
+def icp_edge_case(device, seed=0, dims=(16, 8, 8), q=4, leaf=0.5):
+    """A seeded ICP terms case: random points over the window and 0.3 m
+    beyond it, a cell over capacity on both sides, points in the x = 0 and
+    x = Wx-1 planes, 30 padding rows, and three tie groups (a source point
+    with two equally near targets: across dx, inside one cell's slots,
+    across dy against dz) in a cleared region. T is a translation by
+    binary fractions, so the ties are exact on the card."""
+    import torch
+
+    from tpu_slam_torch.kernels.ndt_terms import (build_terms_raster,
+                                                  raster_to_slots)
+
+    rng = np.random.default_rng(seed)
+    ext = np.asarray(dims, np.float64) * leaf
+    t = np.array([0.0625, -0.03125, 0.015625])
+    tie_src = np.array([[5.25, 1.25, 1.25], [6.75, 2.75, 2.75],
+                        [5.25, 3.25, 1.25]])
+    tie_tgt = np.array([[5.75, 1.25, 1.25], [4.75, 1.25, 1.25],
+                        [6.75, 2.625, 2.75], [6.875, 2.75, 2.75],
+                        [5.25, 3.25, 0.75], [5.25, 2.75, 1.25]])
+    tgt = rng.uniform(-0.3, ext + 0.3, (3000, 3))
+    tgt[:10] = 0.5 * ext + 0.1                          # over capacity
+    tgt[10:40, 0] = rng.uniform(0.0, leaf, 30)          # x = 0 plane
+    tgt[40:70, 0] = ext[0] - rng.uniform(0.0, leaf, 30)  # x = Wx-1 plane
+    near = np.min(np.linalg.norm(tgt[:, None] - tie_src[None], axis=2),
+                  axis=1)
+    tgt = np.concatenate([tgt[near > 1.0], tie_tgt]).astype(np.float32)
+    # the source: 2,000 of the targets with 5 cm noise (those near the tie
+    # groups left out), a crowded cell, the ties, padding; in its own
+    # frame, x = T^-1 p
+    pick = rng.permutation(len(tgt) - 6)[:2000]
+    pick[:60] = np.arange(10, 70)             # the edge-plane points
+    src = tgt[pick] + rng.normal(0, 0.05, (2000, 3))
+    near = np.min(np.linalg.norm(src[:, None] - tie_src[None], axis=2),
+                  axis=1)
+    src = np.concatenate([src[near > 1.0], np.full((20, 3), 0.3 * ext + 0.1),
+                          tie_src])
+    src = np.concatenate([src - t, np.full((30, 3), 1e8)]).astype(np.float32)
+    mask = np.ones(len(src), bool)
+    mask[-30:] = False
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = t
+    g = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        x, dtype=dt, device=device)
+    origin = g(np.zeros(3))
+    slots, _ = build_terms_raster(g(src), g(mask, torch.bool), g(T), origin,
+                                  leaf, dims, q)
+    tslots, _ = build_terms_raster(g(tgt), g(np.ones(len(tgt), bool),
+                                             torch.bool),
+                                   g(np.eye(4)), origin, leaf, dims, q)
+    return (slots, raster_to_slots(tslots, dims, q), g(T), 1.0, 0.3, dims,
+            q, q)
+
+
+def phase_icp_kernels(pairs):
+    """icp_terms against its plain version on the card: config 1's coarse
+    and fine stage inputs at 8k and 32k, _probe_icp_kernel.py's windows
+    (with the source binning timed beside the pass), and the edge case;
+    then nn_search on the brute tier's first NN pass at 8k."""
+    import torch
+
+    from tpu_slam_torch.kernels.ndt_terms import (build_terms_raster,
+                                                  raster_to_slots)
+
+    cases = []
+    for label in ("8k", "32k"):
+        src, tgt, _ = pairs[label]
+        r0, _ = raster_register(src, tgt)
+        cases.append(check_icp_case(f"c1_{label}_coarse", config1_stage_args(
+            src, tgt, None, "coarse")))
+        cases.append(check_icp_case(f"c1_{label}_fine", config1_stage_args(
+            src, tgt, r0.T, "fine")))
+    # benchmarks/_probe_icp_kernel.py: 8k points, unpermuted, binned at the
+    # identity, a pose 1e-6 m off it
+    src, tgt, _ = pairs["8k"]
+    dev = src.points.device
+    origin = torch.tensor([-8.0, -8.0, -4.0], device=dev)
+    eye = torch.eye(4, device=dev)
+    T = eye.clone()
+    T[0, 3] += 1e-6
+    for dims, q in (((32, 32, 16), 8), ((16, 32, 16), 8), ((32, 32, 16), 4)):
+        tslots, _ = build_terms_raster(tgt.points, tgt.mask, eye, origin, 0.5,
+                                       dims, q)
+
+        def build(dims=dims, q=q):
+            return build_terms_raster(src.points, src.mask, eye, origin, 0.5,
+                                      dims, q)
+
+        cases.append(check_icp_case(
+            f"probe_{dims[0]}x{dims[1]}x{dims[2]}_q{q}",
+            (build()[0], raster_to_slots(tslots, dims, q), T, 1.5, 0.5, dims,
+             q, q), build=build))
+    cases.append(check_icp_case("edges", icp_edge_case(dev)))
+    emit("kernels", kernels=["icp_terms"], cases=cases,
+         rtol_of_max=RTOL_OF_MAX, check="nmatch exactly equal")
+    # the brute tier's NN pass at its first iteration, 8k x 8k
+    src, tgt, _ = pairs["8k"]
+    nn_case = check_nn_case("c1_8k_first_iteration", src.points, tgt.points,
+                            src.mask, tgt.mask)
+    emit("kernels", kernels=["nn_search"], cases=[nn_case],
+         check="indices equal, squared distances bit-equal")
+    return cases, nn_case
+
+
+# ---------------------------------------------------------------------------
+# The gather probes (benchmarks/_pallas_gather_probe.py, _gather_probe.py,
+# _dyngather_probe.py)
+# ---------------------------------------------------------------------------
+
+def gather_work(table, idx, out, per_element=False):
+    """Bytes a gather must move: the indices, the distinct table values
+    they reach (in-table indices only), the output; each once."""
+    import torch
+
+    cols = table.shape[1]
+    ok = (idx >= 0) & (idx < table.shape[0])
+    if per_element:
+        j = torch.arange(cols, device=idx.device).expand_as(idx)
+        n_values = int(torch.unique((idx.long() * cols + j)[ok]).numel())
+    else:
+        n_values = int(torch.unique(idx[ok]).numel()) * cols
+    return idx.numel() * 4 + n_values * 4 + out.numel() * 4
+
+
+def check_gather_case(name, kernel, plain, args, library=None,
+                      per_element=False):
+    """A gather kernel vs its plain version: bit-equal; times and bound."""
+    import torch
+
+    got = kernel(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{kernel.__name__} {name}: differs from the "
+                             f"plain version by "
+                             f"{float((got - ref).abs().max())}")
+    ms = time_ms(lambda: kernel(*args), 50)
+    clocks = clocks_now()
+    plain_ms = time_ms(lambda: plain(*args), 5)
+    library_ms = None if library is None else time_ms(library, 50)
+    per_kernel, _ = device_time_us(lambda: kernel(*args), 20)
+    kernel_us = sum(t for k, t in per_kernel.items()
+                    if f"{kernel.__name__}_kernel" in k)
+    nbytes = gather_work(args[0], args[1], got, per_element)
+    return dict(case=name, kernel=kernel.__name__,
+                table=list(args[0].shape), idx=list(args[1].shape),
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, kernel_device_us=kernel_us or None,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                bytes=nbytes, clocks_after_timing=clocks)
+
+
+def phase_probes():
+    """The three probe ports on the card (their main path: every variant
+    at the original sizes), then each gather kernel against its plain
+    version at the probes' shapes."""
+    import torch
+
+    from tpu_slam_torch.benchmarks import (_dyngather_probe, _gather_probe,
+                                           _pallas_gather_probe)
+    from tpu_slam_torch.kernels import gather as G
+
+    kernels = (G.gather_rows, G.gather_row_sum, G.onehot_gather)
+    plains = (G.gather_rows_plain, G.gather_row_sum_plain,
+              G.onehot_gather_plain)
+    plain_before = [p.launches for p in plains]
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    results = [m.main("cuda") for m in (_pallas_gather_probe, _gather_probe,
+                                        _dyngather_probe)]
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    emit("probes", probes=results, launches=launches)
+    if [p.launches for p in plains] != plain_before:
+        raise AssertionError("the probes ran a plain gather version")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the probes launched no {name} kernel")
+    for r in results:
+        for variant, v in (r.get("variants") or r["forms"]).items():
+            if v.get("correct") is False:
+                raise AssertionError(f"probe {r['probe']}: {variant} wrong")
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    tab4k = t(rng.normal(size=(4096, 16)).astype(np.float32))
+    idx32k = t(rng.integers(0, 4096, 32768).astype(np.int32))
+    tab32k = t(rng.normal(size=(32768, 16)).astype(np.float32))
+    key32k = t(rng.integers(0, 32768, 32768).astype(np.int32))
+    tab8k = t(rng.normal(size=(8192, 128)).astype(np.float32))
+    lane = t(rng.integers(0, 8192, (8192, 128)).astype(np.int32))
+    sub = t(rng.integers(0, 8192, (4096, 128)).astype(np.int32))
+    tab2k = t(rng.normal(size=(2048, 128)).astype(np.float32))
+    idx256 = t(rng.integers(0, 2048, 256).astype(np.int32))
+    cases = [
+        check_gather_case("row4_take_32k_of_4k", G.gather_rows,
+                          G.gather_rows_plain, (tab4k, idx32k),
+                          library=lambda: tab4k.index_select(0, idx32k)),
+        check_gather_case("row6_per_lane_8k_x128", G.gather_rows,
+                          G.gather_rows_plain, (tab8k, lane),
+                          library=lambda l=lane.long(): torch.take_along_dim(
+                              tab8k, l, 0), per_element=True),
+        check_gather_case("row7_sub_4k_of_8k_x128", G.gather_rows,
+                          G.gather_rows_plain, (tab8k, sub),
+                          library=lambda s=sub.long(): torch.take_along_dim(
+                              tab8k, s, 0), per_element=True),
+        # no single PyTorch call gathers and sums the rows
+        check_gather_case("row5_row_sum_32k_of_32k", G.gather_row_sum,
+                          G.gather_row_sum_plain, (tab32k, key32k)),
+        # nor gathers and rounds to bfloat16
+        check_gather_case("row4_onehot_bf16_32k_of_4k", G.onehot_gather,
+                          G.onehot_gather_plain, (tab4k, idx32k, True)),
+        check_gather_case("row8_onehot_f32_256_of_2k", G.onehot_gather,
+                          G.onehot_gather_plain, (tab2k, idx256),
+                          library=lambda: tab2k.index_select(0, idx256)),
+    ]
+    emit("kernels", kernels=[k.__name__ for k in kernels], cases=cases,
+         check="bit-equal to the plain version")
+    return launches, cases
+
+
+def kernel_entry(name, source, replaces, launches, cases, main):
+    """One kernel's object of the final JSON line; ``main`` is the case
+    whose times stand for the kernel."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main.get("library_ms")}
+
+
 def main() -> int:
     import torch
 
@@ -961,26 +1571,50 @@ def main() -> int:
         phase_slam_resume(run, c4_clouds, tmpdir)
     nn_cases = phase_nn_kernels(run)
 
+    icp_launches, nn_c1_launches, pairs = phase_pair_icp()
+    icp_cases, nn_c1_case = phase_icp_kernels(pairs)
+    gather_launches, gather_cases = phase_probes()
+
     emit("total", seconds=time.perf_counter() - t_start)
-    main_case, nn_main = cases[0], nn_cases[0]
+    by_case = {c["case"]: c for c in gather_cases}
+    src = "tpu_slam_torch/csrc/"
     print(nvidia_smi_line(), flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "ndt_terms", "route": "cuda",
-        "source": "tpu_slam_torch/csrc/ndt_terms.cu",
-        "replaces": "tpu_slam/kernels/ndt_terms.py:199",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"], "library_ms": None}, {
-        "name": "nn_search", "route": "cuda",
-        "source": "tpu_slam_torch/csrc/nn_search.cu",
-        "replaces": "tpu_slam/kernels/nn_search.py:57",
-        "launches": run["nn_launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in nn_cases),
-        "ms": nn_main["ms"], "plain_ms": nn_main["plain_ms"],
-        "bound_ms": nn_main["bound_ms"], "bound_by": nn_main["bound_by"],
-        "library_ms": nn_main["library_ms"]}]}), flush=True)
+    print(json.dumps({"kernels": [
+        # ndt_terms: no single PyTorch call computes it
+        kernel_entry("ndt_terms", src + "ndt_terms.cu",
+                     "tpu_slam/kernels/ndt_terms.py:199", launches, cases,
+                     cases[0]),
+        # launches on both of its paths: config 4's verification, config
+        # 1's brute tier
+        kernel_entry("nn_search", src + "nn_search.cu",
+                     "tpu_slam/kernels/nn_search.py:57",
+                     run["nn_launches"] + nn_c1_launches,
+                     nn_cases + [nn_c1_case], nn_cases[0]),
+        # icp_terms: no single PyTorch call computes it
+        kernel_entry("icp_terms", src + "icp_terms.cu",
+                     "tpu_slam/kernels/icp_terms.py:47", icp_launches,
+                     icp_cases, icp_cases[1]),
+        kernel_entry("gather_rows", src + "gather.cu",
+                     "benchmarks/_pallas_gather_probe.py:62 (k_take; and "
+                     "k_taa :68, k_adv :75, k_scalar :96); "
+                     "benchmarks/_dyngather_probe.py:58 (k_eq), :88 (k_sub)",
+                     gather_launches["gather_rows"],
+                     [c for c in gather_cases
+                      if c["kernel"] == "gather_rows"],
+                     by_case["row4_take_32k_of_4k"]),
+        kernel_entry("gather_row_sum", src + "gather.cu",
+                     "benchmarks/_gather_probe.py:127 (gk)",
+                     gather_launches["gather_row_sum"],
+                     [by_case["row5_row_sum_32k_of_32k"]],
+                     by_case["row5_row_sum_32k_of_32k"]),
+        kernel_entry("onehot_gather", src + "gather.cu",
+                     "benchmarks/_pallas_gather_probe.py:81 (k_onehot); "
+                     "benchmarks/_dyngather_probe.py:106 (k_onehot)",
+                     gather_launches["onehot_gather"],
+                     [c for c in gather_cases
+                      if c["kernel"] == "onehot_gather"],
+                     by_case["row8_onehot_f32_256_of_2k"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,5 @@
-"""The CUDA kernels (NDT terms, brute-force NN) against their plain
-versions, on the GPU.
+"""The CUDA kernels (NDT terms, brute-force NN, ICP terms, the probes'
+gathers) against their plain versions, on the GPU.
 
 These tests build csrc/*.cu with nvcc and run on a CUDA device; without
 one their fixture skips them. On a GPU machine (the tests' conftest
@@ -17,7 +17,9 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (the kernels have no "
                     "CPU mode; their plain versions are tested in "
-                    "test_torch_ndt_terms.py and test_torch_nn_search.py)")
+                    "test_torch_ndt_terms.py, test_torch_nn_search.py, "
+                    "test_torch_icp_raster.py and "
+                    "test_torch_gather_probes.py)")
     return torch.device("cuda")
 
 
@@ -101,6 +103,85 @@ def test_nn_kernel_matches_plain_batched(cuda, b, n, m):
     if m > 1:
         t[:, m // 2:] = 1e8                 # padding targets
     _nn_equal(q, t)
+
+
+def _icp_equal(args):
+    # each block of H, half of b, err and wsum within 1e-4 of its own
+    # largest magnitude; nmatch exactly equal (transform and d2 rounded op
+    # by op in the plain version's order)
+    import chip_smoke
+    from tpu_slam_torch.kernels.icp_terms import (icp_terms_plain,
+                                                  icp_terms_raster)
+
+    before = icp_terms_raster.launches
+    got = icp_terms_raster(*args)
+    torch.cuda.synchronize()
+    assert icp_terms_raster.launches == before + 1
+    ref = icp_terms_plain(*args)
+    for (label, a), (_, b) in zip(chip_smoke.icp_blocks(got),
+                                  chip_smoke.icp_blocks(ref)):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), \
+            label
+    assert float(got[3]) == float(ref[3]) > 0
+
+
+@pytest.mark.parametrize("stage", ["coarse", "fine"])
+def test_icp_kernel_matches_plain_on_config1_stage(cuda, stage):
+    import chip_smoke
+
+    src, tgt, _ = chip_smoke.config1_pair(cuda, 512)
+    init = None
+    if stage == "fine":
+        init = chip_smoke.raster_register(src, tgt)[0].T
+    _icp_equal(chip_smoke.config1_stage_args(src, tgt, init, stage))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_icp_kernel_matches_plain_on_edge_case(cuda, seed):
+    import chip_smoke
+
+    _icp_equal(chip_smoke.icp_edge_case(cuda, seed=seed))
+
+
+def test_icp_raster_on_the_card_matches_the_cpu(cuda):
+    import chip_smoke
+    from tpu_slam_torch.core.pointcloud import PointCloud
+
+    src, tgt, _ = chip_smoke.config1_pair(cuda, 512)
+    res = [chip_smoke.raster_register(s, t)[1] for s, t in (
+        (src, tgt),
+        (PointCloud(points=src.points.cpu(), mask=src.mask.cpu()),
+         PointCloud(points=tgt.points.cpu(), mask=tgt.mask.cpu())))]
+    # the same solve; sums and solves in another order on each device
+    assert int(res[0].iterations) == int(res[1].iterations)
+    assert float((res[0].T.cpu() - res[1].T).abs().max()) <= 1e-4
+    assert abs(float(res[0].matched_fraction)
+               - float(res[1].matched_fraction)) <= 2.0 / 8192
+
+
+def test_gather_kernels_match_plain(cuda):
+    from tpu_slam_torch.kernels import gather as G
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    table = torch.randn(1000, 16, generator=g).to(cuda)
+    idx = torch.randint(-3, 1003, (5000,), generator=g,
+                        dtype=torch.int32).to(cuda)
+    lane = torch.randint(0, 1000, (777, 16), generator=g,
+                         dtype=torch.int32).to(cuda)
+    cases = ((G.gather_rows, G.gather_rows_plain, (table, idx)),
+             (G.gather_rows, G.gather_rows_plain, (table, lane)),
+             (G.gather_row_sum, G.gather_row_sum_plain, (table, idx)),
+             (G.onehot_gather, G.onehot_gather_plain, (table, idx)),
+             (G.onehot_gather, G.onehot_gather_plain, (table, idx, True)))
+    for kernel, plain, args in cases:
+        before = kernel.launches
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        # bit-equal, NaN rows (indices outside the table) included
+        assert torch.equal(got.isnan(), plain(*args).isnan())
+        assert torch.equal(torch.nan_to_num(got),
+                           torch.nan_to_num(plain(*args)))
 
 
 def test_nn_kernel_rejects_bad_inputs(cuda):

@@ -1,4 +1,5 @@
-"""tpu_slam_torch stands alone: no JAX, no tpu_slam, the GPU by default."""
+"""tpu_slam_torch stands alone: no JAX, no tpu_slam, none of the repo's
+benchmarks/ package, the GPU by default."""
 
 import pathlib
 import subprocess
@@ -20,7 +21,8 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-             or m == "tpu_slam" or m.startswith("tpu_slam."))
+             or m == "tpu_slam" or m.startswith("tpu_slam.")
+             or m == "benchmarks" or m.startswith("benchmarks."))
 print(len(names), bad)
 """
 

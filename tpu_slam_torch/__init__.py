@@ -6,7 +6,7 @@ easy to find; the JAX package stays the reference and this package imports
 nothing of it (nor of JAX).
 
 Layer map of what is ported so far (full SLAM on the dense odometry
-engine):
+engine, pair ICP on both tiers, the gather probes):
 
     pipeline/      SLAMSystem (keyframes, loop sweeps, graph, re-anchor),
                    DenseLidarOdometry, config, metrics, state hand-over,
@@ -15,15 +15,20 @@ engine):
                    candidates and batched symmetric ICP verification,
                    scan-context descriptors
     registration/  NDT registration (kernel path: frozen-bin terms + LM),
-                   brute-force ICP (one pair or a batch), k-NN normals,
+                   brute-force ICP (one pair or a batch), raster-tier
+                   pair ICP and the size-routed icp_auto, k-NN normals,
                    robust weights
     mapping/       dense moment window (insert, scroll, NDT field)
-    kernels/       voxel hashing, downsampling, the NDT terms kernel
-                   (csrc/ndt_terms.cu) and the brute-force NN kernel
-                   (csrc/nn_search.cu), built with nvcc at first use
+    kernels/       voxel hashing, downsampling, and the hand-written CUDA
+                   kernels with their plain versions: NDT terms
+                   (csrc/ndt_terms.cu), brute-force NN (csrc/nn_search.cu),
+                   ICP terms (csrc/icp_terms.cu), row gathers
+                   (csrc/gather.cu), built with nvcc at first use
+    benchmarks/    the gather probes on the gather kernels
     ingest/        synthetic worlds, routes and the VLP-16 simulator
     core/          SE(3) (batched), symmetric 3x3 closed forms, padded
                    point clouds, the deterministic scatter-add
+    utils/         timing on the card (slope_time, call_ms)
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; a
 missing GPU raises instead of silently falling back.

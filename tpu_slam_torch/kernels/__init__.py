@@ -1,1 +1,2 @@
-"""Voxel hashing, downsampling and the NDT terms kernel (csrc/ndt_terms.cu)."""
+"""Voxel hashing, downsampling and the CUDA kernels with their plain
+versions: NDT terms, brute-force NN, ICP terms, row gathers (csrc/)."""

@@ -94,6 +94,32 @@ def build_terms_raster(points: torch.Tensor, mask: torch.Tensor,
     return slots, n_dropped
 
 
+def raster_to_slots(slots: TermsSlots, dims: Tuple[int, int, int],
+                    q_cap: int) -> torch.Tensor:
+    """The reference's dense (G*Q, 4) slot rows [x, y, z, valid].
+
+    Row c*Q + k holds cell c's rank-k kept point (source frame) with valid
+    1; every other row is 0. Cells are x-major as in ``slots.cell``.
+    """
+    wx, wy, wz = dims
+    g = wx * wy * wz
+    n = slots.cell.shape[0]
+    c, v = slots.cell, slots.valid
+    # the kept slots of a cell are adjacent, in rank order, at most q_cap
+    # of them: the rank is the number of equal cells among the q_cap - 1
+    # slots before
+    rank = torch.zeros(n, dtype=torch.int32, device=c.device)
+    for j in range(1, min(q_cap, n)):
+        rank[j:] += ((c[j:] == c[:-j]) & v[j:] & v[:-j]).to(torch.int32)
+    # dropped slots all write zeros into one spare row, cut off below
+    row = torch.where(v, c * q_cap + rank, g * q_cap).long()
+    vals = torch.cat([slots.points, v[:, None].to(torch.float32)], dim=1)
+    table = torch.zeros((g * q_cap + 1, 4), dtype=torch.float32,
+                        device=c.device)
+    table[row] = vals
+    return table[:g * q_cap]
+
+
 def _check_inputs(slots: TermsSlots, rows16: torch.Tensor, T: torch.Tensor,
                   dims: Tuple[int, int, int]) -> None:
     n = slots.cell.shape[0]

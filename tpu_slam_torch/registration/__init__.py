@@ -1,1 +1,2 @@
-"""Scan-to-map registration: NDT on the dense-window kernel path."""
+"""Registration: NDT on the dense-window kernel path, ICP (brute-force and
+raster tiers), normals, robust weights."""

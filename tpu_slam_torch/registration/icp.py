@@ -1,9 +1,13 @@
 """Point-to-point and point-to-plane ICP as Gauss-Newton on SE(3).
 
-Port of the brute-force tier of ``tpu_slam.registration.icp``. Each
-iteration: brute-force NN correspondences (``kernels.nn_search``, the CUDA
-kernel on the card), Huber-weighted inliers within ``max_corr_dist``, the
-6x6 normal equations, and a left-multiplicative update T <- exp(xi) T.
+Port of ``tpu_slam.registration.icp``, in two tiers. ``icp``, the brute
+force tier: each iteration takes brute-force NN correspondences
+(``kernels.nn_search``, the CUDA kernel on the card), Huber-weighted inliers
+within ``max_corr_dist``, the 6x6 normal equations, and a
+left-multiplicative update T <- exp(xi) T. ``icp_raster``, the raster tier
+for one pair: both clouds binned into a window once a stage, and each
+iteration one fused terms pass (``kernels.icp_terms``). ``icp_auto`` routes
+a pair by its size.
 
 ``icp`` takes one pair or a batch of B pairs (a leading dimension on the
 clouds, the normals and ``init_T``), where the reference ``jax.vmap``s its
@@ -22,8 +26,18 @@ import torch
 
 from tpu_slam_torch.core import se3
 from tpu_slam_torch.core.pointcloud import PointCloud
+from tpu_slam_torch.kernels.icp_terms import icp_terms_raster
+from tpu_slam_torch.kernels.ndt_terms import (build_terms_raster,
+                                              raster_to_slots)
 from tpu_slam_torch.kernels.nn_search import nearest_neighbors
 from tpu_slam_torch.registration.robust import huber_weight
+
+# icp_auto's default: the brute tier below this many points, the raster tier
+# at or above it. chip_smoke.py's pair_icp phase on an H100 measured the
+# brute tier ahead at 8k-64k points (1.8-2.3x at 64k over three runs) and
+# the raster tier ahead at 128k (1.2-1.8x): 96k splits that bracket
+# (PERF.md)
+AUTO_CROSSOVER = 98304
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,3 +161,141 @@ def icp(source: PointCloud, target: PointCloud,
         res = ICPResult(**{f.name: getattr(res, f.name)[0]
                            for f in dataclasses.fields(res)})
     return res
+
+
+@dataclasses.dataclass(frozen=True)
+class RasterProblem:
+    """A pair solve of ``icp_raster`` in its own axes (permuted when
+    ``axis_perm`` is given): the sanitized source, the target binned once
+    at the identity into the dense (G*Qt, 4) slot table, the window origin
+    and the initial pose, and the permutation matrix (or None)."""
+
+    source: PointCloud
+    tgt_table: torch.Tensor
+    origin: torch.Tensor
+    init_T: torch.Tensor
+    perm: Optional[torch.Tensor]
+
+
+def raster_problem(source: PointCloud, target: PointCloud,
+                   init_T: Optional[torch.Tensor], dims: tuple, leaf: float,
+                   qt: int, origin_world: Optional[torch.Tensor] = None,
+                   axis_perm: Optional[tuple] = None) -> RasterProblem:
+    """Set up a pair solve of ``icp_raster``; see there."""
+    src, tgt = source.sanitize(), target.sanitize()
+    dev = src.points.device
+    if init_T is None:
+        init_T = torch.eye(4, dtype=torch.float32, device=dev)
+    init_T = init_T.to(device=dev, dtype=torch.float32)
+    Pi = None
+    if axis_perm is not None:
+        # a proper rotation: the solve runs in permuted coordinates and the
+        # result is conjugated back
+        perm = list(axis_perm)
+        Pi = torch.zeros((4, 4), dtype=torch.float32, device=dev)
+        for row, col in enumerate(perm + [3]):
+            Pi[row, col] = 1.0
+        src = PointCloud(points=src.points[:, perm], mask=src.mask)
+        tgt = PointCloud(points=tgt.points[:, perm], mask=tgt.mask)
+        init_T = Pi @ init_T @ Pi.T
+    if origin_world is None:
+        # centred on the target centroid, on the leaf grid; torch.round
+        # rounds half to even, as jnp.round does
+        tw = tgt.mask.sum(dtype=torch.float32)
+        cen = (torch.where(tgt.mask[:, None], tgt.points, 0.0).sum(dim=0)
+               / torch.clamp(tw, min=1.0))
+        half = torch.tensor([d * leaf / 2 for d in dims], dtype=torch.float32,
+                            device=dev)
+        origin_world = torch.round((cen - half) / leaf) * leaf
+    origin_world = origin_world.to(device=dev, dtype=torch.float32)
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
+    slots, _ = build_terms_raster(tgt.points, tgt.mask, eye, origin_world,
+                                  leaf, dims, qt)
+    return RasterProblem(source=src,
+                         tgt_table=raster_to_slots(slots, dims, qt),
+                         origin=origin_world, init_T=init_T, perm=Pi)
+
+
+def icp_raster(source: PointCloud, target: PointCloud,
+               init_T: Optional[torch.Tensor] = None,
+               params: ICPParams = ICPParams(),
+               dims: tuple = (32, 32, 16), leaf: float = 0.5,
+               qs: int = 8, qt: int = 8,
+               origin_world: Optional[torch.Tensor] = None,
+               axis_perm: Optional[tuple] = None) -> ICPResult:
+    """Pair ICP on the fused raster terms kernel (``kernels.icp_terms``).
+
+    The target is binned once (world frame, at the identity), the source at
+    the stage-entry pose; every GN iteration is then ONE pass fusing the
+    27-neighbourhood correspondence search, Huber weighting and the 6x6
+    reduction. Exact NN within one ``leaf``, so pick leaf >= the expected
+    initial displacement (the brute-force ``icp`` covers any displacement).
+
+    ``dims`` x ``leaf`` must cover both clouds around ``origin_world``
+    (default: centred on the target centroid); points outside the window
+    or beyond the per-cell capacity ``qs``/``qt`` drop out of the objective
+    and count against the matched fraction. ``axis_perm`` (e.g. (2, 0, 1),
+    world z on window x) runs the solve in permuted axes; ``dims`` and
+    ``origin_world`` are then given in the permuted space.
+
+    Two stages with a re-bin between: the first (max_iterations // 2, at
+    least 1) absorbs the initial error, the second re-bins the source at
+    the refined pose and runs on to max_iterations in all. The loop is
+    host-driven: one read of the step norm per iteration.
+    """
+    prob = raster_problem(source, target, init_T, dims, leaf, qt,
+                          origin_world, axis_perm)
+    src = prob.source
+    n_valid = torch.clamp(src.mask.sum(dtype=torch.float32), min=1.0)
+    eye6 = torch.eye(6, dtype=torch.float32, device=src.points.device)
+
+    def solve_stage(T0, max_iters, it):
+        slots, _ = build_terms_raster(src.points, src.mask, T0, prob.origin,
+                                      leaf, dims, qs)
+        T = T0
+        inf = torch.full((), float("inf"), device=T0.device)
+        dx, err, frac = inf, inf, torch.zeros((), device=T0.device)
+        while it < max_iters:
+            H, b, e, nmatch, wsum = icp_terms_raster(
+                slots, prob.tgt_table, T, params.max_corr_dist,
+                params.huber_delta, dims, qs, qt)
+            H = H + params.damping * torch.trace(H) / 6.0 * eye6
+            # solve_ex: no host sync; a singular system gives non-finite
+            # entries, zeroed as the reference does
+            xi = -torch.linalg.solve_ex(H, b)[0]
+            xi = torch.where(torch.isfinite(xi), xi, 0.0)
+            T = se3.retract(T, xi)
+            it += 1
+            dx = torch.linalg.vector_norm(xi)
+            err = e / torch.clamp(wsum, min=1e-6)
+            frac = nmatch / n_valid
+            if not bool(dx > params.tolerance):
+                break
+        return T, it, dx, err, frac
+
+    T, it, _, _, _ = solve_stage(prob.init_T,
+                                 max(1, params.max_iterations // 2), 0)
+    T, it, dx, err, frac = solve_stage(T, params.max_iterations, it)
+    if prob.perm is not None:
+        T = prob.perm.T @ T @ prob.perm
+    return ICPResult(T=T, iterations=torch.full((), it, dtype=torch.int32,
+                                                device=T.device),
+                     error=err, matched_fraction=frac,
+                     converged=dx <= params.tolerance)
+
+
+def icp_auto(source: PointCloud, target: PointCloud,
+             init_T: Optional[torch.Tensor] = None,
+             params: ICPParams = ICPParams(),
+             crossover: int = AUTO_CROSSOVER, **raster_kwargs) -> ICPResult:
+    """Size-routed pair ICP: brute-force ``icp`` under ``crossover`` points
+    (the source's capacity), ``icp_raster`` at or above it.
+
+    The brute tier's NN pass is O(N^2) an iteration, the raster tier's
+    pass ~O(N) plus a binning a stage. ``raster_kwargs`` (dims, leaf,
+    origin_world, axis_perm, qs, qt) configure the raster tier.
+    """
+    if source.capacity < crossover:
+        return icp(source, target, init_T=init_T, params=params)
+    return icp_raster(source, target, init_T=init_T, params=params,
+                      **raster_kwargs)
