@@ -32,12 +32,15 @@ Phases, each printing one JSON line:
                graph bit-identical to the slam run; host syncs and
                launches of a sweep, under torch.profiler
   kernels      nn_search against its plain version: a verification batch
-               of the slam run's own keyframes (6 pairs x 4,096 points) and
-               a seeded edge case (ties, padding, ragged sizes, one pair);
-               indices equal, squared distances bit-equal, times and bound
-  pair_icp     config 1 at 8k, 16k, 32k, 64k and 128k points: the raster
-               tier (icp_raster, coarse then fine call) and the brute tier
-               (icp)
+               of the slam run's own keyframes (6 pairs x 4,096 points), a
+               seeded edge case (ties, padding, ragged sizes, one pair) and
+               a case that the kernel splits across blocks (300 queries,
+               200,000 targets, ties on split boundaries); indices equal,
+               squared distances bit-equal, times, the split plan, bound
+               and 8-instruction floor
+  pair_icp     config 1 at 8k, 16k, 32k, 64k, 128k and 256k points: the
+               raster tier (icp_raster, coarse then fine call) and the
+               brute tier (icp)
                timed as registrations/s by slope_time, recovery errors,
                matched fractions, the tier icp_auto picks, launches, host
                syncs and device idle share a registration
@@ -45,12 +48,16 @@ Phases, each printing one JSON line:
                fine stage inputs at 8k and 32k, the windows of
                benchmarks/_probe_icp_kernel.py (with the source binning
                timed) and a seeded edge case (ties, cells over capacity,
-               the x = 0 and x = Wx-1 planes, padding); nmatch equal
+               the x = 0 and x = Wx-1 planes, padding); nmatch equal;
+               then nn_search on the brute tier's first NN pass at 8k, 64k
+               and 128k
   probes       the ports of the three gather probes (tpu_slam_torch/
                benchmarks) at their original sizes, then gather_rows,
                gather_row_sum and onehot_gather against their plain
-               versions at the probes' shapes: bit-equal, times, bound and
-               the one PyTorch call that computes the same function
+               versions at the probes' shapes, and gather_rows on a
+               misaligned table view and a 7-column table (its scalar
+               path): bit-equal, times, bound and the one PyTorch call that
+               computes the same function (its ms and device us)
 
 then the script's total seconds, the card's name and power limit
 (nvidia-smi), one JSON line with every kernel's numbers, and as the last
@@ -73,6 +80,10 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 non-tensor
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# instructions issued a second at the 1.98 GHz boost clock: 132 SMs x 4
+# schedulers x 32 lanes a cycle; one float32 op a lane a slot (an FMA
+# counts once here, twice in FP32_FLOP_PER_S)
+FP32_INSTR_PER_S = 132 * 128 * 1.98e9
 
 # Config 2 of bench.py: dense-window odometry on the city route
 N_SCANS = 24
@@ -93,10 +104,10 @@ C4_KEYFRAMES = (200, 230)
 # reference's recovery errors (raster 12.44 mm, brute 11.1 mm at 8k) with
 # room for another float summation order
 C1_XI = [0.15, -0.1, 0.05, 0.02, -0.02, 0.04]
-# azimuths (x 16 rays): the reference's 8k and 32k, and 16k, 64k and 128k
-# to bracket the tiers' crossover on this card
+# azimuths (x 16 rays): the reference's 8k and 32k, and 16k, 64k, 128k and
+# 256k to bracket the tiers' crossover on this card
 C1_SIZES = ((512, "8k"), (1024, "16k"), (2048, "32k"), (4096, "64k"),
-            (8192, "128k"))
+            (8192, "128k"), (16384, "256k"))
 C1_RASTER_BAR_MM = 15.0        # at 8k
 C1_BRUTE_BAR_MM = 13.0         # at 8k
 C1_LARGE_BAR_MM = 20.0         # both tiers at the larger sizes
@@ -109,7 +120,8 @@ C1_SLOPE_K = {("raster", "8k"): (5, 55), ("brute", "8k"): (3, 23),
               ("raster", "16k"): (3, 23), ("brute", "16k"): (2, 8),
               ("raster", "32k"): (3, 23), ("brute", "32k"): (2, 8),
               ("raster", "64k"): (3, 23), ("brute", "64k"): (2, 8),
-              ("raster", "128k"): (3, 23), ("brute", "128k"): (2, 8)}
+              ("raster", "128k"): (3, 23), ("brute", "128k"): (2, 8),
+              ("raster", "256k"): (3, 23), ("brute", "256k"): (2, 8)}
 # kernel vs plain: each 3x3 block of H, each half of b, and the cost within
 # this fraction of that part's own largest magnitude (float32 sums in
 # another order); matched count exactly equal, since both round the
@@ -342,26 +354,31 @@ def device_time_us(fn, reps):
 
     Only the device's own events count (kernels, copies, fills): a CPU op's
     "self device time" is the time of the kernels it launched, which are
-    listed again under their own names."""
+    listed again under their own names. The profiler on the card can drop
+    a kernel's events (it has reported a fifth of a kernel's launches), so
+    each name's time is its mean over the events seen times the launches
+    a call makes (its count over ``reps``, at least one)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # a profiled cycle can come back without device events on the card;
-    # profile up to twice more
-    for _ in range(3):
+    # a profiled cycle can come back without device events, or with some
+    # dropped; profile up to four times more
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        out = {}
+        out, whole = {}, True
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-                out[e.key] = e.self_device_time_total / reps
-        if out:
+                per_call = max(1, round(e.count / reps))
+                out[e.key] = e.self_device_time_total / e.count * per_call
+                whole = whole and e.count % reps == 0
+        if out and whole:
             break
     return out, prof
 
@@ -891,13 +908,29 @@ def nn_work(q, t, q_mask, t_mask):
     return nbytes, flops
 
 
+NN_KERNELS = ("nn_search_kernel", "nn_search_merge_kernel")
+# above this many query-target pairs the one cdist call that computes the
+# same function would hold the whole (N, M) matrix (17 GB at config 1's
+# 64k, 69 GB at 128k) and take seconds: no library time there
+NN_LIBRARY_MAX_PAIRS = 1 << 30
+
+
+def device_us_total(fn, reps):
+    """Device us of one call, every device event (from the profiler): a
+    library call's, to set beside a kernel's."""
+    per_kernel, _ = device_time_us(fn, reps)
+    return sum(per_kernel.values()) or None
+
+
 def check_nn_case(name, q, t, q_mask, t_mask):
     """Kernel vs plain on one case: indices equal and squared distances
-    bit-equal on every query (padding queries included); times and bound."""
+    bit-equal on every query (padding queries included); times, the split
+    plan and the bound."""
     import torch
 
     from tpu_slam_torch.kernels.nn_search import (nearest_neighbors,
-                                                  nearest_neighbors_plain)
+                                                  nearest_neighbors_plain,
+                                                  split_plan)
 
     gi, g2 = nearest_neighbors(q, t, squared=True)
     pi, p2 = nearest_neighbors_plain(q, t, squared=True)
@@ -914,24 +947,37 @@ def check_nn_case(name, q, t, q_mask, t_mask):
     ms = time_ms(lambda: nearest_neighbors(q, t), 20)
     clocks = clocks_now()
     plain_ms = time_ms(lambda: nearest_neighbors_plain(q, t), 3)
-    library_ms = time_ms(lambda: torch.cdist(
-        q, t, compute_mode="donot_use_mm_for_euclid_dist").min(-1), 5)
+    library_ms = library_us = None
+    if q.shape[-2] * t.shape[-2] <= NN_LIBRARY_MAX_PAIRS:
+        def library():
+            return torch.cdist(
+                q, t, compute_mode="donot_use_mm_for_euclid_dist").min(-1)
+
+        library_ms = time_ms(library, 5)
+        library_us = device_us_total(library, 5)
     per_kernel, _ = device_time_us(lambda: nearest_neighbors(q, t), 10)
     kernel_us = sum(v for k, v in per_kernel.items()
-                    if "nn_search_kernel" in k)
+                    if any(n in k for n in NN_KERNELS))
     nbytes, flops = nn_work(q, t, q_mask, t_mask)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
+    b = q.shape[0] if q.dim() == 3 else 1
+    splits, chunk = split_plan(b, q.shape[-2], t.shape[-2])
     return dict(case=name, shape=[list(q.shape), list(t.shape)],
                 valid_queries=int(q_mask.sum()),
                 valid_targets=int(t_mask.sum()), max_abs_err=err,
+                splits=splits, chunk=chunk,
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_device_us=library_us,
                 kernel_device_us=kernel_us or None,
                 device_us_by_kernel=sorted(
                     ((k[:60], v) for k, v in per_kernel.items()),
                     key=lambda kv: -kv[1])[:4],
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                # 8 issue slots a valid pair (the 8 rounded float ops,
+                # which cannot fuse) over 132 SMs x 128 lanes x 1.98 GHz
+                floor_8_instr_ms=flops / FP32_INSTR_PER_S * 1e3,
                 bytes=nbytes, flops=flops, clocks_after_timing=clocks)
 
 
@@ -953,6 +999,40 @@ def nn_edge_case(device, seed=0):
     q_mask = np.ones(n, bool)
     q_mask[-50:] = False
     q[-50:] = 1e8
+    g = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    return g(q), g(t), g(q_mask), g(t_mask)
+
+
+def nn_split_case(device, seed=0, n=300, m=200_000):
+    """One pair of few queries and many targets, so the kernel's plan cuts
+    the targets into splits: exact duplicate targets on both sides of
+    split boundaries (t[c*chunk] = t[c*chunk - 1]) and across splits
+    (t[c*chunk + 1] = t[5]), queries on them and 0.01 m off them, padding
+    targets at the end."""
+    import torch
+
+    from tpu_slam_torch.kernels.nn_search import split_plan
+
+    splits, chunk = split_plan(1, n, m)
+    if splits < 4:
+        raise AssertionError(f"nn split case: only {splits} splits")
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(-10, 10, (m, 3)).astype(np.float32)
+    q = rng.uniform(-10, 10, (n, 3)).astype(np.float32)
+    k = 0
+    for c in (1, 2, splits // 2, splits - 1):
+        lo = c * chunk
+        t[lo] = t[lo - 1]
+        t[lo + 1] = t[5]
+        for src in (lo - 1, 5):
+            q[k], q[k + 1] = t[src], t[src] + np.float32(0.01)
+            k += 2
+    t_mask = np.ones(m, bool)
+    t_mask[-100:] = False
+    t[-100:] = 1e8
+    q_mask = np.ones(n, bool)
+    q_mask[-10:] = False
+    q[-10:] = 1e8
     g = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
     return g(q), g(t), g(q_mask), g(t_mask)
 
@@ -982,7 +1062,8 @@ def phase_nn_kernels(run):
     dev = run["state"].kf_points.device
     cases = [check_nn_case("config4_verify",
                            *verification_batch(run["state"], config4())),
-             check_nn_case("edges", *nn_edge_case(dev))]
+             check_nn_case("edges", *nn_edge_case(dev)),
+             check_nn_case("split_ties_300_x_200k", *nn_split_case(dev))]
     emit("kernels", kernels=["nn_search"], cases=cases,
          check="indices equal, squared distances bit-equal")
     return cases
@@ -1112,7 +1193,7 @@ def registration_profile(fn, counter):
 
 
 def phase_pair_icp():
-    """Config 1 at 8k to 128k points: both tiers' registrations/s
+    """Config 1 at 8k to 256k points: both tiers' registrations/s
     (slope of a K-registration loop), recovery errors, matched fractions,
     the tier icp_auto picks, and launches and syncs a registration."""
     import torch
@@ -1355,7 +1436,8 @@ def phase_icp_kernels(pairs):
     """icp_terms against its plain version on the card: config 1's coarse
     and fine stage inputs at 8k and 32k, _probe_icp_kernel.py's windows
     (with the source binning timed beside the pass), and the edge case;
-    then nn_search on the brute tier's first NN pass at 8k."""
+    then nn_search on the brute tier's first NN pass at 8k, 64k and
+    128k."""
     import torch
 
     from tpu_slam_torch.kernels.ndt_terms import (build_terms_raster,
@@ -1392,13 +1474,16 @@ def phase_icp_kernels(pairs):
     cases.append(check_icp_case("edges", icp_edge_case(dev)))
     emit("kernels", kernels=["icp_terms"], cases=cases,
          rtol_of_max=RTOL_OF_MAX, check="nmatch exactly equal")
-    # the brute tier's NN pass at its first iteration, 8k x 8k
-    src, tgt, _ = pairs["8k"]
-    nn_case = check_nn_case("c1_8k_first_iteration", src.points, tgt.points,
-                            src.mask, tgt.mask)
-    emit("kernels", kernels=["nn_search"], cases=[nn_case],
+    # the brute tier's NN pass at its first iteration, 8k x 8k to 128k
+    nn_cases = []
+    for label in ("8k", "64k", "128k"):
+        src, tgt, _ = pairs[label]
+        nn_cases.append(check_nn_case(f"c1_{label}_first_iteration",
+                                      src.points, tgt.points, src.mask,
+                                      tgt.mask))
+    emit("kernels", kernels=["nn_search"], cases=nn_cases,
          check="indices equal, squared distances bit-equal")
-    return cases, nn_case
+    return cases, nn_cases
 
 
 # ---------------------------------------------------------------------------
@@ -1433,18 +1518,29 @@ def check_gather_case(name, kernel, plain, args, library=None,
         raise AssertionError(f"{kernel.__name__} {name}: differs from the "
                              f"plain version by "
                              f"{float((got - ref).abs().max())}")
-    ms = time_ms(lambda: kernel(*args), 50)
+    # the wrapper and the library call are both host-bound at these sizes:
+    # time them in turns (wrapper, library, library, wrapper) and average
+    turns = [time_ms(lambda: kernel(*args), 100)]
+    library_ms = library_us = None
+    if library is not None:
+        lib = [time_ms(library, 100), time_ms(library, 100)]
+        library_ms = sum(lib) / 2
+        library_us = device_us_total(library, 20)
+    turns.append(time_ms(lambda: kernel(*args), 100))
+    ms = sum(turns) / 2
     clocks = clocks_now()
     plain_ms = time_ms(lambda: plain(*args), 5)
-    library_ms = None if library is None else time_ms(library, 50)
     per_kernel, _ = device_time_us(lambda: kernel(*args), 20)
-    kernel_us = sum(t for k, t in per_kernel.items()
-                    if f"{kernel.__name__}_kernel" in k)
+    mine = {k: t for k, t in per_kernel.items()
+            if f"{kernel.__name__}_kernel" in k}
     nbytes = gather_work(args[0], args[1], got, per_element)
     return dict(case=name, kernel=kernel.__name__,
                 table=list(args[0].shape), idx=list(args[1].shape),
+                table_offset_bytes=args[0].data_ptr() % 16,
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, kernel_device_us=kernel_us or None,
+                library_ms=library_ms, library_device_us=library_us,
+                kernel_device_us=sum(mine.values()) or None,
+                kernel_names=[k[:72] for k in mine],
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                 bytes=nbytes, clocks_after_timing=clocks)
 
@@ -1496,6 +1592,10 @@ def phase_probes():
     sub = t(rng.integers(0, 8192, (4096, 128)).astype(np.int32))
     tab2k = t(rng.normal(size=(2048, 128)).astype(np.float32))
     idx256 = t(rng.integers(0, 2048, 256).astype(np.int32))
+    big = t(rng.normal(size=4096 * 16 + 1).astype(np.float32))
+    tab4k_off = big[1:].view(4096, 16)
+    tab7 = t(rng.normal(size=(4096, 7)).astype(np.float32))
+    lane7 = t(rng.integers(0, 4096, (32768, 7)).astype(np.int32))
     cases = [
         check_gather_case("row4_take_32k_of_4k", G.gather_rows,
                           G.gather_rows_plain, (tab4k, idx32k),
@@ -1517,9 +1617,34 @@ def phase_probes():
         check_gather_case("row8_onehot_f32_256_of_2k", G.onehot_gather,
                           G.onehot_gather_plain, (tab2k, idx256),
                           library=lambda: tab2k.index_select(0, idx256)),
+        # gather_rows's scalar path: a table 4 bytes off 16-byte alignment
+        # (a view into a larger buffer), and an odd width, per row and per
+        # element
+        check_gather_case("rows_misaligned_32k_of_4k", G.gather_rows,
+                          G.gather_rows_plain, (tab4k_off, idx32k),
+                          library=lambda: tab4k_off.index_select(0, idx32k)),
+        check_gather_case("rows_7_cols_32k_of_4k", G.gather_rows,
+                          G.gather_rows_plain, (tab7, idx32k),
+                          library=lambda: tab7.index_select(0, idx32k)),
+        check_gather_case("per_element_7_cols", G.gather_rows,
+                          G.gather_rows_plain, (tab7, lane7),
+                          library=lambda l=lane7.long(): torch.take_along_dim(
+                              tab7, l, 0), per_element=True),
     ]
     emit("kernels", kernels=[k.__name__ for k in kernels], cases=cases,
          check="bit-equal to the plain version")
+    # gather_rows takes its float4 path on the probes' aligned tables and
+    # its scalar path on the others (the profiler's kernel names, where it
+    # saw the kernel)
+    vector_cases = ("row4_take_32k_of_4k", "row6_per_lane_8k_x128",
+                    "row7_sub_4k_of_8k_x128")
+    for c in cases:
+        if c["kernel"] == "gather_rows" and c["kernel_names"]:
+            vec = c["case"] in vector_cases
+            if not all(("kernel<true," in k) == vec
+                       for k in c["kernel_names"]):
+                raise AssertionError(f"gather_rows {c['case']}: path "
+                                     f"{c['kernel_names']}")
     return launches, cases
 
 
@@ -1572,7 +1697,7 @@ def main() -> int:
     nn_cases = phase_nn_kernels(run)
 
     icp_launches, nn_c1_launches, pairs = phase_pair_icp()
-    icp_cases, nn_c1_case = phase_icp_kernels(pairs)
+    icp_cases, nn_c1_cases = phase_icp_kernels(pairs)
     gather_launches, gather_cases = phase_probes()
 
     emit("total", seconds=time.perf_counter() - t_start)
@@ -1589,7 +1714,7 @@ def main() -> int:
         kernel_entry("nn_search", src + "nn_search.cu",
                      "tpu_slam/kernels/nn_search.py:57",
                      run["nn_launches"] + nn_c1_launches,
-                     nn_cases + [nn_c1_case], nn_cases[0]),
+                     nn_cases + nn_c1_cases, nn_cases[0]),
         # icp_terms: no single PyTorch call computes it
         kernel_entry("icp_terms", src + "icp_terms.cu",
                      "tpu_slam/kernels/icp_terms.py:47", icp_launches,

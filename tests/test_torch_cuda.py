@@ -194,3 +194,75 @@ def test_nn_kernel_rejects_bad_inputs(cuda):
         nearest_neighbors(q.double(), q.double())
     idx, d = nearest_neighbors(q[:0], q)
     assert idx.shape == (0,) and d.shape == (0,)
+
+
+def test_nn_kernel_split_forcing_with_boundary_ties(cuda):
+    import chip_smoke
+    from tpu_slam_torch.kernels.nn_search import split_plan
+
+    q, t, _, _ = chip_smoke.nn_split_case(cuda)
+    assert split_plan(1, q.shape[0], t.shape[0])[0] > 1
+    _nn_equal(q, t)
+    _nn_equal(q[None], t[None])
+
+
+@pytest.mark.parametrize("b, n, m", [(1, 1000, 5000), (2, 513, 30000),
+                                     (3, 2049, 777), (1, 1, 200000),
+                                     (6, 4097, 4096)])
+def test_nn_kernel_ragged_queries(cuda, b, n, m):
+    g = torch.Generator(device="cpu").manual_seed(n + m)
+    q = (torch.rand(b, n, 3, generator=g) * 20 - 10).to(cuda)
+    t = (torch.rand(b, m, 3, generator=g) * 20 - 10).to(cuda)
+    t[:, 1::97] = t[:, ::97][:, :t[:, 1::97].shape[1]]     # exact ties
+    _nn_equal(q, t)
+
+
+def _gather_equal(table, idx):
+    from tpu_slam_torch.kernels import gather as G
+
+    before = G.gather_rows.launches
+    got = G.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert G.gather_rows.launches == before + 1
+    ref = G.gather_rows_plain(table, idx)
+    assert torch.equal(got.isnan(), ref.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
+
+
+@pytest.mark.parametrize("cols", [16, 7, 128, 1, 36])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_gather_rows_vector_and_scalar_paths(cuda, cols, offset):
+    # offset 1: a view 4 bytes past a 16-byte boundary (the scalar path);
+    # odd widths take the scalar path too
+    g = torch.Generator(device="cpu").manual_seed(cols * 2 + offset)
+    rows = 1001
+    big = torch.randn(rows * cols + offset, generator=g).to(cuda)
+    table = big[offset:].view(rows, cols)
+    idx = torch.randint(-2, rows + 2, (3000,), generator=g,
+                        dtype=torch.int32).to(cuda)
+    lane = torch.randint(-1, rows + 1, (777, cols), generator=g,
+                         dtype=torch.int32).to(cuda)
+    _gather_equal(table, idx)
+    _gather_equal(table, lane)
+
+
+def test_kernels_on_a_side_stream(cuda):
+    import chip_smoke
+    from tpu_slam_torch.kernels import gather as G
+    from tpu_slam_torch.kernels.nn_search import (nearest_neighbors,
+                                                  nearest_neighbors_plain)
+
+    q, t, _, _ = chip_smoke.nn_split_case(cuda)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    table = torch.randn(4096, 16, generator=g).to(cuda)
+    idx = torch.randint(0, 4096, (32768,), generator=g,
+                        dtype=torch.int32).to(cuda)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        gi, g2 = nearest_neighbors(q, t, squared=True)
+        rows = G.gather_rows(table, idx)
+    side.synchronize()
+    pi, p2 = nearest_neighbors_plain(q, t, squared=True)
+    assert torch.equal(gi, pi) and torch.equal(g2, p2)
+    assert torch.equal(rows, G.gather_rows_plain(table, idx))

@@ -202,3 +202,50 @@ def test_probe_ports_run_and_check_on_the_cpu(probe, kw):
     assert all(r["ms"] > 0 for r in results.values())
     checked = [r["correct"] for r in results.values() if "correct" in r]
     assert checked and all(checked)
+
+
+def _bad_inputs():
+    """(label, wrapper name, args) of every input the wrappers refuse."""
+    tt = torch.zeros(5, 4)
+    ti = torch.zeros(6, dtype=torch.int32)
+    wide = torch.zeros(1, 2 ** 20)
+    return [
+        ("int64 idx", "gather_rows", (tt, ti.long())),
+        ("float64 table", "gather_rows", (tt.double(), ti)),
+        ("1-d table", "gather_rows", (tt[0], ti)),
+        ("3-d table", "gather_rows", (tt[None], ti)),
+        ("0-d idx", "gather_rows", (tt, ti[0])),
+        ("3-d idx", "gather_rows", (tt, ti[:, None, None])),
+        ("idx of another width", "gather_rows",
+         (tt, torch.zeros((6, 3), dtype=torch.int32))),
+        ("2-d idx, row sum", "gather_row_sum",
+         (tt, torch.zeros((6, 4), dtype=torch.int32))),
+        ("2-d idx, one-hot", "onehot_gather",
+         (tt, torch.zeros((6, 4), dtype=torch.int32))),
+        ("strided table", "gather_rows", (torch.zeros(5, 8)[:, ::2], ti)),
+        ("strided idx", "gather_row_sum",
+         (tt, torch.zeros(12, dtype=torch.int32)[::2])),
+        ("strided per-element idx", "gather_rows",
+         (tt, torch.zeros((6, 8), dtype=torch.int32)[:, ::2])),
+        ("table with no rows", "onehot_gather", (tt[:0], ti)),
+        ("table with no columns", "gather_rows", (tt[:, :0], ti)),
+        ("idx on another device", "gather_rows", (tt, ti.to("meta"))),
+        ("table on another device", "gather_row_sum", (tt.to("meta"), ti)),
+        ("unsupported device", "onehot_gather",
+         (tt.to("meta"), ti.to("meta"))),
+        ("output of 2^31 values", "gather_rows",
+         (wide, torch.zeros(2048, dtype=torch.int32))),
+    ]
+
+
+@pytest.mark.parametrize("label", [c[0] for c in _bad_inputs()])
+def test_wrappers_and_plain_versions_refuse_bad_inputs(label):
+    from tpu_slam_torch.kernels import gather as G
+
+    name, args = next((n, a) for lab, n, a in _bad_inputs() if lab == label)
+    fns = [getattr(G, name)]
+    if label != "unsupported device":     # the plain versions run anywhere
+        fns.append(getattr(G, name + "_plain"))
+    for fn in fns:
+        with pytest.raises(ValueError):
+            fn(*args)

@@ -4,7 +4,9 @@ The plain PyTorch version (what a CPU tensor runs, and the CUDA kernel's
 oracle on the card) against the reference's XLA twin ``_nn_brute_xla`` and
 its Pallas kernel in interpret mode, on the same seeded inputs: ties,
 padding in queries and targets, sizes that are multiples of no tile, one
-pair and a batch of six.
+pair and a batch of six. Then the card's split plan: the target range cut
+into ranges and merged (the merge's plain version) gives the one-pass
+result exactly, ties on the split boundaries included.
 """
 
 import jax.numpy as jnp
@@ -14,8 +16,13 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from tpu_slam.kernels import nn_search as jnn
-from tpu_slam_torch.kernels.nn_search import (nearest_neighbors,
-                                              nearest_neighbors_plain)
+from tpu_slam_torch.kernels.nn_search import (BLOCK_QUERIES, FILL_BLOCKS,
+                                              MAX_SPLITS, MIN_SPLIT_TARGETS,
+                                              merge_splits_plain,
+                                              nearest_neighbors,
+                                              nearest_neighbors_plain,
+                                              plan_for_splits, split_plan,
+                                              split_scan_plain)
 
 PAD = 1e8
 
@@ -148,3 +155,88 @@ def test_wrapper_dispatches_cpu_to_plain_and_rejects_bad_inputs():
         nearest_neighbors(qt, tt[:0])
     with pytest.raises(ValueError):
         nearest_neighbors(qt.to("meta"), tt.to("meta"))
+
+
+# The card's split plan: the target range cut into ranges that separate
+# blocks scan, each keeping its minimum and the 32-target group that holds
+# it, then merged in ascending order with a strict '<' and the index found
+# in the winning group. Emulated here with the two kernels' plain versions.
+
+def _split_then_merge(q, t, splits, chunk):
+    d2, group = split_scan_plain(q, t, splits, chunk)
+    return merge_splits_plain(d2, group, q, t, chunk)
+
+
+def _boundary_ties(seed, b, n, m, chunk, splits):
+    """b pairs with exact duplicate targets on both sides of every split
+    boundary (t[c*chunk] = t[c*chunk - 1]) and across splits (t[c*chunk +
+    1] = t[1]), queries exactly on them and 0.01 m off them, and padding
+    targets at the end."""
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(-8, 8, (b, m, 3)).astype(np.float32)
+    q = rng.uniform(-8, 8, (b, n, 3)).astype(np.float32)
+    k = 0
+    for c in range(1, splits):
+        lo = c * chunk
+        t[:, lo] = t[:, lo - 1]
+        if lo + 1 < m:
+            t[:, lo + 1] = t[:, 1]
+        for src in (lo - 1, 1):
+            if k + 1 < n:
+                q[:, k] = t[:, src]
+                q[:, k + 1] = t[:, src] + np.float32(0.01)
+                k += 2
+    t[:, m - 3:] = PAD
+    return torch.as_tensor(q), torch.as_tensor(t)
+
+
+@pytest.mark.parametrize("want", range(1, 9))
+def test_split_and_merge_equal_one_pass_with_boundary_ties(want):
+    m = 1000 + 37 * want
+    splits, chunk = plan_for_splits(m, want)
+    assert 1 <= splits <= want and (splits - 1) * chunk < m <= splits * chunk
+    q, t = _boundary_ties(want, 2, 90, m, chunk, splits)
+    gi, g2 = _split_then_merge(q, t, splits, chunk)
+    pi, p2 = nearest_neighbors_plain(q, t, squared=True)
+    assert torch.equal(gi, pi) and torch.equal(g2, p2)
+    if splits > 1:
+        # a query on a tie across the first boundary keeps the lower index
+        assert int(gi[0, 0]) == chunk - 1 and float(g2[0, 0]) == 0.0
+
+
+@pytest.mark.parametrize("b, n, m", [
+    (1, 8192, 8192), (6, 4096, 4096), (1, 65536, 65536),
+    (1, 131072, 131072), (1, 300, 200000), (1, 1, 1), (3, 257, 1025),
+    (2, 1, 100)])
+def test_split_plan(b, n, m):
+    splits, chunk = split_plan(b, n, m)
+    # every split holds at least one target, and together they hold all
+    assert 1 <= splits <= MAX_SPLITS
+    assert (splits - 1) * chunk < m <= splits * chunk
+    query_blocks = -(-n // BLOCK_QUERIES) * b
+    if splits > 1:
+        assert chunk >= MIN_SPLIT_TARGETS
+        assert query_blocks * (splits - 1) < FILL_BLOCKS
+    elif m >= 2 * MIN_SPLIT_TARGETS:
+        assert query_blocks >= FILL_BLOCKS
+    # the plan is the same for the same sizes
+    assert split_plan(b, n, m) == (splits, chunk)
+
+
+def test_merge_plain_keeps_the_earliest_split_and_lowest_index_on_ties():
+    # one query at the origin; targets at d^2 1 in groups of splits 0 and
+    # 2 and twice in split 1 (one chunk of 64 = two groups a split); split
+    # 1 has a nearer target (d^2 0.25) twice, the second in a later group
+    t = torch.full((1, 192, 3), 5.0)
+    for k in (3, 70, 100, 150):
+        t[0, k] = torch.tensor([1.0, 0.0, 0.0])
+    t[0, 90] = t[0, 120] = torch.tensor([0.0, 0.5, 0.0])
+    q = torch.zeros(1, 1, 3)
+    d2, group = split_scan_plain(q, t, 3, 64)
+    assert d2[:, 0, 0].tolist() == [1.0, 0.25, 1.0]
+    assert group[:, 0, 0].tolist() == [0, 64, 128]
+    i, d = merge_splits_plain(d2, group, q, t, 64)
+    assert int(i) == 90 and float(d) == 0.25
+    t[0, 90] = t[0, 120] = 5.0                  # now ties of d^2 1 only
+    i, d = merge_splits_plain(*split_scan_plain(q, t, 3, 64), q, t, 64)
+    assert int(i) == 3 and float(d) == 1.0

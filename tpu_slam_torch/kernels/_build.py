@@ -5,6 +5,11 @@ Each ``csrc/<name>.cu`` exposes a plain C launch function, so the build is
 one ``nvcc -shared`` call of a few seconds (no PyTorch headers). Libraries go
 to ``tpu_slam_torch/_build/`` under a name that carries the source's hash,
 so an edited source is rebuilt and an unchanged one is loaded as is.
+
+``bind`` and ``launch`` are the lean launch path of the kernel wrappers: a
+launch function is bound once per process, and a launch reads the current
+stream's raw handle (never cached: a caller may switch streams) and enters
+a device guard only when the tensors' device is not the current one.
 """
 
 from __future__ import annotations
@@ -16,7 +21,9 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
-from typing import Dict
+from typing import Dict, Sequence
+
+import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -78,3 +85,26 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _loaded[name] = lib
     return lib
+
+
+def bind(name: str, symbol: str, argtypes: Sequence,
+         restype=ctypes.c_int):
+    """The ctypes function ``symbol`` of ``csrc/<name>.cu``, its argument
+    and result types set (pointers and the stream as ``c_void_p``)."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
+
+
+def launch(what: str, fn, device_index: int, *args) -> None:
+    """``fn(*args, stream)`` on the current stream of CUDA device
+    ``device_index``; raises RuntimeError if it returns a CUDA error."""
+    c = torch._C
+    if c._cuda_getDevice() == device_index:
+        rc = fn(*args, c._cuda_getCurrentRawStream(device_index))
+    else:
+        with torch.cuda.device(device_index):
+            rc = fn(*args, c._cuda_getCurrentRawStream(device_index))
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")

@@ -14,7 +14,9 @@ functions (see ``csrc/gather.cu``):
 table is (R, C) float32, idx int32. In ``gather_rows`` and
 ``gather_row_sum`` an index outside [0, R) gives NaN. Each wrapper launches
 its CUDA kernel for CUDA tensors and calls its plain PyTorch version for
-CPU tensors; there is no fallback between the two.
+CPU tensors; there is no fallback between the two. All three launch
+through ``_build``'s lean path (bound once, the raw current stream read at
+each call).
 """
 
 from __future__ import annotations
@@ -23,59 +25,60 @@ import ctypes
 
 import torch
 
+from tpu_slam_torch.kernels import _build
+
+
+_F32, _I32 = torch.float32, torch.int32
+
 
 def _check(name: str, table: torch.Tensor, idx: torch.Tensor,
            per_element_ok: bool) -> None:
-    if table.dim() != 2 or table.dtype != torch.float32:
+    shape = table.shape
+    if table.dtype is not _F32 or len(shape) != 2:
         raise ValueError(f"{name}: table must be (R, C) float32, got "
-                         f"{table.dtype} {tuple(table.shape)}")
-    if idx.dtype != torch.int32:
+                         f"{table.dtype} {tuple(shape)}")
+    if idx.dtype is not _I32:
         raise ValueError(f"{name}: idx must be int32, got {idx.dtype}")
-    shapes = [(idx.shape[0],)] if idx.dim() >= 1 else []
-    if per_element_ok and idx.dim() == 2:
-        shapes.append((idx.shape[0], table.shape[1]))
-    if tuple(idx.shape) not in shapes:
-        raise ValueError(f"{name}: idx of shape {tuple(idx.shape)} does not "
-                         f"fit a table of shape {tuple(table.shape)}")
+    ishape = idx.shape
+    d = len(ishape)
+    rows, cols = shape
+    if not (d == 1 or (d == 2 and per_element_ok and ishape[1] == cols)):
+        raise ValueError(f"{name}: idx of shape {tuple(ishape)} does not "
+                         f"fit a table of shape {tuple(shape)}")
     if not (table.is_contiguous() and idx.is_contiguous()):
         raise ValueError(f"{name}: inputs must be contiguous")
-    if table.device != idx.device:
+    if (table.get_device() != idx.get_device() if table.is_cuda
+            else table.device != idx.device):
         raise ValueError(f"{name}: inputs on different devices "
                          f"({table.device} vs {idx.device})")
-    if table.shape[0] == 0 or table.shape[1] == 0:
+    if rows == 0 or cols == 0:
         raise ValueError(f"{name}: empty table")
-    if idx.shape[0] * table.shape[1] >= 2 ** 31:
+    if ishape[0] * cols >= 2 ** 31:
         raise ValueError(f"{name}: output too large for int32 sizes")
 
 
-def _device(name: str, t: torch.Tensor) -> str:
-    if t.device.type not in ("cpu", "cuda"):
+def _on_cuda(name: str, t: torch.Tensor) -> bool:
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
         raise ValueError(f"{name}: unsupported device {t.device}")
-    return t.device.type
+    return False
 
 
-def _library():
-    from tpu_slam_torch.kernels import _build
-
-    lib = _build.load("gather")
-    if lib.gather_rows_launch.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.gather_rows_launch.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp]
-        lib.gather_row_sum_launch.argtypes = [vp, ci, ci, vp, ci, vp, vp]
-        lib.onehot_gather_launch.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp]
-        for fn in (lib.gather_rows_launch, lib.gather_row_sum_launch,
-                   lib.onehot_gather_launch):
-            fn.restype = ci
-    return lib
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "gather_rows_launch": [_VP, _CI, _CI, _VP, _CI, _CI, _VP, _VP],
+    "gather_row_sum_launch": [_VP, _CI, _CI, _VP, _CI, _VP, _VP],
+    "onehot_gather_launch": [_VP, _CI, _CI, _VP, _CI, _CI, _VP, _VP]}
+_fns = {}
 
 
-def _launch(name: str, fn, *args) -> None:
-    dev = args[0].device
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(dev):
-        rc = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+def _fn(symbol: str):
+    """The bound launch function ``symbol`` of ``csrc/gather.cu``."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = _fns[symbol] = _build.bind("gather", symbol, _ARGTYPES[symbol])
+    return fn
 
 
 def _in_table(table: torch.Tensor, idx: torch.Tensor):
@@ -101,13 +104,15 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     table[idx[i], j] (idx (M,)). CUDA tensors run the kernel of
     ``csrc/gather.cu`` and count one launch in ``gather_rows.launches``."""
     _check("gather_rows", table, idx, per_element_ok=True)
-    if _device("gather_rows", table) == "cpu":
+    if not _on_cuda("gather_rows", table):
         return gather_rows_plain(table, idx)
-    m, cols = idx.shape[0], table.shape[1]
-    out = torch.empty((m, cols), dtype=torch.float32, device=table.device)
+    rows, cols = table.shape
+    m = idx.shape[0]
+    out = table.new_empty((m, cols))
     if m:
-        _launch("gather_rows", _library().gather_rows_launch, table,
-                table.shape[0], cols, idx, int(idx.dim() == 2), m, out)
+        _build.launch("gather_rows", _fn("gather_rows_launch"),
+                      table.get_device(), table.data_ptr(), rows, cols,
+                      idx.data_ptr(), int(idx.dim() == 2), m, out.data_ptr())
         gather_rows.launches += 1
     return out
 
@@ -137,13 +142,15 @@ def gather_row_sum(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     the kernel of ``csrc/gather.cu`` and count one launch in
     ``gather_row_sum.launches``."""
     _check("gather_row_sum", table, idx, per_element_ok=False)
-    if _device("gather_row_sum", table) == "cpu":
+    if not _on_cuda("gather_row_sum", table):
         return gather_row_sum_plain(table, idx)
+    rows, cols = table.shape
     m = idx.shape[0]
-    out = torch.empty((m,), dtype=torch.float32, device=table.device)
+    out = table.new_empty((m,))
     if m:
-        _launch("gather_row_sum", _library().gather_row_sum_launch, table,
-                table.shape[0], table.shape[1], idx, m, out)
+        _build.launch("gather_row_sum", _fn("gather_row_sum_launch"),
+                      table.get_device(), table.data_ptr(), rows, cols,
+                      idx.data_ptr(), m, out.data_ptr())
         gather_row_sum.launches += 1
     return out
 
@@ -174,13 +181,15 @@ def onehot_gather(table: torch.Tensor, idx: torch.Tensor,
     zero row for an index outside the table. CUDA tensors run the kernel of
     ``csrc/gather.cu`` and count one launch in ``onehot_gather.launches``."""
     _check("onehot_gather", table, idx, per_element_ok=False)
-    if _device("onehot_gather", table) == "cpu":
+    if not _on_cuda("onehot_gather", table):
         return onehot_gather_plain(table, idx, bf16=bf16)
-    m, cols = idx.shape[0], table.shape[1]
-    out = torch.empty((m, cols), dtype=torch.float32, device=table.device)
+    rows, cols = table.shape
+    m = idx.shape[0]
+    out = table.new_empty((m, cols))
     if m:
-        _launch("onehot_gather", _library().onehot_gather_launch, table,
-                table.shape[0], cols, idx, int(bf16), m, out)
+        _build.launch("onehot_gather", _fn("onehot_gather_launch"),
+                      table.get_device(), table.data_ptr(), rows, cols,
+                      idx.data_ptr(), int(bf16), m, out.data_ptr())
         onehot_gather.launches += 1
     return out
 

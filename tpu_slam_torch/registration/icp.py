@@ -33,10 +33,12 @@ from tpu_slam_torch.kernels.nn_search import nearest_neighbors
 from tpu_slam_torch.registration.robust import huber_weight
 
 # icp_auto's default: the brute tier below this many points, the raster tier
-# at or above it. chip_smoke.py's pair_icp phase on an H100 measured the
-# brute tier ahead at 8k-64k points (1.8-2.3x at 64k over three runs) and
-# the raster tier ahead at 128k (1.2-1.8x): 96k splits that bracket
-# (PERF.md)
+# at or above it. chip_smoke.py's pair_icp phase on an H100, with the
+# redesigned NN kernel (0.65x the earlier one's device time at 64k-128k),
+# measured the brute tier ahead at 8k-64k points (1.8x at 64k), the two
+# level at 128k (raster 20.8, brute 20.0 registrations/s; the host-bound
+# raster tier's rate moves by up to 1.6x between machines) and the raster
+# tier ahead at 256k (4.6x): 96k still splits the bracket (PERF.md)
 AUTO_CROSSOVER = 98304
 
 
