@@ -12,8 +12,10 @@ Phases, each printing one JSON line:
                compiler per source, all started together
   kernels      ndt_terms against its plain PyTorch version on the card, at
                the shapes of config 2 (the fine (192, 192, 32) field at
-               Q=4, the wide field at Q=8) and on a seeded edge case;
-               CUDA-event times and the bound
+               Q=4, the wide field at Q=8) and on a seeded edge case: two
+               calls bit-equal, the call's device events only its kernel
+               and finalizer; CUDA-event times, the device time by kernel,
+               the time a call takes in a replayed CUDA graph, the bound
   slice        DenseLidarOdometry on config 2 at full width over the
                24-scan city route (65,536 rays a scan): scans/s synced and
                unsynced, ATE, matched fraction, iterations, kernel launches
@@ -48,7 +50,8 @@ Phases, each printing one JSON line:
                fine stage inputs at 8k and 32k, the windows of
                benchmarks/_probe_icp_kernel.py (with the source binning
                timed) and a seeded edge case (ties, cells over capacity,
-               the x = 0 and x = Wx-1 planes, padding); nmatch equal;
+               the x = 0 and x = Wx-1 planes, padding); nmatch equal and
+               every slot's chosen target identical, as for ndt_terms;
                then nn_search on the brute tier's first NN pass at 8k, 64k
                and 128k
   probes       the ports of the three gather probes (tpu_slam_torch/
@@ -383,19 +386,57 @@ def device_time_us(fn, reps):
     return out, prof
 
 
+def graph_time_us(fn, calls=20, replays=10):
+    """Device time of one call of ``fn`` when ``calls`` calls are captured
+    in a CUDA graph and replayed (CUDA events over the replays): what a
+    captured loop pays a call, launch gaps included. None, with the error,
+    if the capture fails."""
+    import torch
+
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) * 1e3 / (calls * replays), None
+    except RuntimeError as e:        # measurement only: report, go on
+        torch.cuda.synchronize()
+        return None, str(e)[:200]
+
+
 def check_sums_case(name, kernel, plain, args, blocks, count_at, work,
-                    build=None):
+                    names, build=None):
     """A reduction kernel (NDT or ICP terms) vs its plain version on one
     case: each part of ``blocks(out)`` within RTOL_OF_MAX of its own
     largest magnitude, the matched count ``out[count_at]`` exactly equal
-    and above 0; times, the bound from ``work`` = (bytes, flops, counts),
-    and the source binning ``build`` timed beside the pass if given."""
+    and above 0, two calls bit-equal; times, the bound from ``work`` =
+    (bytes, flops, counts), and the source binning ``build`` timed beside
+    the pass if given. Every device event of a call must be one of the
+    kernel's own ``names`` (its kernel and finalizer): the wrapper runs no
+    other device work."""
     import torch
 
     label0 = f"{kernel.__name__} {name}"
     got = kernel(*args)
+    again = kernel(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{label0}: two calls differ")
     errs, rel = [], {}
     for (label, a), (_, b) in zip(blocks(got), blocks(ref)):
         err = float((a - b).abs().max())
@@ -414,19 +455,25 @@ def check_sums_case(name, kernel, plain, args, blocks, count_at, work,
     clocks = clocks_now()
     plain_ms = time_ms(lambda: plain(*args), 5)
     # the event time above includes the wrapper's host work when that is
-    # longer than the device work; the profiler splits out the kernel
+    # longer than the device work; the profiler splits out the kernels
     per_kernel, _ = device_time_us(lambda: kernel(*args), 20)
-    key = kernel.__name__.replace("_raster", "") + "_kernel"
-    kernel_us = sum(t for k, t in per_kernel.items() if key in k)
+    foreign = [k for k in per_kernel if not any(n in k for n in names)]
+    if foreign:
+        raise AssertionError(f"{label0}: device work besides the kernel: "
+                             f"{foreign}")
+    graph_us, graph_error = graph_time_us(lambda: kernel(*args))
     nbytes, flops, counts = work
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     extra = {} if build is None else dict(build_ms=time_ms(build, 20))
+    if graph_error:
+        extra["graph_error"] = graph_error
     return dict(case=name, n_slots=args[0].cell.shape[0],
                 matched=float(got[count_at]), max_abs_err=max(errs),
                 rel_err_of_block_max=rel, ms=ms, plain_ms=plain_ms,
-                kernel_device_us=kernel_us or None,
-                wrapper_device_us=sum(per_kernel.values()) or None,
+                kernel_device_us=sum(per_kernel.values()) or None,
+                device_events={k[:60]: t for k, t in per_kernel.items()},
+                graph_us_per_call=graph_us,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, flops=flops, clocks_after_timing=clocks,
@@ -435,13 +482,14 @@ def check_sums_case(name, kernel, plain, args, blocks, count_at, work,
 
 def check_terms_case(name, args):
     """ndt_terms vs its plain version on one case."""
-    from tpu_slam_torch.kernels.ndt_terms import ndt_terms, ndt_terms_plain
+    from tpu_slam_torch.kernels.ndt_terms import (KERNEL_NAMES, ndt_terms,
+                                                  ndt_terms_plain)
 
     slots, rows16, T, _, max_corr, dims = args
     return dict(check_sums_case(name, ndt_terms, ndt_terms_plain, args,
                                 terms_blocks, 3,
-                                terms_work(slots, rows16, T, max_corr,
-                                           dims)), dims=list(dims))
+                                terms_work(slots, rows16, T, max_corr, dims),
+                                KERNEL_NAMES), dims=list(dims))
 
 
 # ---------------------------------------------------------------------------
@@ -489,9 +537,12 @@ def phase_build():
          ptxas=ptxas)
 
 
-def phase_kernels(engine, clouds, gt):
-    """Warm the engine on the first scans, then hold the kernel against its
-    plain version on the main path's own inputs."""
+def odometry_terms_args(engine, clouds, gt):
+    """The terms pass's inputs on an odometry engine's main path: the
+    engine warmed on the first scans, then the next scan binned at the
+    predicted pose into the fine field (``fine``, Q = raster_q) and the
+    wide field (``wide``, the coarse stage's Q), scored at a pose 2 cm off.
+    Returns [(label, args)] for ndt_terms."""
     import torch
 
     from tpu_slam_torch.core import se3
@@ -519,10 +570,9 @@ def phase_kernels(engine, clouds, gt):
     slots, _ = build_terms_raster(
         scan.points, scan.mask, T0, window_origin(state.grid, engine.map_spec),
         engine.map_spec.leaf, engine.dims, cfg.ndt.raster_q)
-    cases = [check_terms_case("fine_q4", (slots, fine.rows, T,
-                                          cfg.ndt.score_temperature,
-                                          cfg.ndt.max_corr_dist,
-                                          engine.dims))]
+    cases = [(f"fine_q{cfg.ndt.raster_q}",
+              (slots, fine.rows, T, cfg.ndt.score_temperature,
+               cfg.ndt.max_corr_dist, engine.dims))]
 
     cp = engine.coarse_params
     wide = grid_ndt_field(state.wide, engine.coarse_spec,
@@ -534,11 +584,20 @@ def phase_kernels(engine, clouds, gt):
         cscan.points, cscan.mask, T0,
         window_origin(state.wide, engine.coarse_spec),
         engine.coarse_spec.leaf, engine.dims, cp.raster_q)
-    cases.append(check_terms_case(
-        "wide_q8", (cslots, wide.rows, T,
-                    cp.score_temperature * cp.coarse_temperature_scale,
-                    cp.max_corr_dist, engine.dims)))
-    cases.append(check_terms_case("edges", random_terms_case(dev)))
+    cases.append((f"wide_q{cp.raster_q}",
+                  (cslots, wide.rows, T,
+                   cp.score_temperature * cp.coarse_temperature_scale,
+                   cp.max_corr_dist, engine.dims)))
+    return cases
+
+
+def phase_kernels(engine, clouds, gt):
+    """Warm the engine on the first scans, then hold the kernel against its
+    plain version on the main path's own inputs."""
+    cases = [check_terms_case(label, args) for label, args in
+             odometry_terms_args(engine, clouds, gt)]
+    cases.append(check_terms_case("edges", random_terms_case(
+        engine.device)))
     emit("kernels", kernels=["ndt_terms"], cases=cases,
          rtol_of_max=RTOL_OF_MAX)
     return cases
@@ -606,6 +665,7 @@ def phase_profile(engine, clouds, gt, n=6):
     busy time by kernel. The idle share is 1 - busy / unprofiled wall."""
     import torch
 
+    from tpu_slam_torch.kernels.ndt_terms import KERNEL_NAMES
     from tpu_slam_torch.pipeline.metrics import MetricsLog
 
     def run():
@@ -622,7 +682,7 @@ def phase_profile(engine, clouds, gt, n=6):
     ka = prof.key_averages()
     busy_us = sum(per_kernel.values())
     terms_us = sum(t for k, t in per_kernel.items()
-                   if "ndt_terms_kernel" in k)
+                   if any(n in k for n in KERNEL_NAMES))
     top_dev = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
     top_cpu = sorted(((e.key, e.self_cpu_time_total, e.count) for e in ka),
                      key=lambda r: -r[1])[:10]
@@ -1345,16 +1405,38 @@ def icp_blocks(out):
             ("err", err), ("wsum", wsum)]
 
 
+def icp_choice_equal(args):
+    """Whether the kernel picks the plain version's target for every slot
+    (its per-slot choice output against ``icp_match_plain``)."""
+    import torch
+
+    from tpu_slam_torch.kernels import icp_terms as I
+
+    slots, table, T, corr, delta, dims, _, qt = args
+    choice = torch.empty(slots.cell.shape[0], dtype=torch.int32,
+                         device=table.device)
+    I.run_kernels(slots, table, T, *I._gate_constants(corr, delta), dims, qt,
+                  choice=choice)
+    row = I.icp_match_plain(slots, table, T, dims, qt)[3]
+    return torch.equal(choice.long(), row)
+
+
 def check_icp_case(name, args, build=None):
-    """icp_terms vs its plain version on one case."""
-    from tpu_slam_torch.kernels.icp_terms import (icp_terms_plain,
+    """icp_terms vs its plain version on one case, and each slot's chosen
+    target identical."""
+    from tpu_slam_torch.kernels.icp_terms import (KERNEL_NAMES,
+                                                  icp_terms_plain,
                                                   icp_terms_raster)
 
     slots, table, T, _, _, dims, qs, qt = args
+    if not icp_choice_equal(args):
+        raise AssertionError(f"icp_terms {name}: a slot's chosen target "
+                             "differs from the plain version's")
     return dict(check_sums_case(name, icp_terms_raster, icp_terms_plain,
                                 args, icp_blocks, 3,
                                 icp_work(slots, table, T, dims, qt),
-                                build=build), dims=list(dims), qs=qs, qt=qt)
+                                KERNEL_NAMES, build=build), dims=list(dims),
+                qs=qs, qt=qt, choice_equal=True)
 
 
 def config1_stage_args(src, tgt, init_T, stage):
@@ -1432,33 +1514,22 @@ def icp_edge_case(device, seed=0, dims=(16, 8, 8), q=4, leaf=0.5):
             q, q)
 
 
-def phase_icp_kernels(pairs):
-    """icp_terms against its plain version on the card: config 1's coarse
-    and fine stage inputs at 8k and 32k, _probe_icp_kernel.py's windows
-    (with the source binning timed beside the pass), and the edge case;
-    then nn_search on the brute tier's first NN pass at 8k, 64k and
-    128k."""
+def probe_icp_args(pairs):
+    """benchmarks/_probe_icp_kernel.py's windows on config 1's 8k pair:
+    unpermuted, binned at the identity, scored at a pose 1e-6 m off it.
+    Returns [(label, icp_terms args, the source binning)]."""
     import torch
 
     from tpu_slam_torch.kernels.ndt_terms import (build_terms_raster,
                                                   raster_to_slots)
 
-    cases = []
-    for label in ("8k", "32k"):
-        src, tgt, _ = pairs[label]
-        r0, _ = raster_register(src, tgt)
-        cases.append(check_icp_case(f"c1_{label}_coarse", config1_stage_args(
-            src, tgt, None, "coarse")))
-        cases.append(check_icp_case(f"c1_{label}_fine", config1_stage_args(
-            src, tgt, r0.T, "fine")))
-    # benchmarks/_probe_icp_kernel.py: 8k points, unpermuted, binned at the
-    # identity, a pose 1e-6 m off it
     src, tgt, _ = pairs["8k"]
     dev = src.points.device
     origin = torch.tensor([-8.0, -8.0, -4.0], device=dev)
     eye = torch.eye(4, device=dev)
     T = eye.clone()
     T[0, 3] += 1e-6
+    out = []
     for dims, q in (((32, 32, 16), 8), ((16, 32, 16), 8), ((32, 32, 16), 4)):
         tslots, _ = build_terms_raster(tgt.points, tgt.mask, eye, origin, 0.5,
                                        dims, q)
@@ -1467,13 +1538,33 @@ def phase_icp_kernels(pairs):
             return build_terms_raster(src.points, src.mask, eye, origin, 0.5,
                                       dims, q)
 
-        cases.append(check_icp_case(
-            f"probe_{dims[0]}x{dims[1]}x{dims[2]}_q{q}",
-            (build()[0], raster_to_slots(tslots, dims, q), T, 1.5, 0.5, dims,
-             q, q), build=build))
+        out.append((f"probe_{dims[0]}x{dims[1]}x{dims[2]}_q{q}",
+                    (build()[0], raster_to_slots(tslots, dims, q), T, 1.5,
+                     0.5, dims, q, q), build))
+    return out
+
+
+def phase_icp_kernels(pairs):
+    """icp_terms against its plain version on the card: config 1's coarse
+    and fine stage inputs at 8k and 32k, _probe_icp_kernel.py's windows
+    (with the source binning timed beside the pass), and the edge case;
+    then nn_search on the brute tier's first NN pass at 8k, 64k and
+    128k."""
+    cases = []
+    for label in ("8k", "32k"):
+        src, tgt, _ = pairs[label]
+        r0, _ = raster_register(src, tgt)
+        cases.append(check_icp_case(f"c1_{label}_coarse", config1_stage_args(
+            src, tgt, None, "coarse")))
+        cases.append(check_icp_case(f"c1_{label}_fine", config1_stage_args(
+            src, tgt, r0.T, "fine")))
+    for label, args, build in probe_icp_args(pairs):
+        cases.append(check_icp_case(label, args, build=build))
+    dev = pairs["8k"][0].points.device
     cases.append(check_icp_case("edges", icp_edge_case(dev)))
     emit("kernels", kernels=["icp_terms"], cases=cases,
-         rtol_of_max=RTOL_OF_MAX, check="nmatch exactly equal")
+         rtol_of_max=RTOL_OF_MAX,
+         check="nmatch exactly equal, each slot's target identical")
     # the brute tier's NN pass at its first iteration, 8k x 8k to 128k
     nn_cases = []
     for label in ("8k", "64k", "128k"):
@@ -1530,9 +1621,15 @@ def check_gather_case(name, kernel, plain, args, library=None,
     ms = sum(turns) / 2
     clocks = clocks_now()
     plain_ms = time_ms(lambda: plain(*args), 5)
-    per_kernel, _ = device_time_us(lambda: kernel(*args), 20)
-    mine = {k: t for k, t in per_kernel.items()
-            if f"{kernel.__name__}_kernel" in k}
+    # the profiler can lose a short kernel's events in a whole profile:
+    # profile again; a replayed CUDA graph of calls gives a second reading
+    for _ in range(3):
+        per_kernel, _ = device_time_us(lambda: kernel(*args), 20)
+        mine = {k: t for k, t in per_kernel.items()
+                if f"{kernel.__name__}_kernel" in k}
+        if mine:
+            break
+    graph_us, _ = graph_time_us(lambda: kernel(*args))
     nbytes = gather_work(args[0], args[1], got, per_element)
     return dict(case=name, kernel=kernel.__name__,
                 table=list(args[0].shape), idx=list(args[1].shape),
@@ -1541,6 +1638,7 @@ def check_gather_case(name, kernel, plain, args, library=None,
                 library_ms=library_ms, library_device_us=library_us,
                 kernel_device_us=sum(mine.values()) or None,
                 kernel_names=[k[:72] for k in mine],
+                graph_us_per_call=graph_us,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                 bytes=nbytes, clocks_after_timing=clocks)
 

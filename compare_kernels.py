@@ -1,25 +1,57 @@
 #!/usr/bin/env python3
-"""Time the NN and row-gather kernels of tpu_slam_torch/csrc against their
-earlier versions on one GPU, in turns (old, new, new, old), in one process.
+"""Time the redesigned kernels of tpu_slam_torch/csrc against their earlier
+versions on one GPU, in turns (old, new, new, old), in one process.
 
-The earlier versions are the sources of commit 966dd32, whose
-``nn_search_launch`` takes no split plan; they are not kept in the tree:
+The earlier versions are not kept in the tree. ``nn_search.cu`` and
+``gather.cu`` of commit 966dd32 (whose ``nn_search_launch`` takes no split
+plan), ``ndt_terms.cu`` and ``icp_terms.cu`` of commit 00c6537 (one thread
+a slot, a grid of ceil(n / 256) blocks writing per-block partials that the
+wrapper sums); each comparison runs when its old source is in the
+directory given:
 
     mkdir -p _checkout/old
     git show 966dd32:tpu_slam_torch/csrc/nn_search.cu > _checkout/old/nn_search.cu
     git show 966dd32:tpu_slam_torch/csrc/gather.cu > _checkout/old/gather.cu
-    python3 compare_kernels.py _checkout/old [--config4]
+    git show 00c6537:tpu_slam_torch/csrc/ndt_terms.cu > _checkout/old/ndt_terms.cu
+    git show 00c6537:tpu_slam_torch/csrc/icp_terms.cu > _checkout/old/icp_terms.cu
+    python3 compare_kernels.py _checkout/old [--config4] [--sweep] [--orders]
 
 Both versions are built with the same nvcc flags and run on the same
-tensors: config 1's first NN pass at 8k, 64k and 128k points, a seeded
-6 x 4,096 batch, config 4's verification batch (``--config4``: runs the
-SLAM phase first, ~2.5 minutes), a 300 x 200,000 case that the new kernel
-splits, and the gather probes' rows 4, 6 and 7 plus a misaligned view and
-a 7-column table. For each case one JSON line: the device us of each turn
-(the profiler's mean over the events it saw), the CUDA-event us of each
-turn, the SM clock after each, the events seen, whether old and new (and
-the plain version, where it fits) agree bit for bit; for the gathers also
-the wrapper's and the library call's ms, in turns.
+tensors:
+
+  nn_search    config 1's first NN pass at 8k, 64k and 128k points, a
+               seeded 6 x 4,096 batch, config 4's verification batch
+               (``--config4``: runs the SLAM phase first, ~2.5 minutes) and
+               a 300 x 200,000 case that the new kernel splits;
+  gather_rows  the gather probes' rows 4, 6 and 7, a misaligned view and a
+               7-column table;
+  ndt_terms    config 2's fine (Q = 4) and wide (Q = 8) cases and config
+               4's, each on its odometry engine warmed on the first scans;
+  icp_terms    config 1's coarse and fine stage inputs at 8k and 32k and
+               the three windows of benchmarks/_probe_icp_kernel.py.
+
+For each case one JSON line: the device us of each turn (all of a call's
+device work: the profiler's mean over the events it saw, summed over the
+kernels), the CUDA-event us of each turn (the wrapper's host work
+included), the SM clock after each, the events seen, and whether old, new
+(and the plain version) agree: bit for bit for NN and gathers; for the
+terms the matched count exactly, each block of the sums within 1e-4 of
+its largest magnitude, and for ICP each slot's chosen target. For the
+gathers also the wrapper's and the library call's ms, in turns.
+
+``--sweep`` times other lane splits and grid sizes of the terms kernels on
+the main cases (device us and the per-call time of a replayed CUDA graph
+of 20 calls): each a build of the shipped source with -D NDT_TERMS_LANES,
+ICP_TERMS_LANES and TERMS_MAX_BLOCKS, its matched count held to the plain
+version's. ``--orders`` runs config 4 end to end (chip_smoke's
+``phase_slam``) with other summation orders of the NDT sums: 4 and 32
+lanes, a 132-block grid, and the old kernel with its wrapper's sum, each
+in place of the shipped kernel; one line each with the keyframe ATE,
+loops and keyframes (~2.5 minutes a run).
+
+Every run also times empty kernels launched the same way (a ctypes call on
+the current stream, after a torch.empty of the result): the floor that a
+kernel of a few microseconds sits on.
 """
 
 from __future__ import annotations
@@ -29,6 +61,7 @@ import json
 import pathlib
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -36,9 +69,26 @@ import torch
 import chip_smoke as cs
 from tpu_slam_torch.kernels import _build
 from tpu_slam_torch.kernels import gather as G
+from tpu_slam_torch.kernels import icp_terms as I
+from tpu_slam_torch.kernels import ndt_terms as N
 from tpu_slam_torch.kernels import nn_search as NN
 
-VP, CI = ctypes.c_void_p, ctypes.c_int
+VP, CI, CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+TERMS_RTOL = 1e-4         # of each block's largest magnitude, as chip_smoke
+SWEEP_LANES = (1, 4, 8, 32)
+SWEEP_BLOCKS = (132, 264, 512)
+NDT_ARGTYPES = [VP, VP, VP, CI, VP, VP, CI, CI, CI, CF, CF, VP, VP]
+ICP_ARGTYPES = [VP, VP, VP, CI, VP, VP, CI, CI, CI, CI, CF, CF, VP, VP, VP]
+EMPTY_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel(float* out) {}
+extern "C" int empty_launch(void* out, int blocks, int threads,
+                            void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 
 
 def build_old(src: pathlib.Path, name: str) -> ctypes.CDLL:
@@ -57,6 +107,8 @@ def stream() -> int:
 
 
 def turns(label, old, new, reps, **extra):
+    """Time ``old`` and ``new`` in turns (old, new, new, old); prints and
+    returns the JSON line."""
     from torch.autograd import DeviceType
 
     res = {"case": label}
@@ -71,7 +123,10 @@ def turns(label, old, new, reps, **extra):
             if e.device_type == DeviceType.CUDA}
     res["new_over_old"] = (sum(res["new_device_us"])
                            / sum(res["old_device_us"]))
+    res["new_over_old_event"] = (sum(res["new_event_us"])
+                                 / sum(res["old_event_us"]))
     print(json.dumps({**res, **extra}), flush=True)
+    return res
 
 
 def nn_cases(dev, config4):
@@ -178,6 +233,283 @@ def compare_gather(old_lib, dev):
             raise AssertionError(f"gather_rows {label}: results differ")
 
 
+def old_ndt_terms(lib):
+    """Commit 00c6537's ndt_terms wrapper around its kernel: per-block
+    partials, then the sum, the symmetric gather and the negation on the
+    device. Counts its calls in ``launches``, as ``ndt_terms`` does."""
+    fn = lib.ndt_terms_launch
+    fn.argtypes = [VP, VP, VP, CI, VP, VP, CI, CI, CI, CF, CF, VP, CI, VP]
+
+    def call(slots, rows16, T, gamma, max_corr, dims):
+        call.launches += 1
+        N._check_inputs(slots, rows16, T, dims)
+        inv_2g, maxd2 = N._gate_constants(gamma, max_corr)
+        dev = rows16.device
+        n = slots.cell.shape[0]
+        nb = max(1, -(-n // 256))
+        partials = torch.empty((nb, 29), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            rc = fn(slots.points.data_ptr(), slots.cell.data_ptr(),
+                    slots.valid.data_ptr(), n, rows16.data_ptr(),
+                    T.data_ptr(), dims[0], dims[1], dims[2], inv_2g, maxd2,
+                    partials.data_ptr(), nb,
+                    torch.cuda.current_stream(dev).cuda_stream)
+        assert rc == 0, rc
+        tot = partials.sum(dim=0)
+        return tot[:21][N._sym_index(dev)], tot[21:27], -tot[27], tot[28]
+    call.launches = 0
+    return call
+
+
+def old_icp_terms(lib):
+    """Commit 00c6537's icp_terms wrapper around its kernel."""
+    fn = lib.icp_terms_launch
+    fn.argtypes = [VP, VP, VP, CI, VP, VP, CI, CI, CI, CI, CF, CF, VP, CI,
+                   VP]
+
+    def call(slots, table, T, max_corr, delta, dims, qs, qt):
+        I._check_inputs(slots, table, T, dims, qt)
+        maxd2, hd = I._gate_constants(max_corr, delta)
+        dev = table.device
+        n = slots.cell.shape[0]
+        nb = max(1, -(-n // 256))
+        partials = torch.empty((nb, 30), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            rc = fn(slots.points.data_ptr(), slots.cell.data_ptr(),
+                    slots.valid.data_ptr(), n, table.data_ptr(), T.data_ptr(),
+                    dims[0], dims[1], dims[2], qt, maxd2, hd,
+                    partials.data_ptr(), nb,
+                    torch.cuda.current_stream(dev).cuda_stream)
+        assert rc == 0, rc
+        return I._totals(partials.sum(dim=0))
+    return call
+
+
+def terms_agree(got, old, ref, blocks, count_at):
+    """Matched counts exactly equal among new, old and plain; each block of
+    new within TERMS_RTOL of the block's largest magnitude in old and in
+    plain. Returns (ok, worst relative error against each)."""
+    ok = float(got[count_at]) == float(old[count_at]) == float(ref[count_at])
+    worst = {}
+    for tag, other in (("old", old), ("plain", ref)):
+        rel = 0.0
+        for (_, a), (_, b) in zip(blocks(got), blocks(other)):
+            rel = max(rel, float((a - b).abs().max())
+                      / max(float(b.abs().max()), 1e-30))
+        worst[tag] = rel
+        ok = ok and rel <= TERMS_RTOL
+    return ok, worst
+
+
+def ndt_cases(dev):
+    """Config 2's and config 4's odometry terms inputs (fine and wide)."""
+    from tpu_slam_torch.pipeline.odometry_dense import DenseLidarOdometry
+
+    cases = []
+    clouds, gt = cs.city_scans(cs.N_SCANS, dev)
+    for label, args in cs.odometry_terms_args(
+            DenseLidarOdometry(cs.config2()), clouds, gt):
+        cases.append(("c2_" + label, args))
+    del clouds
+    clouds, gt = cs.config4_scans(dev)
+    for label, args in cs.odometry_terms_args(
+            DenseLidarOdometry(cs.config4().odometry), clouds, gt):
+        cases.append(("c4_" + label, args))
+    return cases
+
+
+def icp_cases(dev):
+    """Config 1's coarse and fine stage inputs at 8k and 32k and the probe
+    windows."""
+    cases, pairs = [], {}
+    for n_az, label in ((512, "8k"), (2048, "32k")):
+        src, tgt, _ = pairs[label] = cs.config1_pair(dev, n_az)
+        r0, _ = cs.raster_register(src, tgt)
+        cases.append((f"c1_{label}_coarse", cs.config1_stage_args(
+            src, tgt, None, "coarse")))
+        cases.append((f"c1_{label}_fine", cs.config1_stage_args(
+            src, tgt, r0.T, "fine")))
+    for label, args, _ in cs.probe_icp_args(pairs):
+        cases.append((label, args))
+    return cases
+
+
+def compare_terms(old_ndt, old_icp, ndt, icp):
+    """Old against new in turns on every case; the work counts beside."""
+    for label, args in ndt:
+        old = old_ndt_terms(old_ndt)
+        got, again = N.ndt_terms(*args), N.ndt_terms(*args)
+        ok, worst = terms_agree(got, old(*args), N.ndt_terms_plain(*args),
+                                cs.terms_blocks, 3)
+        ok = ok and all(torch.equal(a, b) for a, b in zip(got, again))
+        slots, rows16, T, _, corr, dims = args
+        nbytes, flops, counts = cs.terms_work(slots, rows16, T, corr, dims)
+        turns(f"ndt_terms {label}", lambda: old(*args),
+              lambda: N.ndt_terms(*args), 50, agree=ok,
+              rel_err_of_block_max=worst, matched=float(got[3]),
+              n_slots=slots.cell.shape[0], bytes=nbytes, flops=flops,
+              **counts)
+        if not ok:
+            raise AssertionError(f"ndt_terms {label}: old and new differ")
+    for label, args in icp:
+        old = old_icp_terms(old_icp)
+        got, again = I.icp_terms_raster(*args), I.icp_terms_raster(*args)
+        ok, worst = terms_agree(got, old(*args), I.icp_terms_plain(*args),
+                                cs.icp_blocks, 3)
+        choice = cs.icp_choice_equal(args)
+        ok = ok and choice and all(torch.equal(a, b)
+                                   for a, b in zip(got, again))
+        slots, table, T, _, _, dims, _, qt = args
+        nbytes, flops, counts = cs.icp_work(slots, table, T, dims, qt)
+        turns(f"icp_terms {label}", lambda: old(*args),
+              lambda: I.icp_terms_raster(*args), 50, agree=ok,
+              choice_equal=choice, rel_err_of_block_max=worst,
+              nmatch=float(got[3]), n_slots=slots.cell.shape[0],
+              bytes=nbytes, flops=flops, **counts)
+        if not ok:
+            raise AssertionError(f"icp_terms {label}: old and new differ")
+
+
+def variants(name, key, values):
+    """csrc/<name>.cu built with ``-D key=v -D TERMS_MAX_BLOCKS=b`` for each
+    v and sweep grid b, all compilers started together: {(v, b): CDLL}."""
+    specs = [(v, b) for v in values for b in SWEEP_BLOCKS]
+    with ThreadPoolExecutor(len(specs)) as pool:
+        paths = list(pool.map(lambda vb: _build.build(name, {
+            key: vb[0], "TERMS_MAX_BLOCKS": vb[1]}), specs))
+    return {vb: ctypes.CDLL(str(path)) for vb, path in zip(specs, paths)}
+
+
+def sweep_line(label, fn, matched, want, **fields):
+    per, _ = cs.device_time_us(fn, 20)
+    print(json.dumps({
+        "sweep": label, **fields, "device_us": sum(per.values()),
+        "by_kernel": {k[:40]: v for k, v in per.items()},
+        "graph_us": cs.graph_time_us(fn)[0],
+        "matched_equal": matched == want}), flush=True)
+    if matched != want:
+        raise AssertionError(f"{label} {fields}: matched {matched} != "
+                             f"plain {want}")
+
+
+def sweep_terms(ndt, icp):
+    """Device us and CUDA-graph us a call of other lane splits and grid
+    sizes on the main cases, each a -D build of the shipped source."""
+    index = torch.cuda.current_device()
+    ndt_libs = variants("ndt_terms", "NDT_TERMS_LANES", SWEEP_LANES)
+    icp_libs = variants("icp_terms", "ICP_TERMS_LANES", SWEEP_LANES)
+    for label, args in ndt:
+        if label.startswith("c4"):
+            continue
+        slots, rows16, T, gamma, corr, dims = args
+        consts = N._gate_constants(gamma, corr)
+        want = float(N.ndt_terms_plain(*args)[3])
+        for (lanes, mb), lib in ndt_libs.items():
+            launch = lib.ndt_terms_launch
+            launch.argtypes = NDT_ARGTYPES
+
+            def fn(launch=launch, mb=mb):
+                out = torch.empty(N.RESULT + N.OUT_CHANNELS * mb,
+                                  device=rows16.device)
+                _build.launch("ndt_terms", launch, index,
+                              slots.points.data_ptr(), slots.cell.data_ptr(),
+                              slots.valid.data_ptr(), slots.cell.shape[0],
+                              rows16.data_ptr(), T.data_ptr(), *dims,
+                              *consts, out.data_ptr())
+                return out
+            sweep_line(f"ndt_terms {label}", fn, float(fn()[43]), want,
+                       lanes=lanes, max_blocks=mb,
+                       blocks=N.grid_blocks(slots.cell.shape[0], lanes, mb))
+    for label, args in icp:
+        if not label.endswith("fine"):
+            continue
+        slots, table, T, corr, delta, dims, _, qt = args
+        consts = I._gate_constants(corr, delta)
+        want = float(I.icp_terms_plain(*args)[3])
+        # at Qt = 8, 8 lanes is the shipped one lane a target slot
+        for (lanes, mb), lib in icp_libs.items():
+            launch = lib.icp_terms_launch
+            launch.argtypes = ICP_ARGTYPES
+
+            def fn(launch=launch, mb=mb):
+                out = torch.empty(I.RESULT + I.OUT_CHANNELS * mb,
+                                  device=table.device)
+                _build.launch("icp_terms", launch, index,
+                              slots.points.data_ptr(), slots.cell.data_ptr(),
+                              slots.valid.data_ptr(), slots.cell.shape[0],
+                              table.data_ptr(), T.data_ptr(), *dims, qt,
+                              *consts, out.data_ptr(), None)
+                return out
+            sweep_line(f"icp_terms {label}", fn, float(fn()[43]), want,
+                       lanes=lanes, max_blocks=mb,
+                       blocks=N.grid_blocks(slots.cell.shape[0], lanes, mb))
+
+
+def slam_orders(old_lib):
+    """Config 4 end to end with other summation orders of the NDT sums, each
+    kernel in place of the shipped one: one line each with what phase_slam
+    measures (it also prints its own), or the limit it missed."""
+    import tpu_slam_torch.kernels.ndt_terms as module
+
+    clouds, gt = cs.config4_scans("cuda")
+    shipped_launch, shipped_call = module._launch_fn, module.ndt_terms
+    runs = [(f"lanes_{v}", {"NDT_TERMS_LANES": v}) for v in (4, 32)]
+    runs.append(("blocks_132", {"TERMS_MAX_BLOCKS": 132}))
+    runs.append(("old_kernel_00c6537", None))
+    for label, defines in runs:
+        if defines is None:
+            module.ndt_terms = old_ndt_terms(old_lib)
+        else:
+            lib = ctypes.CDLL(str(_build.build("ndt_terms", defines)))
+            module._launch_fn = lib.ndt_terms_launch
+            module._launch_fn.argtypes = NDT_ARGTYPES
+            module._launch_fn.restype = CI
+        try:
+            fields = cs.phase_slam(clouds, gt)["fields"]
+            line = {k: fields[k] for k in (
+                "kf_ate_m", "odometry_ate_m", "loops", "keyframes",
+                "ndt_terms_launches", "seconds")}
+            error = None
+        except AssertionError as e:        # a missed limit is a result here
+            line, error = {}, str(e)
+        finally:
+            module._launch_fn, module.ndt_terms = shipped_launch, shipped_call
+        print(json.dumps({"orders": label, "defines": defines, **line,
+                          "error": error}), flush=True)
+
+
+def empty_floor(dev):
+    """Empty kernels launched as the terms wrappers launch theirs (a
+    torch.empty of the result, then a ctypes call on the current stream):
+    one block, the terms grid's 264 blocks, and 264 blocks followed by one
+    block of 1,024 threads (a kernel and its finalizer)."""
+    src = _build.BUILD_DIR / "empty.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(EMPTY_SOURCE)
+    lib = build_old(src, "empty")
+    fn = lib.empty_launch
+    fn.argtypes = [VP, CI, CI, VP]
+    index = torch.cuda.current_device()
+
+    def call(launches):
+        out = torch.empty(N.RESULT + 29 * N.MAX_BLOCKS, device=dev)
+        for blocks, threads in launches:
+            _build.launch("empty", fn, index, out.data_ptr(), blocks,
+                          threads)
+        return out
+
+    nb = N.MAX_BLOCKS
+    for label, launches in (("1_block", ((1, 256),)),
+                            (f"{nb}_blocks", ((nb, 256),)),
+                            (f"{nb}_blocks_then_1", ((nb, 256), (1, 1024)))):
+        per, _ = cs.device_time_us(lambda: call(launches), 50)
+        print(json.dumps({
+            "empty": label, "device_us": sum(per.values()),
+            "wrapper_ms": cs.time_ms(lambda: call(launches), 200),
+            "graph_us": cs.graph_time_us(lambda: call(launches))[0],
+            "clock": cs.clocks_now()}), flush=True)
+
+
 def main() -> int:
     if len(sys.argv) < 2 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
@@ -186,9 +518,24 @@ def main() -> int:
     dev = torch.device("cuda")
     print(cs.nvidia_smi_line(), flush=True)
     cs.phase_build()
-    compare_nn(build_old(old_dir / "nn_search.cu", "nn_search"), dev,
-               "--config4" in sys.argv)
-    compare_gather(build_old(old_dir / "gather.cu", "gather"), dev)
+    empty_floor(dev)
+    if (old_dir / "ndt_terms.cu").exists():
+        ndt, icp = ndt_cases(dev), icp_cases(dev)
+        old_ndt = build_old(old_dir / "ndt_terms.cu", "ndt_terms")
+        compare_terms(old_ndt,
+                      build_old(old_dir / "icp_terms.cu", "icp_terms"),
+                      ndt, icp)
+        if "--sweep" in sys.argv:
+            sweep_terms(ndt, icp)
+        if "--orders" in sys.argv:
+            del ndt, icp
+            slam_orders(old_ndt)
+    if (old_dir / "nn_search.cu").exists():
+        compare_nn(build_old(old_dir / "nn_search.cu", "nn_search"), dev,
+                   "--config4" in sys.argv)
+    if (old_dir / "gather.cu").exists():
+        compare_gather(build_old(old_dir / "gather.cu", "gather"), dev)
+    print(cs.nvidia_smi_line(), flush=True)
     return 0
 
 

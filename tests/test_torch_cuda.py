@@ -105,10 +105,12 @@ def test_nn_kernel_matches_plain_batched(cuda, b, n, m):
     _nn_equal(q, t)
 
 
-def _icp_equal(args):
+def _icp_equal(args, matched=True):
+    # matched: whether some slot must match (None: either)
     # each block of H, half of b, err and wsum within 1e-4 of its own
-    # largest magnitude; nmatch exactly equal (transform and d2 rounded op
-    # by op in the plain version's order)
+    # largest magnitude; nmatch exactly equal and every slot's chosen target
+    # identical (transform and d2 rounded op by op in the plain version's
+    # order, lanes merged on (d2, candidate order))
     import chip_smoke
     from tpu_slam_torch.kernels.icp_terms import (icp_terms_plain,
                                                   icp_terms_raster)
@@ -122,7 +124,9 @@ def _icp_equal(args):
                                   chip_smoke.icp_blocks(ref)):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), \
             label
-    assert float(got[3]) == float(ref[3]) > 0
+    assert float(got[3]) == float(ref[3])
+    assert matched is None or (float(ref[3]) > 0) == matched
+    assert chip_smoke.icp_choice_equal(args)
 
 
 @pytest.mark.parametrize("stage", ["coarse", "fine"])
@@ -249,6 +253,8 @@ def test_gather_rows_vector_and_scalar_paths(cuda, cols, offset):
 def test_kernels_on_a_side_stream(cuda):
     import chip_smoke
     from tpu_slam_torch.kernels import gather as G
+    from tpu_slam_torch.kernels.icp_terms import icp_terms_raster
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms
     from tpu_slam_torch.kernels.nn_search import (nearest_neighbors,
                                                   nearest_neighbors_plain)
 
@@ -257,12 +263,118 @@ def test_kernels_on_a_side_stream(cuda):
     table = torch.randn(4096, 16, generator=g).to(cuda)
     idx = torch.randint(0, 4096, (32768,), generator=g,
                         dtype=torch.int32).to(cuda)
+    nargs = chip_smoke.random_terms_case(cuda)
+    iargs = chip_smoke.icp_edge_case(cuda)
+    want = [t.clone() for t in ndt_terms(*nargs)]
+    iwant = [t.clone() for t in icp_terms_raster(*iargs)]
     torch.cuda.synchronize()
     side = torch.cuda.Stream()
     with torch.cuda.stream(side):
         gi, g2 = nearest_neighbors(q, t, squared=True)
         rows = G.gather_rows(table, idx)
+        terms = ndt_terms(*nargs)
+        iterms = icp_terms_raster(*iargs)
     side.synchronize()
     pi, p2 = nearest_neighbors_plain(q, t, squared=True)
     assert torch.equal(gi, pi) and torch.equal(g2, p2)
     assert torch.equal(rows, G.gather_rows_plain(table, idx))
+    for x, y in zip(terms + iterms, want + iwant):
+        assert torch.equal(x, y)
+
+
+def _first(slots, n):
+    from tpu_slam_torch.kernels.ndt_terms import TermsSlots
+
+    return TermsSlots(points=slots.points[:n].contiguous(),
+                      cell=slots.cell[:n].contiguous(),
+                      valid=slots.valid[:n].contiguous(),
+                      inside=slots.inside[:n].contiguous())
+
+
+@pytest.mark.parametrize("n", [0, 1, 257])
+def test_terms_kernels_on_short_slot_lists(cuda, n):
+    # no slot, one slot, and one slot past a block's 256 threads (the last
+    # block's groups get a ragged share)
+    import chip_smoke
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms, ndt_terms_plain
+
+    slots, rows, T, gamma, corr, dims = chip_smoke.random_terms_case(cuda)
+    args = (_first(slots, n), rows, T, gamma, corr, dims)
+    _assert_close(ndt_terms(*args), ndt_terms_plain(*args))
+    iargs = chip_smoke.icp_edge_case(cuda)
+    _icp_equal((_first(iargs[0], n),) + iargs[1:],
+               matched={0: False, 1: None, 257: True}[n])
+
+
+def test_ndt_kernel_at_config2_size(cuda):
+    # config 2's fine window (192, 192, 32) at Q = 4 and ~20k slots
+    import chip_smoke
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms, ndt_terms_plain
+
+    args = chip_smoke.random_terms_case(cuda, dims=(192, 192, 32), n=24000)
+    _assert_close(ndt_terms(*args), ndt_terms_plain(*args))
+
+
+@pytest.mark.parametrize("q", [2, 3, 4, 8])
+def test_icp_kernel_lane_splits(cuda, q):
+    # each lane split the library builds picks the plain version's target
+    # for every slot, ties included: one lane a target slot at Qt = 2, 4 and
+    # 8, candidates dealt out to 8 lanes at Qt = 3
+    import chip_smoke
+    from tpu_slam_torch.kernels import icp_terms as I
+
+    args = chip_smoke.icp_edge_case(cuda, seed=q, q=q)
+    slots, table, T, corr, delta, dims, _, qt = args
+    row = I.icp_match_plain(slots, table, T, dims, qt)[3]
+    ref = I.icp_terms_plain(*args)
+    choice = torch.empty(slots.cell.shape[0], dtype=torch.int32,
+                         device=cuda)
+    out = I.run_kernels(slots, table, T, *I._gate_constants(corr, delta),
+                        dims, qt, choice=choice)
+    assert torch.equal(choice.long(), row)
+    got = (out[:36].view(6, 6), out[36:42], out[42], out[43], out[44])
+    assert float(got[3]) == float(ref[3]) > 0
+    for (label, a), (_, b) in zip(chip_smoke.icp_blocks(got),
+                                  chip_smoke.icp_blocks(ref)):
+        assert float((a - b).abs().max()) <= \
+            1e-4 * float(b.abs().max()), label
+
+
+def test_terms_kernels_repeat_bit_for_bit(cuda):
+    # fixed-order sums, no atomics: two calls on the same inputs are equal
+    import chip_smoke
+    from tpu_slam_torch.kernels.icp_terms import icp_terms_raster
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms
+
+    args = chip_smoke.random_terms_case(cuda, dims=(96, 96, 32), n=20000)
+    iargs = chip_smoke.icp_edge_case(cuda)
+    for kernel, a in ((ndt_terms, args), (icp_terms_raster, iargs)):
+        first = [t.clone() for t in kernel(*a)]
+        for _ in range(3):
+            for x, y in zip(kernel(*a), first):
+                assert torch.equal(x, y)
+
+
+def test_terms_kernels_on_two_streams(cuda):
+    # two calls in flight on two side streams, each on its own inputs: each
+    # gets its own result (the default stream's, bit for bit)
+    import chip_smoke
+    from tpu_slam_torch.kernels.icp_terms import icp_terms_raster
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms
+
+    nargs = [chip_smoke.random_terms_case(cuda, seed=s) for s in (5, 6)]
+    iargs = [chip_smoke.icp_edge_case(cuda, seed=s) for s in (2, 3)]
+    want = [[t.clone() for t in ndt_terms(*a)] for a in nargs]
+    iwant = [[t.clone() for t in icp_terms_raster(*a)] for a in iargs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got, igot = [], []
+    for s, a, ia in zip(streams, nargs, iargs):
+        with torch.cuda.stream(s):
+            got.append(ndt_terms(*a))
+            igot.append(icp_terms_raster(*ia))
+    for s in streams:
+        s.synchronize()
+    for g, w in zip(got + igot, want + iwant):
+        for x, y in zip(g, w):
+            assert torch.equal(x, y)

@@ -3,8 +3,10 @@ with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C launch function, so the build is
 one ``nvcc -shared`` call of a few seconds (no PyTorch headers). Libraries go
-to ``tpu_slam_torch/_build/`` under a name that carries the source's hash,
-so an edited source is rebuilt and an unchanged one is loaded as is.
+to ``tpu_slam_torch/_build/`` under a name that carries the hash of the
+source, of every header in ``csrc`` and of the ``-D`` defines it was built
+with, so an edited source or header is rebuilt and an unchanged one is
+loaded as is.
 
 ``bind`` and ``launch`` are the lean launch path of the kernel wrappers: a
 launch function is bound once per process, and a launch reads the current
@@ -21,7 +23,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Sequence
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -46,19 +48,29 @@ def nvcc_path() -> str:
                        "are built from source at first use")
 
 
-def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def _define_flags(defines: Optional[Mapping[str, object]]
+                  ) -> Tuple[str, ...]:
+    return tuple(f"-D{k}={v}" for k, v in sorted((defines or {}).items()))
 
 
-def build(name: str) -> pathlib.Path:
-    """Compile ``csrc/<name>.cu`` unless its library exists; returns the path.
+def library_path(name: str, defines: Optional[Mapping[str, object]] = None
+                 ) -> pathlib.Path:
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(_define_flags(defines)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(name: str, defines: Optional[Mapping[str, object]] = None
+          ) -> pathlib.Path:
+    """Compile ``csrc/<name>.cu`` (with ``-D`` for each of ``defines``)
+    unless its library exists; returns the path.
 
     The compiler's resource report (``-Xptxas -v``) is written beside the
     library as ``<lib>.ptxas.txt``.
     """
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -66,7 +78,8 @@ def build(name: str) -> pathlib.Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            [nvcc_path(), *NVCC_FLAGS, *_define_flags(defines), "-o", tmp,
+             str(CSRC / f"{name}.cu")],
             capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
