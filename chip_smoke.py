@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU: dense odometry (bench config 2),
 full SLAM on the dense engine (bench config 4), pair ICP on both tiers
-(bench config 1) and the gather probes.
+(bench config 1), the gather probes, the dense engine's options,
+scan-to-map NDT on the sparse voxel map (bench config 3) and bag replay
+through the CLI (bench config 6).
 
     python3 chip_smoke.py
 
@@ -61,6 +63,29 @@ Phases, each printing one JSON line:
                misaligned table view and a 7-column table (its scalar
                path): bit-equal, times, bound and the one PyTorch call that
                computes the same function (its ms and device us)
+  options      the dense engine with each option on: the dynamic-object
+               room with occupancy eviction (box cells before and after,
+               all cells), a moving 65,536-ray capture deskewed (median
+               distance to the surfaces, deskewed and raw), config 2 with
+               use_occupancy twice from fresh engines (ATE, matched
+               fraction, evictions, terms launches a step, bit-identical),
+               then its 6-scan profile (profile_occupancy)
+  config3      bench_ndt_register at its size: a 0.5 m map of the grid city
+               (453,009 voxels), one VLP-16 street scan; the coarse stage on
+               the coarsened map's (64, 64, 16) field, the fine (160, 160,
+               32) window with the far tier, from the bench's perturbation:
+               error, matched fraction, coverages, the raster's dropped
+               points, registrations/s, the stage times (the field from the
+               voxel map, grid_ndt_field at the same dims, the raster, the
+               terms pass, the dense insert); also written to
+               chiprun_out/config3.json
+  kernels      ndt_terms against its plain version on config 3's coarse,
+               fine and far rasters
+  config6      bench_bag_replay: VLP-16 packets along config 2's route ->
+               pcap -> revolutions -> rosbag with TF ground truth -> the
+               port's run_odometry CLI (--engine dense, the bench's --set
+               list): scans, ATE, RPE, wall time, scans/s and the share of
+               the host conversions
 
 then the script's total seconds, the card's name and power limit
 (nvidia-smi), one JSON line with every kernel's numbers, and as the last
@@ -130,6 +155,35 @@ C1_SLOPE_K = {("raster", "8k"): (5, 55), ("brute", "8k"): (3, 23),
 # another order); matched count exactly equal, since both round the
 # transform and the gate distance op by op
 RTOL_OF_MAX = 1e-4
+# Config 3 of bench.py (bench_ndt_register) and its reference results
+# (BENCH_r05.json); the map is numpy from a seeded sample, so its voxel
+# count is exact
+C3_MAP_VOXELS = 453_009
+C3_SCAN_FLOOR = 16_384
+C3_REF = dict(scan_points=18_606, err_mm=1.1, matched=0.823,
+              fine_window_coverage=0.837, objective_coverage=0.994,
+              raster_dropped=3_464)
+C3_ERR_BAR_MM = 3.0
+C3_MATCHED_BAR = 0.80
+C3_OBJECTIVE_BAR = 0.99
+C3_XI = [0.2, -0.15, 0.08, 0.025, -0.015, 0.04]
+C3_FINE = (160, 160, 32)
+C3_COARSE = (64, 64, 16)
+C3_REGISTRATIONS = 20
+# Config 6 of bench.py (bench_bag_replay): 25 route poses, of which the
+# packet stream yields 24 scans; the bars are config 2's on the same route
+# and engine (the reference: ATE 0.0706 m, RPE 0.0038 m)
+C6_POSES = 25
+C6_SCANS = 24
+C6_ATE_BAR_M = 0.10
+C6_RPE_BAR_M = 0.005
+C6_SETS = ["scan_capacity=32768", "downsample_leaf=0.3", "map_leaf=0.5",
+           "map_half_extent=128.0", "map_capacity=262144",
+           "scan_max_range=45.0", "insert_downsampled=true",
+           "ndt.max_iterations=10", "ndt.coarse_iterations=2",
+           "ndt.tolerance=3e-4", "ndt.min_voxel_count=3.0",
+           "ndt.window_dims=192,192,32", "pyramid_factor=4",
+           "max_pred_translation=2.0"]
 
 
 def emit(phase: str, **fields) -> None:
@@ -480,16 +534,59 @@ def check_sums_case(name, kernel, plain, args, blocks, count_at, work,
                 **counts, **extra)
 
 
+def terms_abs_scales(args):
+    """ndt_terms's H, b and cost with every term taken by its absolute
+    value (a gated neighbour's s J^T Lambda J, s J^T Lambda r and s): where
+    terms of both signs cancel, float32 sums in two orders differ by a few
+    ulps of this scale, not of the total's."""
+    import torch
+
+    from tpu_slam_torch.kernels.ndt_terms import (_gate_constants,
+                                                  _neighbours, _transform)
+
+    slots, rows16, T, gamma, max_corr, dims = args
+    inv_2g, maxd2 = _gate_constants(gamma, max_corr)
+    px, py, pz = _transform(slots, T)
+    zero = torch.zeros_like(px)
+    phat = torch.stack([torch.stack([zero, -pz, py], -1),
+                        torch.stack([pz, zero, -px], -1),
+                        torch.stack([-py, px, zero], -1)], -2)
+    J = torch.cat([torch.eye(3, device=px.device).expand_as(phat), -phat],
+                  dim=2)                                        # (N, 3, 6)
+    H = torch.zeros(6, 6, device=px.device)
+    b = torch.zeros(6, device=px.device)
+    cost = torch.zeros((), device=px.device)
+    for _, s, q, lam in _neighbours(slots, rows16, T, inv_2g, maxd2, dims):
+        l00, l01, l02, l11, l12, l22 = lam
+        L = torch.stack([torch.stack([l00, l01, l02], -1),
+                         torch.stack([l01, l11, l12], -1),
+                         torch.stack([l02, l12, l22], -1)], -2)
+        H += torch.einsum("nia,nij,njb->nab", J, L * s[:, None, None],
+                          J).abs().sum(0)
+        b += torch.einsum("nia,ni->na", J,
+                          torch.stack(q, -1) * s[:, None]).abs().sum(0)
+        cost += s.sum()
+    return H, b, cost
+
+
 def check_terms_case(name, args):
-    """ndt_terms vs its plain version on one case."""
+    """ndt_terms vs its plain version on one case; the error is also given
+    against the block's sum of absolute terms (terms_abs_scales)."""
     from tpu_slam_torch.kernels.ndt_terms import (KERNEL_NAMES, ndt_terms,
                                                   ndt_terms_plain)
 
     slots, rows16, T, _, max_corr, dims = args
-    return dict(check_sums_case(name, ndt_terms, ndt_terms_plain, args,
-                                terms_blocks, 3,
-                                terms_work(slots, rows16, T, max_corr, dims),
-                                KERNEL_NAMES), dims=list(dims))
+    out = check_sums_case(name, ndt_terms, ndt_terms_plain, args,
+                          terms_blocks, 3,
+                          terms_work(slots, rows16, T, max_corr, dims),
+                          KERNEL_NAMES)
+    got, ref = ndt_terms(*args), ndt_terms_plain(*args)
+    out["rel_err_of_abs_terms"] = {
+        label: float((a - b).abs().max()) / max(float(s.max()), 1e-30)
+        for (label, a), (_, b), (_, s) in zip(
+            terms_blocks(got), terms_blocks(ref),
+            terms_blocks(terms_abs_scales(args)))}
+    return dict(out, dims=list(dims))
 
 
 # ---------------------------------------------------------------------------
@@ -659,7 +756,7 @@ def phase_slice(engine, clouds, gt):
     return launches
 
 
-def phase_profile(engine, clouds, gt, n=6):
+def phase_profile(engine, clouds, gt, n=6, label="profile"):
     """Where a step's time goes: an n-scan run (sync_every=0) timed on the
     host clock, then the same run under torch.profiler for the device's
     busy time by kernel. The idle share is 1 - busy / unprofiled wall."""
@@ -688,7 +785,7 @@ def phase_profile(engine, clouds, gt, n=6):
                      key=lambda r: -r[1])[:10]
     syncs = sum(e.count for e in ka if e.key == "aten::_local_scalar_dense")
     launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
-    emit("profile", scans=n, steps=steps,
+    emit(label, scans=n, steps=steps,
          wall_ms_per_step=wall_us / 1e3 / steps,
          device_busy_ms_per_step=busy_us / 1e3 / steps,
          ndt_terms_kernel_ms_per_step=terms_us / 1e3 / steps,
@@ -1612,11 +1709,14 @@ def check_gather_case(name, kernel, plain, args, library=None,
     # the wrapper and the library call are both host-bound at these sizes:
     # time them in turns (wrapper, library, library, wrapper) and average
     turns = [time_ms(lambda: kernel(*args), 100)]
-    library_ms = library_us = None
+    library_ms = library_us = library_graph_us = None
     if library is not None:
         lib = [time_ms(library, 100), time_ms(library, 100)]
         library_ms = sum(lib) / 2
         library_us = device_us_total(library, 20)
+        # a second device reading, which the profiler cannot drop: the
+        # call replayed in a CUDA graph
+        library_graph_us, _ = graph_time_us(library)
     turns.append(time_ms(lambda: kernel(*args), 100))
     ms = sum(turns) / 2
     clocks = clocks_now()
@@ -1636,6 +1736,7 @@ def check_gather_case(name, kernel, plain, args, library=None,
                 table_offset_bytes=args[0].data_ptr() % 16,
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, library_device_us=library_us,
+                library_graph_us_per_call=library_graph_us,
                 kernel_device_us=sum(mine.values()) or None,
                 kernel_names=[k[:72] for k in mine],
                 graph_us_per_call=graph_us,
@@ -1746,6 +1847,589 @@ def phase_probes():
     return launches, cases
 
 
+# ---------------------------------------------------------------------------
+# The dense engine's options: occupancy eviction and deskew
+# ---------------------------------------------------------------------------
+
+def options_room_case(device):
+    """tests/test_deskew_occupancy.py's dynamic-object room on the card:
+    a box seen in the first two scans, then ten scans without it; the
+    occupancy layer must clear the box's cells and keep the room's."""
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.ingest import synthetic as syn
+    from tpu_slam_torch.pipeline.config import OdometryConfig
+    from tpu_slam_torch.pipeline.odometry_dense import DenseLidarOdometry
+    from tpu_slam_torch.registration.ndt import NDTParams
+
+    box_lo, box_hi = np.array([1.5, -0.8, 0.0]), np.array([2.6, 0.8, 1.4])
+    world_with = syn.make_room(size=(12.0, 9.0, 3.0),
+                               boxes=[(box_lo, box_hi)])
+    world_without = syn.make_room(size=(12.0, 9.0, 3.0))
+    T = np.eye(4)
+    T[:3, 3] = [-2.0, 0.0, 1.3]
+    rng = np.random.default_rng(0)
+
+    def scan(world):
+        pts, valid = syn.simulate_vlp16_revolution(
+            world, T, n_azimuth=360, noise_std=0.005, rng=rng, device=device)
+        return PointCloud.from_points_host(pts[valid], capacity=8192,
+                                           device=device)
+
+    cfg = OdometryConfig(
+        scan_capacity=4096, downsample_leaf=0.25, map_leaf=0.4,
+        map_half_extent=8.0, map_capacity=16384,
+        ndt=NDTParams(max_iterations=15, window_dims=(32, 32, 16)),
+        pyramid_factor=2, use_occupancy=True, occupancy_steps=64,
+        occupancy_max_range=15.0, occupancy_evict_below=-1.0,
+        min_insert_fraction=0.0)
+    odo = DenseLidarOdometry(cfg, device=device)
+    spec = cfg.map_spec()
+
+    def box_cells(grid):
+        wx, wy, wz = grid.dims
+        rows = grid.rows.cpu().numpy()
+        occ = rows[:, 0] > 0
+        idx = np.arange(rows.shape[0])
+        cc = np.stack([idx // (wy * wz), (idx // wz) % wy, idx % wz], 1)
+        origin_w = (np.asarray(spec.origin)
+                    + grid.origin_cell.cpu().numpy() * spec.leaf)
+        centers = origin_w + (cc + 0.5) * spec.leaf
+        inside = ((centers > box_lo - 0.2) & (centers < box_hi + 0.2)).all(1)
+        return int(np.sum(occ & inside)), int(np.sum(occ))
+
+    state = odo.init_state(scan(world_with), T)
+    state = odo.step(state, scan(world_with))
+    before, total_before = box_cells(state.grid)
+    matched = []
+    for _ in range(10):
+        state = odo.step(state, scan(world_without))
+        matched.append(float(state.last_metrics[1]))
+    after, total_after = box_cells(state.grid)
+    out = dict(box_cells_before=before, box_cells_after=after,
+               cells_before=total_before, cells_after=total_after,
+               evicted=int(odo.n_evicted), min_matched_fraction=min(matched))
+    if not (before > 10 and after <= 0.3 * before
+            and total_after > 0.6 * total_before):
+        raise AssertionError(f"occupancy eviction: {out}")
+    return out
+
+
+def options_deskew_case(device, n_azimuth=4096):
+    """tests/test_deskew_occupancy.py's moving capture at 65,536 rays: each
+    block of 16 azimuths captured from the pose interpolated at its time,
+    deskewed into the sweep-end frame on the card; median distance of the
+    points (through the end pose) to the office's surfaces."""
+    import torch
+
+    from tpu_slam_torch.core import se3
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.ingest import synthetic as syn
+    from tpu_slam_torch.ingest.deskew import deskew_cloud
+
+    world = syn.default_office()
+    T_start = syn.se2_pose(0.0, 0.0, 0.0, z=1.2)
+    T_end = syn.se2_pose(0.4, 0.1, 0.08, z=1.2)
+    xi = se3.log(torch.tensor(np.linalg.inv(T_start) @ T_end,
+                              dtype=torch.float32))
+    dirs = syn.vlp16_directions(n_azimuth)             # azimuth-major
+    frac = np.arctan2(dirs[:, 1], dirs[:, 0]) % (2 * np.pi) / (2 * np.pi)
+    pts = np.zeros((dirs.shape[0], 3), np.float32)
+    valid = np.zeros(dirs.shape[0], bool)
+    per = 16 * 16
+    for c in range(dirs.shape[0] // per):
+        sel = slice(c * per, (c + 1) * per)
+        a = float(np.median(frac[sel]))
+        T_a = T_start @ se3.exp(a * xi).double().numpy()
+        dw = dirs[sel] @ T_a[:3, :3].T
+        r = world.raycast(np.broadcast_to(T_a[:3, 3], dw.shape), dw)
+        v = np.isfinite(r)
+        pts[sel] = dirs[sel] * np.where(v, r, 0.0)[:, None]
+        valid[sel] = v
+        frac[sel] = a
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                               device=device)
+
+    args = (PointCloud(points=f32(pts),
+                       mask=torch.as_tensor(valid, device=device)),
+            f32(frac), f32(T_start), f32(T_end))
+    fixed = deskew_cloud(*args).points.cpu().numpy()
+    ms = time_ms(lambda: deskew_cloud(*args), 20)
+    o, _, _, nrm = world._arrays()
+
+    def surface_dist(body_pts):
+        w = body_pts[valid] @ T_end[:3, :3].T + T_end[:3, 3]
+        d = np.abs(np.einsum("nkd,kd->nk", w[:, None, :] - o[None], nrm))
+        return float(np.median(d.min(axis=1)))
+
+    out = dict(rays=int(dirs.shape[0]), points=int(valid.sum()),
+               median_surface_dist_deskewed_m=surface_dist(fixed),
+               median_surface_dist_raw_m=surface_dist(pts), deskew_ms=ms)
+    if not (out["median_surface_dist_deskewed_m"] < 2e-3
+            and out["median_surface_dist_deskewed_m"]
+            < 0.05 * out["median_surface_dist_raw_m"]):
+        raise AssertionError(f"deskew: {out}")
+    return out
+
+
+def phase_options(clouds, gt):
+    """The room and the moving capture, then config 2 with use_occupancy
+    from two fresh engines (bit-identical), then its step profile."""
+    import dataclasses
+
+    import torch
+
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms, ndt_terms_plain
+    from tpu_slam_torch.pipeline.metrics import ate_rmse
+    from tpu_slam_torch.pipeline.odometry_dense import DenseLidarOdometry
+
+    room = options_room_case("cuda")
+    desk = options_deskew_case("cuda")
+    cfg = dataclasses.replace(config2(), use_occupancy=True)
+    runs = []
+    plain_before = ndt_terms_plain.launches
+    for _ in range(2):
+        engine = DenseLidarOdometry(cfg)
+        torch.cuda.synchronize()
+        ndt_terms.launches = 0
+        t0 = time.perf_counter()
+        poses, log = engine.run(clouds, init_pose=gt[0])
+        runs.append(dict(poses=poses, summary=log.summary(),
+                         seconds=time.perf_counter() - t0,
+                         launches=ndt_terms.launches,
+                         evicted=int(engine.n_evicted)))
+    if ndt_terms_plain.launches != plain_before:
+        raise AssertionError("the options path ran the plain terms version")
+    first = runs[0]
+    if first["launches"] <= 0:
+        raise AssertionError("config 2 with occupancy launched no ndt_terms")
+    if not np.all(np.isfinite(first["poses"])):
+        raise AssertionError("config 2 with occupancy: non-finite poses")
+    same = (np.array_equal(runs[0]["poses"], runs[1]["poses"])
+            and runs[0]["evicted"] == runs[1]["evicted"])
+    steps = len(clouds) - 1
+    emit("options", room=room, deskew=desk, config2_occupancy=dict(
+        scans=len(clouds), ate_m=ate_rmse(first["poses"], gt, align=False),
+        mean_matched_fraction=first["summary"]["mean_matched_fraction"],
+        mean_iterations=first["summary"]["mean_iterations"],
+        evicted_cells=first["evicted"],
+        ndt_terms_launches=first["launches"],
+        ndt_terms_launches_per_step=first["launches"] / steps,
+        scans_per_s=[len(clouds) / r["seconds"] for r in runs],
+        p50_step_s=first["summary"]["p50_wall_time_s"],
+        bit_identical_rerun=same))
+    if not same:
+        raise AssertionError("config 2 with occupancy: reruns differ")
+    phase_profile(engine, clouds, gt, label="profile_occupancy")
+    return first["launches"]
+
+
+# ---------------------------------------------------------------------------
+# Config 3: scan-to-map NDT on the sparse voxel map (bench.py:349-604)
+# ---------------------------------------------------------------------------
+
+def config3_workload(device):
+    """bench_ndt_register's workload: the grid city's surfaces sampled at
+    0.15 m into a 0.5 m map of +-128 m (capacity 524,288), one VLP-16 street
+    scan at 8,192 azimuths downsampled at 0.2 m (the fine scan, cut to
+    20,480 rows) and at 1.0 m (the coarse stage's scan)."""
+    import torch
+
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.ingest import synthetic as syn
+    from tpu_slam_torch.kernels.downsample import voxel_downsample
+    from tpu_slam_torch.kernels.voxel_hash import VoxelGridSpec
+    from tpu_slam_torch.mapping.voxel_map import build_map_host
+
+    t0 = time.perf_counter()
+    world = syn.dense_city(extent=200.0, seed=0)
+    surf = syn.sample_world_surface(world, spacing=0.15, noise_std=0.01,
+                                    seed=1)
+    map_spec = VoxelGridSpec.centered(leaf=0.5, half_extent=128.0)
+    vmap = build_map_host(surf, map_spec, capacity=524288, device=device)
+    map_s = time.perf_counter() - t0
+    T_pose = syn.se2_pose(-4.0, -4.0, 0.3, z=1.8)
+    pts, valid = syn.simulate_vlp16_revolution(
+        world, T_pose, n_azimuth=8192, max_range=75.0, noise_std=0.01,
+        rng=np.random.default_rng(0), device=device)
+    cloud = PointCloud.from_points_host(pts[valid], capacity=131072,
+                                        device=device)
+    scan = voxel_downsample(
+        cloud, VoxelGridSpec.centered(leaf=0.2, half_extent=102.0),
+        capacity=65536)
+    scan = PointCloud(points=scan.points[:20480], mask=scan.mask[:20480])
+    cscan = voxel_downsample(
+        cloud, VoxelGridSpec.centered(leaf=1.0, half_extent=102.0),
+        capacity=16384)
+    return dict(surf=surf, vmap=vmap, map_spec=map_spec, cloud=cloud,
+                scan=scan, cscan=cscan, map_s=map_s,
+                seconds=time.perf_counter() - t0,
+                Tw=torch.as_tensor(T_pose, dtype=torch.float32,
+                                   device=device))
+
+
+def phase_config3(w):
+    """The production two-level solve on config 3 at full size, the stage
+    times, then ndt_terms against its plain version on the solve's own
+    coarse, fine and far rasters. Returns (launches, kernel cases)."""
+    import json as _json
+    import math as _math
+    import pathlib
+
+    import torch
+
+    from tpu_slam_torch.core import se3
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.kernels.ndt_terms import (build_terms_raster,
+                                                  ndt_terms, ndt_terms_plain)
+    from tpu_slam_torch.mapping.dense_map import (centered_origin_cell,
+                                                  empty_grid, grid_insert,
+                                                  grid_ndt_field)
+    from tpu_slam_torch.mapping.voxel_map import coarse_spec_of, coarsen_map
+    from tpu_slam_torch.registration.ndt import (NDTParams, ndt_field,
+                                                 ndt_register)
+
+    vmap, map_spec, scan, cscan, Tw = (w["vmap"], w["map_spec"], w["scan"],
+                                       w["cscan"], w["Tw"])
+    dev = Tw.device
+    n_vox = int(vmap.n_occupied())
+    n_scan = int(scan.count())
+    fparams = NDTParams(max_iterations=5, coarse_iterations=0,
+                        tolerance=1e-3, min_voxel_count=3.0, rebin_iters=5,
+                        window_dims=C3_FINE)
+    cparams = NDTParams(max_iterations=3, coarse_iterations=2,
+                        max_corr_dist=4.0, window_dims=C3_COARSE)
+    cspec = coarse_spec_of(map_spec, 4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cmap = coarsen_map(vmap, map_spec, 4)
+    cfield = ndt_field(cmap, cspec, cparams, center=Tw[:3, 3])
+    field = ndt_field(vmap, map_spec, fparams, center=Tw[:3, 3])
+    torch.cuda.synchronize()
+    fields_s = time.perf_counter() - t0
+
+    def register(s, cs, init_T):
+        r0 = ndt_register(cs, cfield, cspec, init_T=init_T, params=cparams)
+        return r0, ndt_register(s, field, map_spec, init_T=r0.T,
+                                params=fparams, far_field=cfield,
+                                far_spec=cspec)
+
+    E = se3.exp(torch.tensor(C3_XI, dtype=torch.float32, device=dev))
+    src, csrc = scan.transform(se3.inverse(E)), cscan.transform(
+        se3.inverse(E))
+    T_true = Tw @ E
+    plain_before = ndt_terms_plain.launches
+    torch.cuda.synchronize()
+    ndt_terms.launches = 0
+    r0, res = register(src, csrc, Tw)
+    launches = ndt_terms.launches
+    if ndt_terms_plain.launches != plain_before:
+        raise AssertionError("config 3 ran the plain terms version")
+    if launches <= 0:
+        raise AssertionError("config 3 launched no ndt_terms kernel")
+    err = se3.log(se3.inverse(T_true) @ res.T)
+    err_mm = float(torch.linalg.vector_norm(err[:3])) * 1e3
+    frac = float(res.matched_fraction)
+    # coverages as the bench computes them: scan points (at the truth)
+    # inside the fine window, and inside it or the far tier's
+    sane = scan.sanitize()
+    pw = se3.apply(T_true, sane.points)
+    rel = (pw - Tw[:3, 3]).abs()
+    half = torch.tensor([d / 2 * 0.5 for d in C3_FINE], device=dev)
+    inwin = (rel < half).all(1) & sane.mask
+    infar = (rel < torch.tensor(C3_COARSE, dtype=torch.float32,
+                                device=dev)).all(1) & sane.mask
+    coverage = int(inwin.sum()) / max(n_scan, 1)
+    objective_coverage = int((inwin | infar).sum()) / max(n_scan, 1)
+
+    # registrations/s: the bench's loop (each init the last result moved
+    # by (0.15 sin i, 0.1 cos i)), CUDA events over C3_REGISTRATIONS
+    def reg_loop(k):
+        Tc = Tw
+        for i in range(k):
+            Ti = Tc.clone()
+            Ti[0, 3] += _math.sin(i) * 0.15
+            Ti[1, 3] += _math.cos(i) * 0.1
+            Tc = register(scan, cscan, Ti)[1].T
+        return Tc
+
+    reg_loop(3)
+    ndt_terms.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    reg_loop(C3_REGISTRATIONS)
+    end.record()
+    torch.cuda.synchronize()
+    reg_ms = start.elapsed_time(end) / C3_REGISTRATIONS
+    loop_launches = ndt_terms.launches
+
+    # where one registration's time goes: its wall on the host clock, then
+    # the same call under the profiler (device busy time by kernel)
+    def one():
+        return register(src, csrc, Tw)[1].T
+
+    one()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t1) * 1e6
+    per_kernel, prof = device_time_us(one, 1)
+    ka = prof.key_averages()
+    busy_us = sum(per_kernel.values())
+    reg_profile = dict(
+        wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+        device_idle_share=1.0 - busy_us / wall_us,
+        kernel_launches=sum(e.count for e in ka
+                            if e.key == "cudaLaunchKernel"),
+        host_syncs=sum(e.count for e in ka
+                       if e.key == "aten::_local_scalar_dense"),
+        top_device_us=[(k[:80], v) for k, v in sorted(
+            per_kernel.items(), key=lambda kv: -kv[1])[:8]])
+
+    # stage times
+    center = Tw[:3, 3]
+    field_ms = time_ms(lambda: ndt_field(vmap, map_spec, fparams,
+                                         center=center), 10)
+    surf_cloud = PointCloud.from_points_host(w["surf"],
+                                             capacity=len(w["surf"]),
+                                             device=dev)
+    grid = grid_insert(empty_grid(C3_FINE, field.origin_cell), surf_cloud,
+                       map_spec)
+    del surf_cloud
+    gfield = grid_ndt_field(grid, map_spec, min_voxel_count=3.0)
+    grid_field_ms = time_ms(lambda: grid_ndt_field(grid, map_spec,
+                                                   min_voxel_count=3.0), 10)
+    # the same window from the dense path: valid where both are, and the
+    # cells whose validity differs (points within an ulp of a cell face
+    # land on either side of it in the two builds)
+    g_valid, f_valid = gfield.rows[:, 9] > 0.5, field.rows[:, 9] > 0.5
+    both = g_valid & f_valid
+    compare = dict(
+        field_valid_cells=int(f_valid.sum()),
+        grid_field_valid_cells=int(g_valid.sum()),
+        valid_cells_differing=int((g_valid != f_valid).sum()),
+        max_mean_diff_m=float((gfield.rows[both, :3]
+                               - field.rows[both, :3]).abs().max())
+        if bool(both.any()) else None)
+    dims = field.window_dims
+    origin_w = (map_spec.origin_tensor(dev)
+                + field.origin_cell.float() * map_spec.leaf)
+    slots, n_drop = build_terms_raster(sane.points, sane.mask, Tw, origin_w,
+                                       map_spec.leaf, dims, 4)
+    raster_dropped = int(n_drop)
+    raster_ms = time_ms(lambda: build_terms_raster(
+        sane.points, sane.mask, Tw, origin_w, map_spec.leaf, dims, 4), 20)
+    wcloud = w["cloud"].transform(Tw)
+    grid0 = grid_insert(empty_grid(dims, centered_origin_cell(
+        Tw[:3, 3], map_spec, dims, align=4)), wcloud, map_spec)
+    insert_ms = time_ms(lambda: grid_insert(grid0, wcloud, map_spec), 10)
+    del grid, gfield, grid0
+
+    # ndt_terms on the solve's own rasters: the coarse stage's (at the
+    # init), the fine and far tiers' (at the coarse result), each scored
+    # at the final pose
+    T0 = r0.T
+    c_origin = (cspec.origin_tensor(dev)
+                + cfield.origin_cell.float() * cspec.leaf)
+    cslots, _ = build_terms_raster(csrc.points, csrc.mask, Tw, c_origin,
+                                   cspec.leaf, cfield.window_dims,
+                                   cparams.raster_q)
+    fine, _ = build_terms_raster(src.points, src.mask, T0, origin_w,
+                                 map_spec.leaf, dims, fparams.raster_q)
+    far, _ = build_terms_raster(src.points, src.mask & ~fine.inside, T0,
+                                c_origin, cspec.leaf, cfield.window_dims,
+                                fparams.raster_q)
+    far_corr = fparams.max_corr_dist * (cspec.leaf / map_spec.leaf)
+    gamma_c = cparams.score_temperature * cparams.coarse_temperature_scale
+    # the solve's last pose is an optimum, where b's terms cancel; the
+    # same raster 2 cm off it (as config 2's cases are scored) shows the
+    # error against a gradient that does not vanish
+    T_off = se3.retract(res.T, torch.tensor(
+        [0.02, -0.01, 0.0, 0.0, 0.0, 0.005], device=dev))
+    cases = [check_terms_case("config3_fine_q4", (
+                 fine, field.rows, res.T, fparams.score_temperature,
+                 fparams.max_corr_dist, dims)),
+             check_terms_case("config3_fine_q4_2cm_off", (
+                 fine, field.rows, T_off, fparams.score_temperature,
+                 fparams.max_corr_dist, dims)),
+             check_terms_case("config3_far_q4", (
+                 far, cfield.rows, res.T, fparams.score_temperature,
+                 far_corr, cfield.window_dims)),
+             check_terms_case("config3_coarse_q4", (
+                 cslots, cfield.rows, r0.T, gamma_c, cparams.max_corr_dist,
+                 cfield.window_dims))]
+
+    out = dict(
+        map_voxels=n_vox, map_voxels_reference=C3_MAP_VOXELS,
+        scan_points=n_scan, scan_points_reference=C3_REF["scan_points"],
+        coarse_scan_points=int(cscan.count()),
+        register_err_mm=err_mm, matched_fraction=frac,
+        fine_window_coverage=coverage,
+        objective_coverage=objective_coverage,
+        raster_dropped=raster_dropped,
+        raster_dropped_reference=C3_REF["raster_dropped"],
+        reference=C3_REF, fine_window_dims=list(C3_FINE),
+        coarse_window_dims=list(C3_COARSE),
+        fine_origin_cell=field.origin_cell.tolist(),
+        coarse_origin_cell=cfield.origin_cell.tolist(),
+        iterations=[r0.iterations, res.iterations],
+        ndt_terms_launches=launches,
+        ndt_terms_launches_per_registration=loop_launches / C3_REGISTRATIONS,
+        registrations_per_s=1e3 / reg_ms, register_ms=reg_ms,
+        registration_profile=reg_profile,
+        stage_field_build_ms=field_ms,
+        stage_grid_ndt_field_ms=grid_field_ms,
+        stage_raster_build_ms=raster_ms,
+        stage_terms_pass_us=cases[0]["kernel_device_us"],
+        stage_terms_pass_wrapper_ms=cases[0]["ms"],
+        stage_map_insert_ms=insert_ms,
+        map_field_vs_grid_field=compare,
+        workload_seconds=w["seconds"], map_build_seconds=w["map_s"],
+        fields_seconds=fields_s)
+    emit("config3", **out)
+    emit("kernels", kernels=["ndt_terms"], config=3, cases=cases,
+         rtol_of_max=RTOL_OF_MAX)
+    path = pathlib.Path(__file__).resolve().parent / "chiprun_out"
+    path.mkdir(exist_ok=True)
+    (path / "config3.json").write_text(_json.dumps(
+        {"phase": "config3", **out, "kernel_cases": cases}, indent=1))
+    if n_vox != C3_MAP_VOXELS:
+        raise AssertionError(f"map voxels {n_vox} != {C3_MAP_VOXELS}")
+    if n_scan < C3_SCAN_FLOOR:
+        raise AssertionError(f"scan points {n_scan} < {C3_SCAN_FLOOR}")
+    if not err_mm <= C3_ERR_BAR_MM:
+        raise AssertionError(f"config 3 error {err_mm} mm > {C3_ERR_BAR_MM}")
+    if not frac >= C3_MATCHED_BAR:
+        raise AssertionError(f"config 3 matched {frac} < {C3_MATCHED_BAR}")
+    if not objective_coverage >= C3_OBJECTIVE_BAR:
+        raise AssertionError(f"config 3 objective coverage "
+                             f"{objective_coverage} < {C3_OBJECTIVE_BAR}")
+    return launches, cases
+
+
+# ---------------------------------------------------------------------------
+# Config 6: bag replay through the CLI (bench.py:824-936)
+# ---------------------------------------------------------------------------
+
+def phase_config6(tmpdir):
+    """VLP-16 packets along config 2's route -> pcap -> revolutions ->
+    rosbag with TF ground truth, then one command: the port's run_odometry
+    --bag --engine dense with the bench's --set list. The CLI's wall time
+    is the bench's (bag -> dataset conversion + replay); the conversion and
+    the odometry are timed apart, as is the pcap -> bag step before it."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from tpu_slam_torch.cli.run_odometry import main as run_odometry
+    from tpu_slam_torch.core import se3
+    from tpu_slam_torch.ingest import rosbag as rb
+    from tpu_slam_torch.ingest import synthetic as syn
+    from tpu_slam_torch.ingest import velodyne as vlp
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms, ndt_terms_plain
+
+    t0 = time.perf_counter()
+    world = syn.dense_city(extent=200.0, seed=0)
+    route = city_route(C6_POSES)
+    el = np.radians(vlp.VLP16_ELEVATIONS_DEG)
+    n_az = 4096                                        # 65,536 rays a scan
+    az = np.arange(n_az) * (360.0 / n_az)
+    az_r = np.radians(az)[:, None]
+    dirs = np.stack([np.cos(el)[None, :] * np.cos(az_r),
+                     np.cos(el)[None, :] * np.sin(az_r),
+                     np.broadcast_to(np.sin(el)[None, :], (n_az, 16))],
+                    axis=2)
+    rng = np.random.default_rng(0)
+    all_pkts, pkt_times = [], []
+    for k, T in enumerate(route):
+        dirs_w = dirs.reshape(-1, 3) @ T[:3, :3].T
+        r = world.raycast(np.broadcast_to(T[:3, 3], dirs_w.shape), dirs_w,
+                          75.0, device="cuda").reshape(n_az, 16)
+        r = np.where(np.isfinite(r), r + rng.normal(0, 0.01, r.shape), 0.0)
+        pkts = vlp.encode_packets(az, r, start_time_s=100.0 + k)
+        all_pkts.append(pkts)
+        pkt_times.append(100.0 + k + np.arange(pkts.shape[0]) * 1e-3)
+    pcap_path = os.path.join(tmpdir, "seq.pcap")
+    vlp.write_pcap(pcap_path, np.concatenate(all_pkts),
+                   timestamps_s=np.concatenate(pkt_times))
+    synth_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    stream = vlp.VelodyneStream(min_range=0.4, max_range=40.0)
+    revs = []
+    for _ts, payload in vlp.read_pcap(pcap_path):
+        stream.push(np.frombuffer(payload, np.uint8)[None])
+        while (rev := stream.pop()) is not None:
+            revs.append(rev)
+    if (rev := stream.flush()) is not None:
+        revs.append(rev)
+    revs = revs[:len(route)]
+    bag_path = os.path.join(tmpdir, "seq.bag")
+    with rb.BagWriter(bag_path) as wr:
+        for k, (rev, T) in enumerate(zip(revs, route)):
+            t = 100.0 + k
+            q = se3.quat_from_matrix(torch.as_tensor(
+                T[:3, :3], dtype=torch.float32)).numpy()
+            tf = rb.TransformStamped(
+                stamp=t - 0.01, frame_id="odom", child_frame_id="velodyne",
+                translation=T[:3, 3].copy(), rotation=q.astype(np.float64))
+            wr.write("/tf", "tf2_msgs/TFMessage",
+                     rb.serialize_tf_message([tf]), t - 0.01)
+            wr.write("/velodyne_points", "sensor_msgs/PointCloud2",
+                     rb.serialize_pointcloud2(rev.points, t, "velodyne"), t)
+    pcap_to_bag_s = time.perf_counter() - t1
+
+    argv = ["--bag", bag_path, "--bag-gt-frame", "odom", "--json",
+            "--engine", "dense", "--input-capacity", "65536"]
+    for s in C6_SETS:
+        argv += ["--set", s]
+    plain_before = ndt_terms_plain.launches
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    ndt_terms.launches = 0
+    t2 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        run_odometry(argv)
+    wall = time.perf_counter() - t2
+    launches = ndt_terms.launches
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    n = rec["n_scans"]
+    out = dict(
+        revolutions=len(revs), n_scans=n, ate_m=rec.get("ate_rmse_m"),
+        rpe_trans_m=rec.get("rpe_trans_m"),
+        rpe_rot_rad=rec.get("rpe_rot_rad"),
+        mean_matched_fraction=rec.get("mean_matched_fraction"),
+        wall_s=wall, scans_per_s_wall=n / wall,
+        bag_convert_s=rec["bag_convert_s"], odometry_s=rec["odometry_s"],
+        convert_share_of_wall=rec["bag_convert_s"] / wall,
+        synthesize_s=synth_s, pcap_to_bag_s=pcap_to_bag_s,
+        host_conversion_share=(pcap_to_bag_s + rec["bag_convert_s"])
+        / (pcap_to_bag_s + wall),
+        pcap_bytes=os.path.getsize(pcap_path),
+        bag_bytes=os.path.getsize(bag_path), ndt_terms_launches=launches,
+        reference=dict(n_scans=24, ate_m=0.0706, rpe_trans_m=0.0038,
+                       wall_s=71.6))
+    emit("config6", **out)
+    if ndt_terms_plain.launches != plain_before:
+        raise AssertionError("config 6 ran the plain terms version")
+    if launches <= 0:
+        raise AssertionError("config 6 launched no ndt_terms kernel")
+    if n != C6_SCANS:
+        raise AssertionError(f"config 6: {n} scans, not {C6_SCANS}")
+    if not out["ate_m"] <= C6_ATE_BAR_M:
+        raise AssertionError(f"config 6 ATE {out['ate_m']} > {C6_ATE_BAR_M}")
+    if not out["rpe_trans_m"] <= C6_RPE_BAR_M:
+        raise AssertionError(f"config 6 RPE {out['rpe_trans_m']} > "
+                             f"{C6_RPE_BAR_M}")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, cases, main):
     """One kernel's object of the final JSON line; ``main`` is the case
     whose times stand for the kernel."""
@@ -1780,7 +2464,7 @@ def main() -> int:
     launches = phase_slice(engine, clouds, gt)
     phase_profile(engine, clouds, gt)
     phase_determinism(clouds, gt)
-    del clouds, engine
+    del engine
 
     t1 = time.perf_counter()
     c4_clouds, c4_gt = config4_scans("cuda")
@@ -1798,15 +2482,26 @@ def main() -> int:
     icp_cases, nn_c1_cases = phase_icp_kernels(pairs)
     gather_launches, gather_cases = phase_probes()
 
+    # this slice's paths: the engine's options on config 2's scans, then
+    # configs 3 and 6
+    options_launches = phase_options(clouds, gt)
+    del clouds
+    c3_launches, c3_cases = phase_config3(config3_workload("cuda"))
+    with tempfile.TemporaryDirectory() as tmpdir:
+        c6_launches = phase_config6(tmpdir)
+    terms_launches = dict(config2=launches, config2_occupancy=options_launches,
+                          config3=c3_launches, config6=c6_launches)
+
     emit("total", seconds=time.perf_counter() - t_start)
     by_case = {c["case"]: c for c in gather_cases}
     src = "tpu_slam_torch/csrc/"
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": [
         # ndt_terms: no single PyTorch call computes it
-        kernel_entry("ndt_terms", src + "ndt_terms.cu",
-                     "tpu_slam/kernels/ndt_terms.py:199", launches, cases,
-                     cases[0]),
+        dict(kernel_entry("ndt_terms", src + "ndt_terms.cu",
+                          "tpu_slam/kernels/ndt_terms.py:199",
+                          sum(terms_launches.values()), cases + c3_cases,
+                          cases[0]), launches_by_path=terms_launches),
         # launches on both of its paths: config 4's verification, config
         # 1's brute tier
         kernel_entry("nn_search", src + "nn_search.cu",

@@ -378,3 +378,61 @@ def test_terms_kernels_on_two_streams(cuda):
     for g, w in zip(got + igot, want + iwant):
         for x, y in zip(g, w):
             assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dims, q, n", [((160, 160, 32), 4, 18600),
+                                        ((64, 64, 16), 4, 3000),
+                                        ((64, 64, 16), 8, 6000)])
+def test_ndt_kernel_at_config3_shapes(cuda, dims, q, n):
+    # config 3's fine window (160, 160, 32) at ~18.6k points, and its
+    # coarse / far window (64, 64, 16)
+    import chip_smoke
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms, ndt_terms_plain
+
+    args = chip_smoke.random_terms_case(cuda, dims=dims, q=q, n=n, seed=q)
+    _assert_close(ndt_terms(*args), ndt_terms_plain(*args))
+
+
+def test_occupancy_update_repeats_bit_for_bit_and_matches_the_cpu(cuda):
+    # equal-value marks: the same layer, rows and count on every call and
+    # on either device
+    import numpy as np
+
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.kernels.voxel_hash import VoxelGridSpec
+    from tpu_slam_torch.mapping import dense_map as dm
+
+    rng = np.random.default_rng(0)
+    dims, oc = (64, 64, 16), (96, 96, 120)
+    spec = VoxelGridSpec.centered(leaf=0.5, half_extent=64.0)
+    g = 64 * 64 * 16
+    rows = np.zeros((g, 10), np.float32)
+    on = rng.uniform(size=g) < 0.3
+    rows[on, 0] = 3.0
+    lo = rng.uniform(-1.3, 0.3, (g, 1)).astype(np.float32)
+    origin = np.array([0.3, -0.2, 1.5], np.float32)
+    pts = (origin + rng.normal(0, 8.0, (30000, 3))).astype(np.float32)
+
+    def run(dev):
+        grid = dm.DenseMomentGrid(rows=torch.tensor(rows, device=dev),
+                                  origin_cell=torch.tensor(
+                                      oc, dtype=torch.int32, device=dev),
+                                  dims=dims)
+        occ = dm.DenseMomentGrid(rows=torch.tensor(lo, device=dev),
+                                 origin_cell=grid.origin_cell, dims=dims)
+        cloud = PointCloud.from_points_host(pts, 32768, device=dev)
+        return dm.grid_occupancy_update(grid, occ,
+                                        torch.tensor(origin, device=dev),
+                                        cloud, spec)
+
+    first = run(cuda)
+    for _ in range(2):
+        again = run(cuda)
+        assert torch.equal(again[0].rows, first[0].rows)
+        assert torch.equal(again[1].rows, first[1].rows)
+        assert int(again[2]) == int(first[2]) > 0
+    ref = run("cpu")
+    # the sample lattice is the same float32 arithmetic on both devices;
+    # a cell may differ only where a sample lies within an ulp of a face
+    differ = int((ref[1].rows != first[1].rows.cpu()).sum())
+    assert differ <= 1e-4 * g

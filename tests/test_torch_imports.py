@@ -24,16 +24,26 @@ bad = sorted(m for m in sys.modules
              or m == "tpu_slam" or m.startswith("tpu_slam.")
              or m == "benchmarks" or m.startswith("benchmarks."))
 print(len(names), bad)
+print(" ".join(names))
 """
+
+# modules whose absence would leave a slice's path unchecked: the CLI and
+# the replay and deskew ingest, the sparse voxel map
+NEW_MODULES = ("tpu_slam_torch.cli.run_odometry", "tpu_slam_torch.cli.common",
+               "tpu_slam_torch.ingest.deskew", "tpu_slam_torch.ingest.velodyne",
+               "tpu_slam_torch.ingest.rosbag", "tpu_slam_torch.ingest.dataset",
+               "tpu_slam_torch.mapping.voxel_map")
 
 
 def test_port_and_chip_smoke_import_neither_jax_nor_tpu_slam():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
+    head, listed = out.stdout.strip().splitlines()
+    n, bad = head.split(" ", 1)
     assert int(n) >= 20          # every module of the package was imported
     assert bad == "[]"
+    assert set(NEW_MODULES) <= set(listed.split())
 
 
 def test_engine_raises_without_cuda_unless_cpu_is_asked(monkeypatch):

@@ -204,12 +204,22 @@ def test_three_scan_run_matches_reference(oracle):
 
 
 def test_engine_refuses_what_is_not_ported():
+    """Both options construct (their parity is
+    test_torch_odometry_options.py); what the dense engine cannot run
+    still raises: another registration method, and no window shape."""
     cfg = config_from_dict(dataclasses.asdict(_jconfig()))
-    with pytest.raises(NotImplementedError):
-        DenseLidarOdometry(dataclasses.replace(cfg, use_occupancy=True),
+    occ = DenseLidarOdometry(dataclasses.replace(cfg, use_occupancy=True),
+                             device="cpu")
+    assert occ.n_evicted is not None and int(occ.n_evicted) == 0
+    desk = DenseLidarOdometry(dataclasses.replace(cfg, deskew=True),
+                              device="cpu")
+    assert desk.config.deskew and desk.n_evicted is None
+    with pytest.raises(ValueError):
+        DenseLidarOdometry(dataclasses.replace(cfg, method="icp_point"),
                            device="cpu")
-    with pytest.raises(NotImplementedError):
-        DenseLidarOdometry(dataclasses.replace(cfg, deskew=True),
-                           device="cpu")
+    with pytest.raises(ValueError):
+        DenseLidarOdometry(dataclasses.replace(
+            cfg, ndt=dataclasses.replace(cfg.ndt, window_dims=None)),
+            device="cpu")
     odo = DenseLidarOdometry(cfg, device="cpu")
     assert odo.device == torch.device("cpu")

@@ -6,11 +6,15 @@ easy to find; the JAX package stays the reference and this package imports
 nothing of it (nor of JAX).
 
 Layer map of what is ported so far (full SLAM on the dense odometry
-engine, pair ICP on both tiers, the gather probes):
+engine with its occupancy and deskew options, scan-to-map NDT on the
+sparse voxel map, bag replay through the CLI, pair ICP on both tiers,
+the gather probes):
 
+    cli/           run_odometry (--bag/--dataset, --engine dense,
+                   --device), config overrides
     pipeline/      SLAMSystem (keyframes, loop sweeps, graph, re-anchor),
-                   DenseLidarOdometry, config, metrics, state hand-over,
-                   checkpoint/resume
+                   DenseLidarOdometry (occupancy eviction, deskew), config,
+                   metrics, state hand-over, checkpoint/resume
     graph/         pose graph (GN + matrix-free PCG), loop-closure
                    candidates and batched symmetric ICP verification,
                    scan-context descriptors
@@ -18,16 +22,20 @@ engine, pair ICP on both tiers, the gather probes):
                    brute-force ICP (one pair or a batch), raster-tier
                    pair ICP and the size-routed icp_auto, k-NN normals,
                    robust weights
-    mapping/       dense moment window (insert, scroll, NDT field)
+    mapping/       dense moment window (insert, scroll, NDT field,
+                   occupancy layer, coarsening), the sparse voxel map
+                   (host bulk build, coarsening)
     kernels/       voxel hashing, downsampling, and the hand-written CUDA
                    kernels with their plain versions: NDT terms
                    (csrc/ndt_terms.cu), brute-force NN (csrc/nn_search.cu),
                    ICP terms (csrc/icp_terms.cu), row gathers
                    (csrc/gather.cu), built with nvcc at first use
     benchmarks/    the gather probes on the gather kernels
-    ingest/        synthetic worlds, routes and the VLP-16 simulator
-    core/          SE(3) (batched), symmetric 3x3 closed forms, padded
-                   point clouds, the deterministic scatter-add
+    ingest/        synthetic worlds, routes and the VLP-16 simulator,
+                   deskew, VLP-16 packets and pcap, rosbag, npz datasets
+    core/          SE(3) and quaternions (batched), symmetric 3x3 closed
+                   forms, padded point clouds, the deterministic
+                   scatter-add
     utils/         timing on the card (slope_time, call_ms)
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; a

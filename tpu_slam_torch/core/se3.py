@@ -168,6 +168,78 @@ def retract(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Quaternions (xyzw order, as tf::Quaternion)
+# ---------------------------------------------------------------------------
+
+def quat_from_matrix(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> unit quaternions (..., 4) [x, y, z,
+    w] by Shepperd's method: the case of the largest of (trace, m00, m11,
+    m22), all four evaluated and one picked per matrix."""
+    m = [[R[..., i, j] for j in range(3)] for i in range(3)]
+    m00, m01, m02 = m[0]
+    m10, m11, m12 = m[1]
+    m20, m21, m22 = m[2]
+    tr = m00 + m11 + m22
+
+    def case(diag, build):
+        s = torch.sqrt(torch.clamp(diag, min=_EPS)) * 2.0
+        return torch.stack(build(s), dim=-1)
+
+    cases = torch.stack([
+        case(tr + 1.0, lambda s: [(m21 - m12) / s, (m02 - m20) / s,
+                                  (m10 - m01) / s, 0.25 * s]),
+        case(1.0 + m00 - m11 - m22, lambda s: [0.25 * s, (m01 + m10) / s,
+                                               (m02 + m20) / s,
+                                               (m21 - m12) / s]),
+        case(1.0 + m11 - m00 - m22, lambda s: [(m01 + m10) / s, 0.25 * s,
+                                               (m12 + m21) / s,
+                                               (m02 - m20) / s]),
+        case(1.0 + m22 - m00 - m11, lambda s: [(m02 + m20) / s,
+                                               (m12 + m21) / s, 0.25 * s,
+                                               (m10 - m01) / s]),
+    ], dim=-2)                                               # (..., 4, 4)
+    idx = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    q = torch.take_along_dim(cases, idx[..., None, None], dim=-2)[..., 0, :]
+    return q / torch.sqrt(_sq_norm(q))[..., None]
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Quaternions (..., 4) [x, y, z, w] -> rotation matrices (..., 3, 3)."""
+    x, y, z, w = q.unbind(-1)
+    s = 2.0 / torch.clamp(_sq_norm(q), min=_EPS)
+    return torch.stack([
+        torch.stack([1 - s * (y * y + z * z), s * (x * y - z * w),
+                     s * (x * z + y * w)], -1),
+        torch.stack([s * (x * y + z * w), 1 - s * (x * x + z * z),
+                     s * (y * z - x * w)], -1),
+        torch.stack([s * (x * z - y * w), s * (y * z + x * w),
+                     1 - s * (x * x + y * y)], -1),
+    ], -2)
+
+
+def quat_angle_between(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Angle of the relative rotation of two unit quaternions, in [0, pi]
+    (tf::Quaternion::angle as the aggregator's rotation integral uses it)."""
+    d = (q1 * q2).sum(-1).abs()
+    return 2.0 * torch.arccos(torch.clamp(d, -1.0, 1.0))
+
+
+def quat_from_euler(roll: torch.Tensor, pitch: torch.Tensor,
+                    yaw: torch.Tensor) -> torch.Tensor:
+    """ZYX (yaw-pitch-roll) Euler angles -> quaternions [x, y, z, w]
+    (tf.transformations.quaternion_from_euler's default axes)."""
+    cr, sr = torch.cos(roll * 0.5), torch.sin(roll * 0.5)
+    cp, sp = torch.cos(pitch * 0.5), torch.sin(pitch * 0.5)
+    cy, sy = torch.cos(yaw * 0.5), torch.sin(yaw * 0.5)
+    return torch.stack([
+        sr * cp * cy - cr * sp * sy,
+        cr * sp * cy + sr * cp * sy,
+        cr * cp * sy - sr * sp * cy,
+        cr * cp * cy + sr * sp * sy,
+    ], dim=-1)
+
+
+# ---------------------------------------------------------------------------
 # Adjoints (pose-graph Jacobian machinery)
 # ---------------------------------------------------------------------------
 

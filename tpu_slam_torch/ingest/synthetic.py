@@ -1,8 +1,9 @@
 """Synthetic LiDAR worlds and the VLP-16 sensor simulation.
 
 Copy of the parts of ``tpu_slam.ingest.synthetic`` the ported slices
-need: planar-patch worlds with vectorized ray casting, the VLP-16 ring
-model, the office, grid-city and ring-corridor worlds, and the corridor
+need: planar-patch worlds with vectorized ray casting, surface sampling
+(the config-3 map), the VLP-16 ring model, its range images and pcap
+capture, the office, grid-city and ring-corridor worlds, and the corridor
 route of the SLAM workload. The numpy chunk path is the
 reference's, unchanged, so small scenes are bit-identical to it; the large
 single-origin ray-plane pass runs the same algebra in torch on the given
@@ -126,6 +127,30 @@ def _raycast_accel(o, u, v, n, uu, vv, origin, dirs, max_range, device):
     return np.where(out <= max_range, out, np.inf).astype(np.float32)
 
 
+def sample_world_surface(world: World, spacing: float = 0.15,
+                         noise_std: float = 0.01, seed: int = 0
+                         ) -> np.ndarray:
+    """Uniformly sample every patch surface at ~``spacing`` meters (numpy,
+    the reference's draws in its order): surface points with the planar
+    statistics of a raycast map, at a fraction of the cost."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for p in world.patches:
+        lu = float(np.linalg.norm(p.u))
+        lv = float(np.linalg.norm(p.v))
+        nu = max(1, int(lu / spacing))
+        nv = max(1, int(lv / spacing))
+        a = (np.arange(nu) + rng.uniform(0, 1, nu)) / nu
+        b = (np.arange(nv) + rng.uniform(0, 1, nv)) / nv
+        g = a[:, None, None] * p.u[None, None, :] \
+            + b[None, :, None] * p.v[None, None, :] + p.origin
+        pts = g.reshape(-1, 3)
+        if noise_std > 0:
+            pts = pts + rng.normal(0, noise_std, pts.shape)
+        out.append(pts.astype(np.float32))
+    return np.concatenate(out, axis=0)
+
+
 def make_room(size: Tuple[float, float, float] = (10.0, 8.0, 3.0),
               center: Tuple[float, float] = (0.0, 0.0),
               boxes: Optional[Sequence[Tuple[np.ndarray, np.ndarray]]] = None
@@ -207,6 +232,55 @@ def simulate_vlp16_revolution(world: World, T_world_sensor: np.ndarray,
         r = r + rng.normal(0.0, noise_std, r.shape)
     pts = dirs_s * np.where(valid, r, 0.0)[:, None]
     return pts.astype(np.float32), valid
+
+
+def simulate_vlp16_range_image(world: World, T_world_sensor: np.ndarray,
+                               n_azimuth: int = 1808,
+                               max_range: float = 130.0,
+                               noise_std: float = 0.0,
+                               rng: Optional[np.random.Generator] = None,
+                               device=None
+                               ) -> Tuple[np.ndarray, np.ndarray]:
+    """One revolution as the (azimuth, ring) range image the device emits:
+    (azimuth_deg (S,), ranges_m (S, 16)), 0 = no return (the wire
+    convention of a VLP-16 data packet). S = 1808 firing sequences is 600
+    RPM at the 55.296 us firing period."""
+    dirs_s = vlp16_directions(n_azimuth)
+    R, t = T_world_sensor[:3, :3], T_world_sensor[:3, 3]
+    dirs_w = dirs_s @ R.T
+    origins = np.broadcast_to(t, dirs_w.shape)
+    r = world.raycast(origins, dirs_w, max_range, device=device)
+    if noise_std > 0 and rng is not None:
+        r = r + rng.normal(0.0, noise_std, r.shape)
+    r = np.where(np.isfinite(r), r, 0.0).reshape(n_azimuth, 16)
+    az = np.degrees(np.linspace(0.0, 2 * np.pi, n_azimuth, endpoint=False))
+    return az, r.astype(np.float64)
+
+
+def synthesize_vlp16_pcap(path: str, world: World, trajectory: np.ndarray,
+                          n_azimuth: int = 1808, max_range: float = 130.0,
+                          noise_std: float = 0.0,
+                          rng: Optional[np.random.Generator] = None,
+                          device=None) -> str:
+    """Render a VLP-16 capture along ``trajectory`` (one revolution a
+    pose, the sensor still within it) and write it as a pcap that replays
+    through velodyne.read_pcap -> VelodyneStream. Returns the path."""
+    from tpu_slam_torch.ingest import velodyne as vlp
+
+    rev_period = vlp.SEQ_PERIOD_US * 1e-6 * n_azimuth
+    all_pkts = []
+    for k in range(trajectory.shape[0]):
+        az, r = simulate_vlp16_range_image(
+            world, trajectory[k], n_azimuth=n_azimuth, max_range=max_range,
+            noise_std=noise_std, rng=rng, device=device)
+        all_pkts.append(vlp.encode_packets(az, r,
+                                           start_time_s=k * rev_period))
+    pkts = np.concatenate(all_pkts)
+    n_per = all_pkts[0].shape[0]
+    ts = (np.arange(pkts.shape[0], dtype=np.float64) % n_per
+          * vlp.SEQS_PER_PACKET * vlp.SEQ_PERIOD_US * 1e-6)
+    ts = ts + np.repeat(np.arange(len(all_pkts)) * rev_period, n_per)
+    return vlp.write_pcap(path, pkts, timestamps_s=ts)
 
 
 def se2_pose(x: float, y: float, yaw: float, z: float = 0.0) -> np.ndarray:

@@ -6,7 +6,9 @@ moments [n, s(3), outer-triu(6)] taken about each cell's own corner, and
 lattice of a VoxelGridSpec. Insert is one sort-based accumulate
 (``core.scatter.accumulate_rows``, no float atomics); the NDT field comes
 straight from the window moments (three separable 3x3x3 passes +
-closed-form floored inverses).
+closed-form floored inverses). A log-odds layer of the same shape carries
+free-space evidence (``grid_occupancy_update``) that clears the moments
+of cells a moving object has left.
 """
 
 from __future__ import annotations
@@ -157,6 +159,181 @@ def grid_recenter_shift(grid: DenseMomentGrid, center_world: torch.Tensor,
     return torch.where(need, err, torch.zeros_like(err)).to(torch.int32)
 
 
+def empty_occupancy_grid(dims: Tuple[int, int, int], origin_cell,
+                         device=None) -> DenseMomentGrid:
+    """A dense log-odds layer aligned with a moment window (rows (G, 1))."""
+    wx, wy, wz = dims
+    oc = torch.as_tensor(origin_cell, dtype=torch.int32, device=device)
+    return DenseMomentGrid(
+        rows=torch.zeros((wx * wy * wz, 1), dtype=torch.float32,
+                         device=oc.device),
+        origin_cell=oc.clone(), dims=tuple(dims))
+
+
+def _window_cell(p: torch.Tensor, origin_w: torch.Tensor, leaf: float,
+                 dims: Tuple[int, int, int]):
+    """x-major window cell of world points and whether it is inside; the
+    clip comes before the int conversion (padded points sit at 1e8)."""
+    wx, wy, wz = dims
+    hi = torch.tensor([wx, wy, wz], dtype=torch.float32, device=p.device)
+    rel = torch.minimum(torch.clamp((p - origin_w) / leaf, min=-1.0), hi)
+    cc = torch.floor(rel).to(torch.int32)
+    inside = ((cc >= 0) & (cc < hi.to(torch.int32))).all(dim=1)
+    return (cc[:, 0] * wy + cc[:, 1]) * wz + cc[:, 2], inside
+
+
+def grid_occupancy_update(grid: DenseMomentGrid, occ: DenseMomentGrid,
+                          origin: torch.Tensor, cloud: PointCloud,
+                          spec: VoxelGridSpec, n_steps: int = 64,
+                          max_range: float = 30.0, hit_odds: float = 0.85,
+                          miss_odds: float = -0.4,
+                          evict_below: float = -1.0,
+                          weight: Union[torch.Tensor, float] = 1.0):
+    """Free-space evidence along each ray, then dynamic-object eviction.
+
+    Free space is sampled along each ray at leaf/2 steps (one (N, n_steps)
+    lattice, stopping one leaf short of the endpoint); a window cell that
+    any sample reaches gets one miss, a cell holding an endpoint one hit
+    (a hit wins), whatever the number of samples or points in it. Cells
+    whose log-odds fall below ``evict_below`` while holding moments have
+    their moment rows cleared and their evidence reset to neutral.
+
+    The marks are equal-value writes (``index_fill_``), so the result does
+    not depend on the order of the writes. ``weight`` 0 makes the whole
+    update a no-op (the branch-free reject path). Returns
+    (grid, occ, n_evicted), out of place.
+    """
+    wx, wy, wz = grid.dims
+    g = wx * wy * wz
+    pts = cloud.points
+    dev = pts.device
+    d = pts - origin
+    rng = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+                     + d[:, 2] * d[:, 2])
+    rng_c = torch.clamp(rng, max=max_range)
+    valid = cloud.mask & (rng > 1e-6)
+    w = torch.as_tensor(weight, dtype=torch.float32, device=dev)
+    origin_w = (spec.origin_tensor(dev)
+                + occ.origin_cell.to(torch.float32) * spec.leaf)
+
+    step = spec.leaf * 0.5
+    t = (torch.arange(n_steps, dtype=torch.float32, device=dev) + 0.5) * step
+    frac_end = torch.clamp(rng_c - spec.leaf, min=0.0)
+    sample_ok = valid[:, None] & (t[None, :] < frac_end[:, None])
+    dirs = d / torch.clamp(rng, min=1e-9)[:, None]
+    samples = (origin + dirs[:, None, :] * t[None, :, None]).reshape(-1, 3)
+    scell, sin = _window_cell(samples, origin_w, spec.leaf, grid.dims)
+    scell = torch.where(sample_ok.reshape(-1) & sin, scell, g)
+    hcell, hin = _window_cell(pts, origin_w, spec.leaf, grid.dims)
+    hcell = torch.where(valid & (rng <= max_range) & hin, hcell, g)
+
+    def marks(idx):
+        return torch.zeros(g + 1, dtype=torch.bool, device=dev).index_fill_(
+            0, idx.long(), True)[:g]
+
+    miss_mark, hit_mark = marks(scell), marks(hcell)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    delta = torch.where(hit_mark, torch.full_like(zero, hit_odds),
+                        torch.where(miss_mark,
+                                    torch.full_like(zero, miss_odds), zero))
+    lo = torch.clamp(occ.rows[:, 0] + w * delta, -4.0, 4.0)
+
+    evict = (grid.rows[:, 0] > 0) & (lo < evict_below) & (w > 0)
+    n_evicted = evict.sum(dtype=torch.int32)
+    rows = torch.where(evict[:, None], 0.0, grid.rows)
+    # a cleared cell restarts from neutral, or it would re-evict every new
+    # insert forever
+    lo = torch.where(evict, zero, lo)
+    return (DenseMomentGrid(rows=rows, origin_cell=grid.origin_cell,
+                            dims=grid.dims),
+            DenseMomentGrid(rows=lo[:, None], origin_cell=occ.origin_cell,
+                            dims=occ.dims),
+            n_evicted)
+
+
+def grid_coarsen(grid: DenseMomentGrid, spec: VoxelGridSpec,
+                 factor: int = 4) -> DenseMomentGrid:
+    """Block-sum the fine moments into a ``factor`` x coarser window.
+
+    Each fine cell's corner-local moments move to its coarse cell's corner
+    (offset d, fixed per sub-cell) by the parallel-axis rule
+    s' = s + n d, o'_ab = o_ab + d_a s_b + d_b s_a + n d_a d_b, then the
+    factor^3 block is summed. Needs dims divisible by ``factor`` and an
+    origin cell aligned to it (grid_recenter_shift keeps it so).
+    """
+    f = factor
+    wx, wy, wz = grid.dims
+    if wx % f or wy % f or wz % f:
+        raise ValueError(f"dims {grid.dims} not divisible by factor {f}")
+    dev = grid.rows.device
+    a = grid.rows.reshape(wx // f, f, wy // f, f, wz // f, f, 10)
+    off = torch.arange(f, dtype=torch.float32, device=dev) * spec.leaf
+    dx = off.reshape(1, f, 1, 1, 1, 1)
+    dy = off.reshape(1, 1, 1, f, 1, 1)
+    dz = off.reshape(1, 1, 1, 1, 1, f)
+    n = a[..., 0]
+    sx, sy, sz = a[..., 1], a[..., 2], a[..., 3]
+    oxx, oxy, oxz = a[..., 4], a[..., 5], a[..., 6]
+    oyy, oyz, ozz = a[..., 7], a[..., 8], a[..., 9]
+    out = torch.stack([
+        n, sx + n * dx, sy + n * dy, sz + n * dz,
+        oxx + 2.0 * dx * sx + n * dx * dx,
+        oxy + dx * sy + dy * sx + n * dx * dy,
+        oxz + dx * sz + dz * sx + n * dx * dz,
+        oyy + 2.0 * dy * sy + n * dy * dy,
+        oyz + dy * sz + dz * sy + n * dy * dz,
+        ozz + 2.0 * dz * sz + n * dz * dz,
+    ], dim=-1)
+    coarse = out.sum(dim=(1, 3, 5))
+    return DenseMomentGrid(rows=coarse.reshape(-1, 10),
+                           origin_cell=_floor_div(grid.origin_cell, f),
+                           dims=(wx // f, wy // f, wz // f))
+
+
+def field_rows(moments: torch.Tensor, occupied: torch.Tensor,
+               origin_cell: torch.Tensor, dims: Tuple[int, int, int],
+               spec: VoxelGridSpec, min_voxel_count: float,
+               evec_floor_ratio: float, count_floor: float) -> torch.Tensor:
+    """NDT field rows (G, 16) x-major from a window's (G, 10) corner-local
+    moments: the 27-cell sums (three separable passes), mean and
+    covariance over max(count, ``count_floor``), the closed-form floored
+    inverse, and [mean world (3), information upper triangle (6), valid,
+    pad (6)], zero where not ``occupied`` or below ``min_voxel_count``."""
+    from tpu_slam_torch.core.sym3 import floored_info_sym3_tri
+    from tpu_slam_torch.registration.ndt import _nbr_moment_pass
+
+    wx, wy, wz = dims
+    g = wx * wy * wz
+    dev = moments.device
+    a = moments.reshape(wx, wy, wz, 10)
+    for axis in (2, 1, 0):
+        a = _nbr_moment_pass(a, axis, spec.leaf)
+    a = a.reshape(g, 10)
+
+    cnt = a[:, 0]
+    safe = torch.clamp(cnt, min=count_floor)
+    mean_local = a[:, 1:4] / safe[:, None]
+    mx, my, mz = mean_local[:, 0], mean_local[:, 1], mean_local[:, 2]
+    inv = 1.0 / safe
+    cov_tri = (a[:, 4] * inv - mx * mx, a[:, 5] * inv - mx * my,
+               a[:, 6] * inv - mx * mz, a[:, 7] * inv - my * my,
+               a[:, 8] * inv - my * mz, a[:, 9] * inv - mz * mz)
+    info_tri = floored_info_sym3_tri(cov_tri, evec_floor_ratio)
+    valid = occupied & (cnt >= min_voxel_count)
+
+    ci = torch.arange(g, dtype=torch.int32, device=dev)
+    cell = torch.stack([ci // (wy * wz), (ci // wz) % wy, ci % wz], dim=1)
+    cell = cell + origin_cell[None, :]
+    mean_world = (cell.to(torch.float32) * spec.leaf
+                  + spec.origin_tensor(dev) + mean_local)
+
+    rows16 = torch.cat(
+        [mean_world] + [c[:, None] for c in info_tri]
+        + [valid[:, None].to(torch.float32),
+           torch.zeros((g, 6), dtype=torch.float32, device=dev)], dim=1)
+    return torch.where(valid[:, None], rows16, 0.0).contiguous()
+
+
 def grid_ndt_field(grid: DenseMomentGrid, spec: VoxelGridSpec,
                    min_voxel_count: float = 5.0,
                    evec_floor_ratio: float = 0.01):
@@ -166,39 +343,10 @@ def grid_ndt_field(grid: DenseMomentGrid, spec: VoxelGridSpec,
     [mean world (3), information upper triangle (6), valid, pad (6)], zero
     where invalid — the rows the NDT terms kernel indexes directly.
     """
-    from tpu_slam_torch.core.sym3 import floored_info_sym3_tri
-    from tpu_slam_torch.registration.ndt import NDTField, _nbr_moment_pass
+    from tpu_slam_torch.registration.ndt import NDTField
 
-    wx, wy, wz = grid.dims
-    g = wx * wy * wz
-    dev = grid.rows.device
-    occ = grid.rows[:, 0] > 0.0
-    a = grid.rows.reshape(wx, wy, wz, 10)
-    for axis in (2, 1, 0):
-        a = _nbr_moment_pass(a, axis, spec.leaf)
-    a = a.reshape(g, 10)
-
-    cnt = a[:, 0]
-    safe = torch.clamp(cnt, min=1e-6)
-    mean_local = a[:, 1:4] / safe[:, None]
-    mx, my, mz = mean_local[:, 0], mean_local[:, 1], mean_local[:, 2]
-    inv = 1.0 / safe
-    cov_tri = (a[:, 4] * inv - mx * mx, a[:, 5] * inv - mx * my,
-               a[:, 6] * inv - mx * mz, a[:, 7] * inv - my * my,
-               a[:, 8] * inv - my * mz, a[:, 9] * inv - mz * mz)
-    info_tri = floored_info_sym3_tri(cov_tri, evec_floor_ratio)
-    valid = occ & (cnt >= min_voxel_count)
-
-    ci = torch.arange(g, dtype=torch.int32, device=dev)
-    cell = torch.stack([ci // (wy * wz), (ci // wz) % wy, ci % wz], dim=1)
-    cell = cell + grid.origin_cell[None, :]
-    mean_world = (cell.to(torch.float32) * spec.leaf
-                  + spec.origin_tensor(dev) + mean_local)
-
-    rows16 = torch.cat(
-        [mean_world] + [c[:, None] for c in info_tri]
-        + [valid[:, None].to(torch.float32),
-           torch.zeros((g, 6), dtype=torch.float32, device=dev)], dim=1)
-    rows16 = torch.where(valid[:, None], rows16, 0.0).contiguous()
+    rows16 = field_rows(grid.rows, grid.rows[:, 0] > 0.0, grid.origin_cell,
+                        grid.dims, spec, min_voxel_count, evec_floor_ratio,
+                        count_floor=1e-6)
     return NDTField(rows=rows16, origin_cell=grid.origin_cell,
                     window_dims=grid.dims)

@@ -1,8 +1,8 @@
 """Checkpoint / resume of the dense SLAM state.
 
 One ``.npz`` holding every array of ``pipeline.state.slam_state_to_numpy``
-(odometry windows, pose graph, keyframe buffers, counters, loop
-bookkeeping) plus a JSON manifest. The manifest names this package's own
+(odometry windows, the occupancy layer when it is on, pose graph, keyframe
+buffers, counters, loop bookkeeping) plus a JSON manifest. The manifest names this package's own
 format and its version and the odometry engine, so a file of another
 format or engine is refused instead of being half-read. Files written by
 ``tpu_slam`` are such files: their layout differs and they are not read.

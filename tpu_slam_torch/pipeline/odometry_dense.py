@@ -5,6 +5,10 @@ scrolling dense moment window (mapping.dense_map) at the map leaf, plus a
 wide window of the same cell dims at ``pyramid_factor`` x the leaf whose
 field drives the coarse stage (yaw search + GNC) and the fine solve's far
 tier. Every LM evaluation runs the NDT terms kernel (csrc/ndt_terms.cu).
+Two options follow the reference: ``deskew`` undistorts each scan with
+the predicted motion before it is registered, and ``use_occupancy`` keeps a
+log-odds layer aligned with the fine window whose free-space evidence
+clears the moments of cells a moving object has left.
 
 The state lives on the engine's device; ``run`` reads pose and metrics
 back every ``sync_every`` scans.
@@ -21,12 +25,15 @@ import torch
 from tpu_slam_torch import default_device
 from tpu_slam_torch.core import se3
 from tpu_slam_torch.core.pointcloud import PointCloud
+from tpu_slam_torch.ingest.deskew import deskew_cloud, vlp16_time_fractions
 from tpu_slam_torch.kernels.downsample import voxel_downsample
 from tpu_slam_torch.kernels.voxel_hash import VoxelGridSpec
 from tpu_slam_torch.mapping.dense_map import (DenseMomentGrid,
                                               centered_origin_cell,
-                                              empty_grid, grid_insert,
-                                              grid_ndt_field,
+                                              empty_grid,
+                                              empty_occupancy_grid,
+                                              grid_insert, grid_ndt_field,
+                                              grid_occupancy_update,
                                               grid_recenter_shift,
                                               grid_scroll)
 from tpu_slam_torch.mapping.voxel_map import coarse_spec_of
@@ -48,6 +55,9 @@ class DenseOdomState:
     # wide coarse moment window (same dims at the coarse leaf); None when
     # pyramid_factor <= 1
     wide: Optional[DenseMomentGrid] = None
+    # log-odds layer aligned with the fine window (rows (G, 1)); None
+    # unless config.use_occupancy
+    occ: Optional[DenseMomentGrid] = None
 
 
 class DenseLidarOdometry:
@@ -60,11 +70,6 @@ class DenseLidarOdometry:
         if config.ndt.window_dims is None:
             raise ValueError("config.ndt.window_dims must be set (the dense "
                              "window shape)")
-        if config.use_occupancy:
-            raise NotImplementedError("use_occupancy (dense occupancy "
-                                      "eviction) is not ported yet")
-        if config.deskew:
-            raise NotImplementedError("deskew is not ported yet")
         self.device = default_device(device)
         self.config = config
         self.map_spec = config.map_spec()
@@ -80,6 +85,11 @@ class DenseLidarOdometry:
                 half_extent=config.map_half_extent)
             self.coarse_scan_capacity = max(2048, config.scan_capacity // 4)
         self.metrics = MetricsLog()
+        # cells the occupancy layer has cleared since init_state (int64 on
+        # the device; a diagnostic, not part of the state)
+        self.n_evicted = (torch.zeros((), dtype=torch.int64,
+                                      device=self.device)
+                          if config.use_occupancy else None)
 
     def _coarse_params(self):
         cfg = self.config
@@ -105,6 +115,10 @@ class DenseLidarOdometry:
                                      device=dev))
         c0 = centered_origin_cell(pose[:3, 3], self.map_spec, self.dims,
                                   align=self.factor)
+        occ = None
+        if self.config.use_occupancy:
+            occ = empty_occupancy_grid(self.dims, c0)
+            self.n_evicted = torch.zeros((), dtype=torch.int64, device=dev)
         world_first = first_cloud.transform(pose)
         grid = grid_insert(empty_grid(self.dims, c0), world_first,
                            self.map_spec)
@@ -120,7 +134,7 @@ class DenseLidarOdometry:
             grid=grid, scan_index=torch.ones((), dtype=torch.int32,
                                              device=dev),
             last_metrics=torch.zeros(5, dtype=torch.float32, device=dev),
-            wide=wide)
+            wide=wide, occ=occ)
 
     def downsample(self, cloud: PointCloud) -> PointCloud:
         return voxel_downsample(cloud, self.scan_spec,
@@ -143,6 +157,13 @@ class DenseLidarOdometry:
         """One scan: returns the next state (the old one is left intact)."""
         cfg = self.config
         pred = self._clamped_delta(state.last_delta)
+        if cfg.deskew:
+            # the scan moved by pred during its sweep: carry every point to
+            # the sweep-end frame
+            cloud = deskew_cloud(cloud, vlp16_time_fractions(cloud.points),
+                                 T_start=se3.inverse(pred),
+                                 T_end=torch.eye(4, dtype=torch.float32,
+                                                 device=self.device))
         scan = self.downsample(cloud)
         if cfg.scan_max_range > 0:
             rng2 = torch.sum(scan.points[:, :2] ** 2, dim=1)
@@ -157,6 +178,9 @@ class DenseLidarOdometry:
                                     align=self.factor,
                                     deadband_fraction=cfg.rebase_fraction)
         grid = grid_scroll(state.grid, shift)
+        occ = state.occ
+        if occ is not None:
+            occ = grid_scroll(occ, shift)   # stays aligned with the window
 
         # coarse capture on the WIDE window's field, then the fine polish
         coarse_frac = torch.ones((), dtype=torch.float32, device=self.device)
@@ -198,6 +222,13 @@ class DenseLidarOdometry:
         if wide is not None:
             wide = grid_insert(wide, world_scan, self.coarse_spec,
                                weight=weight)
+        if occ is not None:
+            grid, occ, n_ev = grid_occupancy_update(
+                grid, occ, T[:3, 3], world_scan, self.map_spec,
+                n_steps=cfg.occupancy_steps,
+                max_range=cfg.occupancy_max_range,
+                evict_below=cfg.occupancy_evict_below, weight=weight)
+            self.n_evicted = self.n_evicted + n_ev
 
         metrics = torch.stack([
             torch.full((), float(res.iterations), device=self.device),
@@ -205,7 +236,7 @@ class DenseLidarOdometry:
             coarse_frac])
         return DenseOdomState(pose=T, last_delta=delta, grid=grid,
                               scan_index=state.scan_index + 1,
-                              last_metrics=metrics, wide=wide)
+                              last_metrics=metrics, wide=wide, occ=occ)
 
     # -- host conveniences ------------------------------------------------
 

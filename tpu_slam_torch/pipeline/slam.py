@@ -32,7 +32,9 @@ from tpu_slam_torch.graph.pose_graph import (PoseGraph, add_edge,
 from tpu_slam_torch.graph.scan_context import (propose_sc_candidates,
                                                scan_context)
 from tpu_slam_torch.mapping.dense_map import (centered_origin_cell,
-                                              empty_grid, grid_insert)
+                                              empty_grid,
+                                              empty_occupancy_grid,
+                                              grid_insert)
 from tpu_slam_torch.pipeline.config import SLAMConfig
 from tpu_slam_torch.pipeline.metrics import MetricsLog, ScanMetrics, Stopwatch
 from tpu_slam_torch.pipeline.odometry_dense import (DenseLidarOdometry,
@@ -332,7 +334,12 @@ class SLAMSystem:
     def _reanchor(self, state: SLAMState) -> SLAMState:
         """Move odometry onto the optimized newest keyframe:
         pose = optimized_kf @ (old_kf^-1 @ pose), and rebuild both windows
-        from the keyframes when ``rebuild_map_after_loop``."""
+        from the keyframes when ``rebuild_map_after_loop``.
+
+        The rebuilt fine window may sit at a new origin, so the occupancy
+        layer starts again empty at that origin. (The reference keeps the
+        old layer, origin and evidence both, so its eviction then clears
+        cells that are not the ones its evidence was gathered for.)"""
         n = state.n_keyframes
         graph = state.graph
         new_kf = graph.poses[n - 1]
@@ -350,7 +357,10 @@ class SLAMSystem:
             if wide is not None:
                 wide = _rebuild_grid_batched(**rebuild, spec=o.coarse_spec,
                                              align=1)
-            odom = dataclasses.replace(odom, grid=grid, wide=wide)
+            occ = odom.occ
+            if occ is not None:
+                occ = empty_occupancy_grid(o.dims, grid.origin_cell)
+            odom = dataclasses.replace(odom, grid=grid, wide=wide, occ=occ)
         return dataclasses.replace(state, odom=odom, last_kf_pose=new_kf,
                                    last_kf_pose_np=new_kf.cpu().numpy())
 

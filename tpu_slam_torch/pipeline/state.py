@@ -2,7 +2,7 @@
 
 The system has no weights; what two engines must share to continue from
 the same point is their state: ``DenseOdomState`` (pose, last delta, both
-moment windows, scan index, last metrics) and, for SLAM, the pose graph,
+moment windows, the occupancy layer, scan index, last metrics) and, for SLAM, the pose graph,
 the keyframe buffers, the counters and the loop bookkeeping. These helpers
 convert both to and from dicts of numpy arrays — the form any engine's
 state takes after ``np.asarray`` — and build the port's ``OdometryConfig``
@@ -27,7 +27,8 @@ from tpu_slam_torch.registration.icp import ICPParams
 from tpu_slam_torch.registration.ndt import NDTParams
 
 STATE_KEYS = ("pose", "last_delta", "grid_rows", "grid_origin_cell",
-              "wide_rows", "wide_origin_cell", "scan_index", "last_metrics")
+              "wide_rows", "wide_origin_cell", "occ_rows", "occ_origin_cell",
+              "scan_index", "last_metrics")
 
 # NDTParams fields of the reference that select TPU gather/layout tiers;
 # the port has one kernel path and ignores them
@@ -38,24 +39,26 @@ _TPU_TIER_FIELDS = ("dense_lookup_max_bits", "pack_budget_mb",
 def state_from_numpy(d: Dict[str, np.ndarray], dims: Tuple[int, int, int],
                      device) -> DenseOdomState:
     """DenseOdomState on ``device`` from a dict of arrays (STATE_KEYS;
-    the two ``wide_*`` entries may be absent or None)."""
+    the ``wide_*`` and ``occ_*`` entries may be absent or None)."""
     def t(key, dtype):
         return torch.as_tensor(np.array(d[key]), dtype=dtype, device=device)
 
     dims = tuple(dims)
-    wide = None
-    if d.get("wide_rows") is not None:
-        wide = DenseMomentGrid(rows=t("wide_rows", torch.float32),
-                               origin_cell=t("wide_origin_cell", torch.int32),
-                               dims=dims)
+
+    def window(name):
+        if d.get(name + "_rows") is None:
+            return None
+        return DenseMomentGrid(rows=t(name + "_rows", torch.float32),
+                               origin_cell=t(name + "_origin_cell",
+                                             torch.int32), dims=dims)
+
     return DenseOdomState(
         pose=t("pose", torch.float32), last_delta=t("last_delta",
                                                     torch.float32),
-        grid=DenseMomentGrid(rows=t("grid_rows", torch.float32),
-                             origin_cell=t("grid_origin_cell", torch.int32),
-                             dims=dims),
+        grid=window("grid"),
         scan_index=t("scan_index", torch.int32),
-        last_metrics=t("last_metrics", torch.float32), wide=wide)
+        last_metrics=t("last_metrics", torch.float32), wide=window("wide"),
+        occ=window("occ"))
 
 
 def state_to_numpy(state: DenseOdomState) -> Dict[str, np.ndarray]:
@@ -63,15 +66,14 @@ def state_to_numpy(state: DenseOdomState) -> Dict[str, np.ndarray]:
     def a(x):
         return None if x is None else x.detach().cpu().numpy()
 
-    wide = state.wide
-    return {"pose": a(state.pose), "last_delta": a(state.last_delta),
-            "grid_rows": a(state.grid.rows),
-            "grid_origin_cell": a(state.grid.origin_cell),
-            "wide_rows": a(wide.rows) if wide is not None else None,
-            "wide_origin_cell": (a(wide.origin_cell) if wide is not None
-                                 else None),
-            "scan_index": a(state.scan_index),
-            "last_metrics": a(state.last_metrics)}
+    d = {"pose": a(state.pose), "last_delta": a(state.last_delta),
+         "scan_index": a(state.scan_index),
+         "last_metrics": a(state.last_metrics)}
+    for name, w in (("grid", state.grid), ("wide", state.wide),
+                    ("occ", state.occ)):
+        d[name + "_rows"] = None if w is None else a(w.rows)
+        d[name + "_origin_cell"] = None if w is None else a(w.origin_cell)
+    return d
 
 
 def config_from_dict(d: dict) -> OdometryConfig:

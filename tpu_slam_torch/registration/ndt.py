@@ -14,6 +14,10 @@ with an optional far tier (scan points outside the fine window scored
 against a wider, coarser field) and an optional motion prior toward the
 init pose.
 
+``ndt_field`` builds the same dense field window from a sparse voxel map
+(the reference's ``window_dims`` branch); its sparse field tiers are not
+ported.
+
 The reference's ``lax.while_loop``s exit on data; here they are host loops
 that read the exit condition with one ``.item()`` per iteration, so
 ``iterations`` counts exactly the iterations the reference counts.
@@ -119,6 +123,85 @@ def _nbr_moment_pass(a: torch.Tensor, axis: int, t: float) -> torch.Tensor:
         return torch.stack(out + [o[k] for k in range(4, 10)], dim=-1)
 
     return shifted(-1) + shifted(0) + shifted(1)
+
+
+def ndt_field(vmap, spec: VoxelGridSpec, params: NDTParams = NDTParams(),
+              center: Optional[torch.Tensor] = None) -> NDTField:
+    """The solver-ready dense field window of a sparse voxel map.
+
+    The reference's ``window_dims`` branch (``_ndt_field_dense``): the
+    voxels inside a (Wx, Wy, Wz) window are scattered into dense rows (one
+    write a voxel, the dropped ones into a spare row), the 27-cell sums
+    and floored inverses follow as in ``grid_ndt_field``, and a cell is
+    valid where a voxel was scattered and the 27-cell count reaches
+    ``min_voxel_count`` (counts floored at 1 in the division). The window
+    corner is clip(floor((center - origin) / leaf) - dims // 2, 0,
+    n - dims), ``center`` defaulting to the map's centroid; a window as
+    large as the grid is the grid (corner 0).
+    """
+    from tpu_slam_torch.mapping.dense_map import field_rows
+    from tpu_slam_torch.mapping.voxel_map import decode_corner
+
+    if params.window_dims is None:
+        raise ValueError("ndt_field builds the dense window field only: set "
+                         "params.window_dims (the sparse field tiers are "
+                         "not ported)")
+    if not params.use_neighborhood:
+        raise ValueError("the dense field needs use_neighborhood")
+    b = spec.dim_bits
+    n = spec.cells_per_axis
+    dims = tuple(min(d, n) for d in params.window_dims)
+    wx, wy, wz = dims
+    g = wx * wy * wz
+    dev = vmap.keys.device
+    f32 = torch.float32
+    occ = vmap.occupied_mask()
+    keys = vmap.keys
+    gx = (keys >> (2 * b)) & (n - 1)
+    gy = (keys >> b) & (n - 1)
+    gz = keys & (n - 1)
+
+    if wx >= n and wy >= n and wz >= n:
+        c0 = torch.zeros(3, dtype=torch.int32, device=dev)
+    else:
+        if center is None:
+            # map centroid: corners weighted by count plus the local sums
+            total = torch.clamp(torch.where(occ, vmap.count, 0.0).sum(),
+                                min=1.0)
+            corners = decode_corner(keys, spec)
+            wsum = torch.where(occ[:, None],
+                               corners * vmap.count[:, None] + vmap.sum_pts,
+                               0.0).sum(dim=0)
+            center = wsum / total
+        cc = torch.floor((torch.as_tensor(center, dtype=f32, device=dev)
+                          - spec.origin_tensor(dev)) / spec.leaf
+                         ).to(torch.int32)
+        half = torch.tensor([wx // 2, wy // 2, wz // 2], dtype=torch.int32,
+                            device=dev)
+        hi = torch.tensor([n - wx, n - wy, n - wz], dtype=torch.int32,
+                          device=dev)
+        c0 = torch.minimum(torch.clamp(cc - half, min=0), hi)
+    lx, ly, lz = gx - c0[0], gy - c0[1], gz - c0[2]
+    inside = (occ & (lx >= 0) & (lx < wx) & (ly >= 0) & (ly < wy)
+              & (lz >= 0) & (lz < wz))
+    lidx = torch.where(inside, (lx * wy + ly) * wz + lz, g).long()
+
+    # [count, sum (3), outer upper triangle (6), occupied]; keys are unique,
+    # so no two voxels write one row (the dropped ones write zeros to row G)
+    so = vmap.sum_outer
+    chan = torch.cat([
+        vmap.count[:, None], vmap.sum_pts,
+        so[:, 0, 0:1], so[:, 0, 1:2], so[:, 0, 2:3],
+        so[:, 1, 1:2], so[:, 1, 2:3], so[:, 2, 2:3],
+        torch.ones((vmap.capacity, 1), dtype=f32, device=dev)], dim=1)
+    chan = torch.where(inside[:, None], chan, 0.0)
+    dm = torch.zeros((g + 1, 11), dtype=f32, device=dev)
+    dm[lidx] = chan
+    dm = dm[:g]
+    rows16 = field_rows(dm[:, :10], dm[:, 10] > 0.5, c0, dims, spec,
+                        params.min_voxel_count, params.evec_floor_ratio,
+                        count_floor=1.0)
+    return NDTField(rows=rows16, origin_cell=c0, window_dims=dims)
 
 
 def _f32(x: float) -> float:
