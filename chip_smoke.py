@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU: dense odometry (bench config 2),
 full SLAM on the dense engine (bench config 4), pair ICP on both tiers
-(bench config 1), the gather probes, the dense engine's options,
-scan-to-map NDT on the sparse voxel map (bench config 3) and bag replay
-through the CLI (bench config 6).
+(bench config 1), the gather probes, the dense engine's options, the host
+engine on the sparse voxel map (LidarOdometry, JitLidarOdometry and
+SLAMSystem on it), scan-to-map NDT on the sparse voxel map (bench config
+3) and bag replay through the CLI (bench config 6).
 
     python3 chip_smoke.py
 
@@ -70,6 +71,32 @@ Phases, each printing one JSON line:
                use_occupancy twice from fresh engines (ATE, matched
                fraction, evictions, terms launches a step, bit-identical),
                then its 6-scan profile (profile_occupancy)
+  host_odometry  LidarOdometry, the sparse voxel-map engine, on config 2's
+               route at full width on the kernel path (terms_impl
+               "auto"): ATE and matched fraction against the reference's
+               own run on a CPU (HOST_REF), mean iterations, scans/s
+               synced, field builds, incremental inserts and fallbacks,
+               voxels at the end, ndt_terms launches a scan, a rerun from a
+               fresh engine (bit-identical), then six steps replayed on the
+               host clock and under the profiler (launches, device-to-host
+               reads, idle share)
+  host_engine_cases  the reference's own tests of the host engine at
+               their sizes and bars: the outdoor ring and the pyramid's
+               capture range on both terms paths (the sparse path to the
+               tests' bars, the kernel path's 64^3 cube window to the
+               reference's own numbers on that path, REF_KERNEL_PATH), the
+               scrolling window against a world-fixed grid, icp_plane and
+               icp_point at OdometryConfig()'s capacities, occupancy
+               eviction of a moving box, and JitLidarOdometry on the office
+               arc and on config 2's route
+  slam_host    SLAMSystem on the host engine over the office circle (40
+               scans): keyframes, loops, ATE, stage times, launches; a
+               checkpoint after scan 20 resumed in a fresh system
+               (bit-identical)
+  kernels      ndt_terms at host_odometry's (192, 192, 32) window and the
+               outdoor ring's 64^3 cube, nn_search at icp_plane's 32,768 x
+               131,072 first iteration
+  host_phases_total  the seconds of the four host-engine phases
   config3      bench_ndt_register at its size: a 0.5 m map of the grid city
                (453,009 voxels), one VLP-16 street scan; the coarse stage on
                the coarsened map's (64, 64, 16) field, the fine (160, 160,
@@ -2430,6 +2457,647 @@ def phase_config6(tmpdir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The host engine: LidarOdometry on the sparse voxel map, JitLidarOdometry,
+# SLAMSystem(odometry_engine="host")
+# ---------------------------------------------------------------------------
+
+# The reference's LidarOdometry on config 2's route (the 24 scans of
+# city_scans, config2()'s OdometryConfig) on a CPU, its Pallas terms pass
+# replaced by the per-neighbour code of ndt_terms_raster_reference run over
+# the raster's occupied slots (PERF.md section 2). The engine loses the
+# route in the turn (scan 8) there too; the card is held within HOST_TOL
+# of both numbers.
+HOST_REF = dict(ate_m=14.115393997877225, matched=0.4373091359933217)
+HOST_TOL = dict(ate_m=0.02, matched=0.02)
+HOST_PROFILE = (WARMUP_SCANS, WARMUP_SCANS + 6)     # scans replayed
+# the reference's own test bars (tests/test_outdoor.py, test_pipeline.py,
+# test_odometry_jit.py, test_deskew_occupancy.py). They were set on the
+# reference's CPU path, the sparse one (terms_impl "xla"); on its kernel
+# path the reference itself loses the outdoor ring and its pyramid gains
+# nothing, and point-to-point ICP on the office arc misses icp_plane's
+# bar: there the card is held to the reference's own numbers from its CPU
+# run (tests/test_torch_host_reference.py --cases), within
+# KERNEL_PATH_TOL_M (ICP_POINT_TOL_M for icp_point)
+RING_WORST_BAR_M = 0.5
+ARC_ICP_ATE_BAR_M = 0.12
+REF_KERNEL_PATH = dict(ring_worst_m=11.562442779541016,
+                       pyramid_worst_m={0: 15.785445213317871,
+                                        4: 15.798905372619629})
+KERNEL_PATH_TOL_M = 0.1
+REF_ICP_POINT_ATE_M = 0.32980762605859365
+ICP_POINT_TOL_M = 0.005
+ARC_JIT_ATE_BAR_M = 0.08
+HALL_ATE_BAR_M = 0.15
+SLAM_HOST_ATE_BAR_M = 0.12
+SLAM_HOST_MIN_KF = 10
+SLAM_HOST_RESUME_AT = 20
+
+
+def worst_translation_m(poses, gt):
+    """Largest |log(gt^-1 T)|_t over a run (the reference's outdoor bar)."""
+    import torch
+
+    from tpu_slam_torch.core import se3
+
+    d = np.linalg.inv(gt) @ np.asarray(poses, np.float64)
+    xi = se3.log(torch.as_tensor(d, dtype=torch.float32))
+    return float(torch.linalg.vector_norm(xi[:, :3], dim=1).max())
+
+
+def run_host(engine, clouds, init_pose, keep=()):
+    """Steps over the clouds: (poses (N, 4, 4), final state, {k: state
+    after scan k for k in keep})."""
+    import torch
+
+    state = engine.init_state(init_pose)
+    poses, kept = [], {}
+    for k, c in enumerate(clouds):
+        state, _ = engine.step(state, c)
+        poses.append(state.pose)
+        if k in keep:
+            kept[k] = state
+    return torch.stack(poses).cpu().numpy(), state, kept
+
+
+def host_terms_args(engine, state, cloud):
+    """ndt_terms's inputs on the host engine's fine field: the field of
+    ``state``'s map centred on its pose, the scan binned at the predicted
+    pose and scored 2 cm off it."""
+    import torch
+
+    from tpu_slam_torch.core import se3
+    from tpu_slam_torch.kernels.ndt_terms import build_terms_raster
+    from tpu_slam_torch.registration.ndt import ndt_field
+
+    cfg, spec = engine.config, engine.map_spec
+    dev = engine.device
+    field = ndt_field(state.vmap, spec, cfg.ndt, center=state.pose[:3, 3])
+    T0 = state.pose @ engine._clamped_delta(state.last_delta)
+    T = se3.retract(T0, torch.tensor([0.02, -0.01, 0.0, 0.0, 0.0, 0.005],
+                                     device=dev))
+    scan = engine.downsample(cloud)
+    origin_w = (spec.origin_tensor(dev)
+                + field.origin_cell.to(torch.float32) * spec.leaf)
+    slots, _ = build_terms_raster(scan.points, scan.mask, T0, origin_w,
+                                  spec.leaf, field.window_dims,
+                                  cfg.ndt.raster_q)
+    return (slots, field.rows, T, cfg.ndt.score_temperature,
+            cfg.ndt.max_corr_dist, field.window_dims)
+
+
+def host_step_profile(engine, state, clouds):
+    """Replays the steps from ``state`` over ``clouds``: the host clock
+    unprofiled, then under torch.profiler for the device's busy time,
+    kernel launches, device->host reads (copies and scalar reads) and
+    ndt_terms calls a step."""
+    import torch
+
+    from tpu_slam_torch.kernels.ndt_terms import KERNEL_NAMES, ndt_terms
+
+    def replay():
+        s = state
+        for c in clouds:
+            s, _ = engine.step(s, c)
+        torch.cuda.synchronize()
+
+    replay()
+    n0 = ndt_terms.launches
+    t0 = time.perf_counter()
+    replay()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    terms_calls = ndt_terms.launches - n0
+    per_kernel, prof = device_time_us(replay, 1)
+    ka = prof.key_averages()
+    steps = len(clouds)
+    busy = sum(per_kernel.values())
+
+    def count(pred):
+        return sum(e.count for e in ka if pred(e.key))
+
+    return dict(
+        steps=steps, wall_ms_per_step=wall_us / 1e3 / steps,
+        device_busy_ms_per_step=busy / 1e3 / steps,
+        device_idle_share=1.0 - busy / wall_us,
+        ndt_terms_kernel_ms_per_step=sum(
+            t for k, t in per_kernel.items()
+            if any(n in k for n in KERNEL_NAMES)) / 1e3 / steps,
+        kernel_launches_per_step=count(
+            lambda k: k in ("cudaLaunchKernel", "cuLaunchKernel",
+                            "cuLaunchKernelEx")) / steps,
+        dtoh_reads_per_step=count(lambda k: "Memcpy DtoH" in k) / steps,
+        scalar_reads_per_step=count(
+            lambda k: k == "aten::_local_scalar_dense") / steps,
+        ndt_terms_calls_per_step=terms_calls / steps,
+        top_device_us_per_step=[
+            (k[:80], v / steps) for k, v in
+            sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]])
+
+
+def phase_host_odometry(clouds, gt):
+    """Config 2's route through LidarOdometry at full width, on the kernel
+    path (terms_impl="auto"): 24 scans timed synced, then again from a
+    fresh engine (bit-identical), then a replay of six steps on the host
+    clock and under the profiler. Returns (ndt_terms launches, the fine
+    (192, 192, 32) terms args)."""
+    import torch
+
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms, ndt_terms_plain
+    from tpu_slam_torch.mapping.voxel_map import insert_cloud
+    from tpu_slam_torch.pipeline.metrics import ate_rmse
+    from tpu_slam_torch.pipeline.odometry import LidarOdometry
+
+    cfg = config2()
+    engine = LidarOdometry(cfg)
+    plain_before = ndt_terms_plain.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ndt_terms.launches = 0
+    insert_cloud.fallbacks = insert_cloud.incremental = 0
+    t0 = time.perf_counter()
+    poses, state, kept = run_host(engine, clouds, gt[0],
+                                  keep=(HOST_PROFILE[0] - 1,))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = ndt_terms.launches
+    inserts = dict(incremental=insert_cloud.incremental,
+                   fallbacks=insert_cloud.fallbacks)
+    builds = engine.field_builds
+    peak = torch.cuda.max_memory_allocated()
+    records = list(engine.metrics.records)
+    if launches <= 0 or ndt_terms_plain.launches != plain_before:
+        raise AssertionError("the host engine's main path launched no "
+                             "ndt_terms kernel, or ran its plain version")
+    if poses.shape != (N_SCANS, 4, 4) or not np.all(np.isfinite(poses)):
+        raise AssertionError("host odometry poses are not finite (N, 4, 4)")
+    ate = ate_rmse(poses, gt, align=False)
+    matched = float(np.mean([r.matched_fraction for r in records]))
+
+    again, _, _ = run_host(LidarOdometry(cfg), clouds, gt[0])
+    bit_identical = bool(np.array_equal(again, poses))
+
+    start = kept[HOST_PROFILE[0] - 1]
+    args = host_terms_args(engine, start, clouds[HOST_PROFILE[0]])
+    prof = host_step_profile(engine, start,
+                             clouds[HOST_PROFILE[0]:HOST_PROFILE[1]])
+    emit("host_odometry", scans=N_SCANS, rays_per_scan=int(clouds[0].capacity),
+         window=list(cfg.ndt.window_dims), seconds=dt,
+         scans_per_s=N_SCANS / dt, ate_m=ate,
+         reference_ate_m=HOST_REF["ate_m"],
+         mean_matched_fraction=matched,
+         reference_matched=HOST_REF["matched"],
+         mean_iterations=float(np.mean([r.iterations for r in records])),
+         matched_by_scan=[round(r.matched_fraction, 4) for r in records],
+         field_builds=builds, inserts=inserts,
+         voxels_at_end=int(state.vmap.n_occupied()),
+         ndt_terms_launches=launches,
+         ndt_terms_launches_per_scan=launches / (N_SCANS - 1),
+         rerun_bit_identical=bit_identical, profile=prof,
+         peak_memory_bytes=peak)
+    if not abs(ate - HOST_REF["ate_m"]) <= HOST_TOL["ate_m"]:
+        raise AssertionError(f"host odometry ATE {ate} m is not within "
+                             f"{HOST_TOL['ate_m']} m of the reference's "
+                             f"{HOST_REF['ate_m']} m")
+    if not abs(matched - HOST_REF["matched"]) <= HOST_TOL["matched"]:
+        raise AssertionError(f"host odometry matched {matched} is not within "
+                             f"{HOST_TOL['matched']} of the reference's "
+                             f"{HOST_REF['matched']}")
+    if not bit_identical:
+        raise AssertionError("host odometry rerun differs")
+    return launches, args
+
+
+def ring_world():
+    """tests/test_outdoor.py _city_world: outdoor_block(seed=1) with 25
+    poles of street furniture."""
+    from tpu_slam_torch.ingest import synthetic as syn
+
+    world = syn.outdoor_block(seed=1)
+    rng = np.random.default_rng(3)
+    for _ in range(25):
+        x, y = rng.uniform(-28, 28, 2)
+        if 10 < math.hypot(x, y) < 28:
+            w = rng.uniform(0.2, 0.5)
+            h = rng.uniform(2.0, 5.0)
+            world.patches += syn.make_room(size=(w, w, h),
+                                           center=(x, y)).patches[2:]
+    return world
+
+
+def ring_sequence(world, n, step, radius=15.0, seed=0):
+    """tests/test_outdoor.py _ring_sequence: 600 azimuths to 80 m."""
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.ingest import synthetic as syn
+
+    rng = np.random.default_rng(seed)
+    clouds, gt = [], []
+    for k in range(n):
+        a = step * k / radius
+        T = syn.se2_pose(radius * math.cos(a), radius * math.sin(a),
+                         a + math.pi / 2, z=1.5)
+        pts, valid = syn.simulate_vlp16_revolution(
+            world, T, n_azimuth=600, max_range=80, noise_std=0.02, rng=rng)
+        clouds.append(PointCloud.from_points_host(pts[valid], capacity=24576,
+                                                  device="cuda"))
+        gt.append(T)
+    return clouds, np.stack(gt)
+
+
+def outdoor_cfg(**kw):
+    """tests/test_outdoor.py OUTDOOR_CFG (1 m map leaf, +-80 m)."""
+    from tpu_slam_torch.pipeline.config import OdometryConfig
+    from tpu_slam_torch.registration.ndt import NDTParams
+
+    base = dict(scan_capacity=8192, downsample_leaf=0.4, map_leaf=1.0,
+                map_half_extent=80.0, map_capacity=32768,
+                ndt=NDTParams(max_iterations=25, max_corr_dist=2.0))
+    return OdometryConfig(**{**base, **kw})
+
+
+def office_arc(n_poses, n_azimuth=360, radius=2.5, arc_fraction=0.25,
+               capacity=16384):
+    """tests/test_pipeline.py _sequence: the office arc."""
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.ingest import synthetic as syn
+
+    world = syn.default_office()
+    rng = np.random.default_rng(0)
+    clouds, gt = [], []
+    for k in range(n_poses):
+        a = 2 * math.pi * arc_fraction * k / max(n_poses - 1, 1)
+        T = syn.se2_pose(radius * math.cos(a), radius * math.sin(a),
+                         a + math.pi / 2, z=1.2)
+        pts, valid = syn.simulate_vlp16_revolution(
+            world, T, n_azimuth=n_azimuth, noise_std=0.01, rng=rng)
+        clouds.append(PointCloud.from_points_host(pts[valid],
+                                                  capacity=capacity,
+                                                  device="cuda"))
+        gt.append(T)
+    return clouds, np.stack(gt)
+
+
+def odom_cfg(**kw):
+    """tests/test_pipeline.py ODOM_CFG."""
+    from tpu_slam_torch.pipeline.config import OdometryConfig
+    from tpu_slam_torch.registration.ndt import NDTParams
+
+    base = dict(scan_capacity=4096, downsample_leaf=0.3, map_leaf=0.5,
+                map_half_extent=16.0, map_capacity=16384,
+                ndt=NDTParams(max_iterations=25))
+    return OdometryConfig(**{**base, **kw})
+
+
+def hall_case():
+    """tests/test_outdoor.py test_scrolling_window_outruns_fixed_grid: a
+    64 m hall with aperiodic pillars, 74 scans ramping to 0.5 m a scan."""
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.ingest import synthetic as syn
+
+    rng = np.random.default_rng(0)
+    boxes, x, k = [], -26.0, 0
+    while x < 27.0:
+        w = 1.0 + 0.5 * (k % 3)
+        y0, y1 = (2.0, 3.6) if k % 2 == 0 else (-3.6, -1.8)
+        boxes.append((np.array([x, y0, 0.0]), np.array([x + w, y1, 3.0])))
+        x += 3.0 + 1.7 * (k % 4)
+        k += 1
+    world = syn.make_room(size=(64.0, 8.0, 3.0), boxes=boxes)
+    xs = np.concatenate([np.cumsum(np.linspace(0.05, 0.5, 10)),
+                         2.75 + 0.5 * np.arange(1, 65)]) - 18.0 - 2.75
+    clouds, gt = [], []
+    for k in range(len(xs)):
+        T = syn.se2_pose(float(xs[k]), 0.0, 0.0, z=1.3)
+        pts, valid = syn.simulate_vlp16_revolution(
+            world, T, n_azimuth=360, max_range=14.0, noise_std=0.01,
+            rng=rng)
+        clouds.append(PointCloud.from_points_host(pts[valid], capacity=8192,
+                                                  device="cuda"))
+        gt.append(T)
+    return clouds, np.stack(gt)
+
+
+def room_eviction_case():
+    """tests/test_deskew_occupancy.py test_dynamic_object_evicted_from_map:
+    two scans of a room with a box, ten of it without, occupancy on.
+    Returns the numbers its bars read."""
+    import torch
+
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.ingest import synthetic as syn
+    from tpu_slam_torch.kernels.voxel_hash import INVALID_KEY
+    from tpu_slam_torch.mapping.voxel_map import voxel_means
+    from tpu_slam_torch.pipeline.odometry import LidarOdometry
+    from tpu_slam_torch.registration.ndt import NDTParams
+
+    box_lo, box_hi = np.array([1.5, -0.8, 0.0]), np.array([2.6, 0.8, 1.4])
+    world_with = syn.make_room(size=(12.0, 9.0, 3.0),
+                               boxes=[(box_lo, box_hi)])
+    world_without = syn.make_room(size=(12.0, 9.0, 3.0))
+    T = np.eye(4)
+    T[:3, 3] = [-2.0, 0.0, 1.3]
+    rng = np.random.default_rng(0)
+
+    def scan(world):
+        pts, valid = syn.simulate_vlp16_revolution(
+            world, T, n_azimuth=360, noise_std=0.005, rng=rng)
+        return PointCloud.from_points_host(pts[valid], capacity=8192,
+                                           device="cuda")
+
+    cfg = odom_cfg(scan_capacity=4096, downsample_leaf=0.25, map_leaf=0.4,
+                   map_half_extent=8.0, map_capacity=16384,
+                   ndt=NDTParams(max_iterations=15), use_occupancy=True,
+                   occupancy_capacity=32768, occupancy_steps=64,
+                   occupancy_max_range=15.0, occupancy_evict_below=-1.0,
+                   min_insert_fraction=0.0)
+    odo = LidarOdometry(cfg)
+    state = odo.init_state(T)
+    for _ in range(2):
+        state, _ = odo.step(state, scan(world_with))
+
+    def box_voxels(vmap):
+        means = voxel_means(vmap, cfg.map_spec()).cpu().numpy()
+        occ = (vmap.keys != INVALID_KEY).cpu().numpy()
+        inside = ((means > box_lo - 0.2) & (means < box_hi + 0.2)).all(1)
+        return int(np.sum(occ & inside)), int(np.sum(occ))
+
+    box0, total0 = box_voxels(state.vmap)
+    matched = []
+    for _ in range(10):
+        state, m = odo.step(state, scan(world_without))
+        matched.append(m.matched_fraction)
+    box1, total1 = box_voxels(state.vmap)
+    torch.cuda.synchronize()
+    return dict(box_voxels_before=box0, box_voxels_after=box1,
+                voxels_before=total0, voxels_after=total1,
+                min_matched=min(matched))
+
+
+def phase_host_engine_cases(c2_clouds, c2_gt):
+    """The reference's own tests of the host engine at their sizes, with
+    their bars, on the card. Returns (launches by kernel, the outdoor
+    ring's 64^3 cube terms args, icp_plane's first NN inputs)."""
+    import dataclasses
+
+    import torch
+
+    from tpu_slam_torch.core import se3
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms, ndt_terms_plain
+    from tpu_slam_torch.kernels.nn_search import (nearest_neighbors,
+                                                  nearest_neighbors_plain)
+    from tpu_slam_torch.mapping.voxel_map import (voxel_means,
+                                                  voxel_normals_neighborhood)
+    from tpu_slam_torch.pipeline.config import OdometryConfig
+    from tpu_slam_torch.pipeline.metrics import ate_rmse
+    from tpu_slam_torch.pipeline.odometry import LidarOdometry
+    from tpu_slam_torch.pipeline.odometry_jit import JitLidarOdometry
+    from tpu_slam_torch.registration.icp import ICPParams
+    from tpu_slam_torch.registration.ndt import NDTParams
+
+    plain_before = (ndt_terms_plain.launches,
+                    nearest_neighbors_plain.launches)
+    ndt_terms.launches = nearest_neighbors.launches = 0
+    out = {}
+    t0 = time.perf_counter()
+
+    # the outdoor ring on both terms paths ("auto": the 64^3 cube window)
+    world = ring_world()
+    clouds, gt = ring_sequence(world, n=25, step=0.5)
+    ring = {}
+    for impl in ("auto", "xla"):
+        cfg = outdoor_cfg(ndt=NDTParams(max_iterations=25, max_corr_dist=2.0,
+                                        terms_impl=impl))
+        eng = LidarOdometry(cfg)
+        ts = time.perf_counter()
+        poses, _, kept = run_host(eng, clouds, gt[0], keep=(9,))
+        torch.cuda.synchronize()
+        ring[impl] = dict(worst_m=worst_translation_m(poses, gt),
+                          ate_m=ate_rmse(poses, gt, align=False),
+                          seconds=time.perf_counter() - ts)
+        if impl == "auto":
+            cube_args = host_terms_args(eng, kept[9], clouds[10])
+    out["outdoor_ring"] = ring
+
+    # the pyramid's capture range at 1.5 m a scan, on both terms paths
+    clouds, gt = ring_sequence(world, n=12, step=1.5)
+    out["pyramid_worst_m"] = {impl: {
+        pf: worst_translation_m(run_host(LidarOdometry(outdoor_cfg(
+            pyramid_factor=pf, ndt=NDTParams(
+                max_iterations=25, max_corr_dist=2.0, terms_impl=impl))),
+            clouds, gt[0])[0], gt)
+        for pf in (0, 4)} for impl in ("auto", "xla")}
+
+    # the scrolling window outruns the world-fixed grid
+    clouds, gt = hall_case()
+    hall_cfg = outdoor_cfg(scan_capacity=4096, downsample_leaf=0.3,
+                           map_leaf=0.4, map_half_extent=12.8,
+                           map_capacity=32768,
+                           ndt=NDTParams(max_iterations=20),
+                           pyramid_factor=0, scrolling_window=True,
+                           rebase_fraction=0.25)
+    eng = LidarOdometry(hall_cfg)
+    poses, _, _ = run_host(eng, clouds, gt[0])
+    offset0 = eng.init_state(gt[0]).map_offset
+    fixed, _, _ = run_host(LidarOdometry(dataclasses.replace(
+        hall_cfg, scrolling_window=False)), clouds, gt[0])
+    out["hall"] = dict(ate_m=ate_rmse(poses, gt, align=False),
+                       fixed_grid_ate_m=ate_rmse(fixed, gt, align=False),
+                       offset0_x_err=abs(float(offset0[0]) - gt[0][0, 3]))
+
+    # ICP against the voxel means at OdometryConfig()'s capacities
+    clouds, gt = office_arc(5)
+    defaults = OdometryConfig()
+    arc = {}
+    for method in ("icp_plane", "icp_point"):
+        cfg = odom_cfg(method=method, scan_capacity=defaults.scan_capacity,
+                       map_capacity=defaults.map_capacity,
+                       icp=ICPParams(max_iterations=25, max_corr_dist=1.0))
+        eng = LidarOdometry(cfg)
+        n0 = nearest_neighbors.launches
+        poses, _, kept = run_host(eng, clouds, gt[0], keep=(1,))
+        arc[method] = dict(ate_m=ate_rmse(poses, gt, align=False),
+                           nn_search_launches=nearest_neighbors.launches - n0)
+        if method == "icp_plane":
+            st = kept[1]
+            scan = eng.downsample(clouds[2])
+            init = st.pose @ eng._clamped_delta(st.last_delta)
+            normals, n_valid = voxel_normals_neighborhood(st.vmap,
+                                                          eng.map_spec)
+            tgt = PointCloud(points=voxel_means(st.vmap, eng.map_spec),
+                             mask=st.vmap.occupied_mask() & n_valid
+                             ).sanitize()
+            src = scan.sanitize()
+            nn_args = (se3.apply(init, src.points).contiguous(),
+                       tgt.points.contiguous(), src.mask, tgt.mask)
+    out["office_arc"] = arc
+
+    out["room_eviction"] = room_eviction_case()
+
+    # JitLidarOdometry on the office arc, then on config 2's route
+    clouds, gt = office_arc(8)
+    jit = JitLidarOdometry(odom_cfg())
+    s = jit.init_state(clouds[0], gt[0])
+    jposes = [s.pose]
+    for c in clouds[1:]:
+        s = jit.step(s, c)
+        jposes.append(s.pose)
+    jm = s.last_metrics.cpu().numpy()
+    out["jit_arc"] = dict(
+        ate_m=ate_rmse(torch.stack(jposes).cpu().numpy(), gt, align=False),
+        matched=float(jm[1]), accepted=float(jm[2]),
+        scan_index=int(s.scan_index))
+    jit = JitLidarOdometry(config2())
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    s = jit.init_state(c2_clouds[0], c2_gt[0])
+    jposes = [s.pose]
+    for c in c2_clouds[1:]:
+        s = jit.step(s, c)
+        jposes.append(s.pose)
+    jposes = torch.stack(jposes).cpu().numpy()
+    dt = time.perf_counter() - ts
+    out["jit_config2"] = dict(scans_per_s=len(c2_clouds) / dt,
+                              ate_m=ate_rmse(jposes, c2_gt, align=False))
+
+    launches = dict(ndt_terms=ndt_terms.launches,
+                    nn_search=nearest_neighbors.launches)
+    emit("host_engine_cases", seconds=time.perf_counter() - t0,
+         launches=launches, **out)
+    pyr = out["pyramid_worst_m"]
+    ref_pyr = REF_KERNEL_PATH["pyramid_worst_m"]
+    checks = [
+        (abs(ring["auto"]["worst_m"] - REF_KERNEL_PATH["ring_worst_m"])
+         <= KERNEL_PATH_TOL_M, "ring worst (auto) as the reference's"),
+        (ring["xla"]["worst_m"] < RING_WORST_BAR_M, "ring worst (xla)"),
+        (pyr["xla"][4] < 0.5 * pyr["xla"][0], "pyramid capture (xla)"),
+        (all(abs(pyr["auto"][pf] - ref_pyr[pf]) <= KERNEL_PATH_TOL_M
+             for pf in (0, 4)), "pyramid (auto) as the reference's"),
+        (out["hall"]["ate_m"] < HALL_ATE_BAR_M, "hall ATE"),
+        (out["hall"]["fixed_grid_ate_m"] > 5.0 * out["hall"]["ate_m"],
+         "hall fixed-grid control"),
+        (out["hall"]["offset0_x_err"] < hall_cfg.map_leaf, "hall offset"),
+        (arc["icp_plane"]["ate_m"] < ARC_ICP_ATE_BAR_M, "icp_plane ATE"),
+        (abs(arc["icp_point"]["ate_m"] - REF_ICP_POINT_ATE_M)
+         <= ICP_POINT_TOL_M, "icp_point ATE as the reference's"),
+        (out["room_eviction"]["box_voxels_before"] > 10, "box in the map"),
+        (out["room_eviction"]["box_voxels_after"]
+         < 0.2 * out["room_eviction"]["box_voxels_before"], "box evicted"),
+        (out["room_eviction"]["voxels_after"]
+         > 0.6 * out["room_eviction"]["voxels_before"], "room kept"),
+        (out["room_eviction"]["min_matched"] > 0.5, "room registration"),
+        (out["jit_arc"]["ate_m"] < ARC_JIT_ATE_BAR_M, "jit ATE"),
+        (out["jit_arc"]["matched"] > 0.5 and out["jit_arc"]["accepted"] == 1
+         and out["jit_arc"]["scan_index"] == 8, "jit metrics"),
+        (launches["ndt_terms"] > 0 and launches["nn_search"] > 0,
+         "kernel launches"),
+        ((ndt_terms_plain.launches, nearest_neighbors_plain.launches)
+         == plain_before, "no plain kernel version"),
+    ]
+    failed = [name for ok, name in checks if not ok]
+    if failed:
+        raise AssertionError(f"host_engine_cases failed: {failed}")
+    return launches, cube_args, nn_args
+
+
+def slam_host_cfg():
+    """tests/test_pipeline.py _slam_cfg on the default (host) engine."""
+    from tpu_slam_torch.graph.loop_closure import LoopClosureParams
+    from tpu_slam_torch.graph.pose_graph import GraphSolveParams
+    from tpu_slam_torch.pipeline.config import SLAMConfig
+    from tpu_slam_torch.registration.icp import ICPParams
+
+    return SLAMConfig(
+        odometry=odom_cfg(), keyframe_translation=0.4,
+        keyframe_rotation=0.25, keyframe_capacity=64,
+        keyframe_cloud_capacity=2048, loop_every=4,
+        loop=LoopClosureParams(
+            max_distance=1.5, min_index_gap=8, max_candidates=4,
+            min_matched_fraction=0.5, max_error=0.05,
+            icp=ICPParams(max_iterations=25, max_corr_dist=1.0,
+                          huber_delta=0.3)),
+        graph=GraphSolveParams(gn_iterations=6, robust_delta=2.0,
+                               robust_kernel="cauchy"),
+        edge_capacity=256)
+
+
+def phase_slam_host(tmpdir):
+    """SLAMSystem on the host engine over test_slam_full_loop's workload
+    (40 scans round the office, 240 azimuths); a checkpoint after scan 20
+    resumed in a fresh system must end on the same poses bit for bit."""
+    import os
+
+    import torch
+
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms, ndt_terms_plain
+    from tpu_slam_torch.kernels.nn_search import (nearest_neighbors,
+                                                  nearest_neighbors_plain)
+    from tpu_slam_torch.pipeline.checkpoint import (load_checkpoint,
+                                                    save_checkpoint)
+    from tpu_slam_torch.pipeline.metrics import ate_rmse
+    from tpu_slam_torch.pipeline.slam import SLAMSystem
+
+    clouds, gt = office_arc(40, n_azimuth=240, arc_fraction=1.0)
+    cfg = slam_host_cfg()
+    plain_before = (ndt_terms_plain.launches,
+                    nearest_neighbors_plain.launches)
+    ndt_terms.launches = nearest_neighbors.launches = 0
+    slam = SLAMSystem(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = slam.init_state(gt[0])
+    poses, snap = [], None
+    for k, c in enumerate(clouds):
+        state, _ = slam.step(state, c)
+        poses.append(state.odom.pose.cpu().numpy())
+        if k + 1 == SLAM_HOST_RESUME_AT:
+            snap = state
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ndt_terms=ndt_terms.launches,
+                    nn_search=nearest_neighbors.launches)
+    poses = np.stack(poses)
+    ate = ate_rmse(poses, gt, align=False)
+
+    path = save_checkpoint(os.path.join(tmpdir, "slam_host"), snap,
+                           scan_index=SLAM_HOST_RESUME_AT)
+    resumed, manifest = load_checkpoint(path)
+    fresh = SLAMSystem(cfg)
+    tail = []
+    for c in clouds[SLAM_HOST_RESUME_AT:]:
+        resumed, _ = fresh.step(resumed, c)
+        tail.append(resumed.odom.pose.cpu().numpy())
+    same = bool(np.array_equal(np.stack(tail), poses[SLAM_HOST_RESUME_AT:]))
+    emit("slam_host", scans=len(clouds), seconds=dt,
+         scans_per_s=len(clouds) / dt, ate_m=ate,
+         keyframes=state.n_keyframes, loops=state.n_loop_closures,
+         stage_seconds=dict(slam.stage_seconds), launches=launches,
+         resumed_after_scan=SLAM_HOST_RESUME_AT, manifest=manifest,
+         resume_bit_identical=same)
+    if (ndt_terms_plain.launches, nearest_neighbors_plain.launches) \
+            != plain_before or min(launches.values()) <= 0:
+        raise AssertionError("slam_host launched no kernel or ran a plain "
+                             "version")
+    if not (state.n_keyframes >= SLAM_HOST_MIN_KF
+            and state.n_loop_closures > 0 and ate < SLAM_HOST_ATE_BAR_M):
+        raise AssertionError(f"slam_host: {state.n_keyframes} keyframes, "
+                             f"{state.n_loop_closures} loops, ATE {ate} m")
+    if not same:
+        raise AssertionError("slam_host resume differs")
+    return launches
+
+
+def phase_host_kernels(fine_args, cube_args, nn_args):
+    """ndt_terms at host_odometry's (192, 192, 32) fine window and at the
+    outdoor ring's 64^3 cube, nn_search at icp_plane's 32,768 x 131,072
+    first iteration, each against its plain version."""
+    terms = [check_terms_case("host_fine_192x192x32", fine_args),
+             check_terms_case("host_cube_64", cube_args)]
+    nn = [check_nn_case("icp_plane_32k_x_131k", *nn_args)]
+    emit("kernels", kernels=["ndt_terms", "nn_search"], cases=terms + nn,
+         rtol_of_max=RTOL_OF_MAX)
+    return terms, nn
+
+
 def kernel_entry(name, source, replaces, launches, cases, main):
     """One kernel's object of the final JSON line; ``main`` is the case
     whose times stand for the kernel."""
@@ -2485,12 +3153,30 @@ def main() -> int:
     # this slice's paths: the engine's options on config 2's scans, then
     # configs 3 and 6
     options_launches = phase_options(clouds, gt)
+    # the host engine (sparse voxel map): config 2's route, the reference's
+    # own cases, SLAM on it, then its kernel cases
+    t_host = time.perf_counter()
+    host_launches, host_fine_args = phase_host_odometry(clouds, gt)
+    case_launches, cube_args, nn_args = phase_host_engine_cases(clouds, gt)
     del clouds
+    with tempfile.TemporaryDirectory() as tmpdir:
+        slam_host_launches = phase_slam_host(tmpdir)
+    host_terms_cases, host_nn_cases = phase_host_kernels(
+        host_fine_args, cube_args, nn_args)
+    del host_fine_args, cube_args, nn_args
+    emit("host_phases_total", seconds=time.perf_counter() - t_host)
+
     c3_launches, c3_cases = phase_config3(config3_workload("cuda"))
     with tempfile.TemporaryDirectory() as tmpdir:
         c6_launches = phase_config6(tmpdir)
     terms_launches = dict(config2=launches, config2_occupancy=options_launches,
-                          config3=c3_launches, config6=c6_launches)
+                          config3=c3_launches, config6=c6_launches,
+                          host_odometry=host_launches,
+                          host_engine_cases=case_launches["ndt_terms"],
+                          slam_host=slam_host_launches["ndt_terms"])
+    nn_launches = dict(config4=run["nn_launches"], config1=nn_c1_launches,
+                       host_engine_cases=case_launches["nn_search"],
+                       slam_host=slam_host_launches["nn_search"])
 
     emit("total", seconds=time.perf_counter() - t_start)
     by_case = {c["case"]: c for c in gather_cases}
@@ -2500,14 +3186,16 @@ def main() -> int:
         # ndt_terms: no single PyTorch call computes it
         dict(kernel_entry("ndt_terms", src + "ndt_terms.cu",
                           "tpu_slam/kernels/ndt_terms.py:199",
-                          sum(terms_launches.values()), cases + c3_cases,
+                          sum(terms_launches.values()),
+                          cases + c3_cases + host_terms_cases,
                           cases[0]), launches_by_path=terms_launches),
-        # launches on both of its paths: config 4's verification, config
-        # 1's brute tier
-        kernel_entry("nn_search", src + "nn_search.cu",
-                     "tpu_slam/kernels/nn_search.py:57",
-                     run["nn_launches"] + nn_c1_launches,
-                     nn_cases + nn_c1_cases, nn_cases[0]),
+        # launches on all of its paths: config 4's verification, config
+        # 1's brute tier, the host engine's ICP and SLAM verification
+        dict(kernel_entry("nn_search", src + "nn_search.cu",
+                          "tpu_slam/kernels/nn_search.py:57",
+                          sum(nn_launches.values()),
+                          nn_cases + nn_c1_cases + host_nn_cases,
+                          nn_cases[0]), launches_by_path=nn_launches),
         # icp_terms: no single PyTorch call computes it
         kernel_entry("icp_terms", src + "icp_terms.cu",
                      "tpu_slam/kernels/icp_terms.py:47", icp_launches,

@@ -1,13 +1,14 @@
 """The port's CLI (CPU): ``apply_overrides`` against tpu_slam's, and
-``run_odometry --bag ... --engine dense --device cpu`` on a tiny bag
-against the port engine's own run on the same scans.
+``run_odometry --bag ... --device cpu`` on a tiny bag, with ``--engine
+dense`` and with ``--engine sparse`` (the default), each against the port
+engine's own run on the same scans.
 
 Named divergences from the reference CLI:
   * a comma value for a field whose default is None falls back to the
     string when a part is not a number (the reference raises ValueError);
   * ``--device`` (default CUDA, which must be present) is the port's own;
-  * ``--engine sparse``, the reference's default, raises
-    NotImplementedError until the sparse engine is ported.
+  * both engines are imported when they are chosen (the reference imports
+    the sparse engine at the module's top).
 """
 
 import contextlib
@@ -30,6 +31,7 @@ from tpu_slam_torch.ingest import synthetic as syn
 from tpu_slam_torch.ingest.dataset import DatasetReader
 from tpu_slam_torch.pipeline.config import OdometryConfig
 from tpu_slam_torch.pipeline.metrics import ate_rmse
+from tpu_slam_torch.pipeline.odometry import LidarOdometry
 from tpu_slam_torch.pipeline.odometry_dense import DenseLidarOdometry
 
 SETS = ["scan_capacity=2048", "downsample_leaf=0.3", "map_leaf=0.5",
@@ -135,24 +137,56 @@ def test_cli_bag_replay_equals_the_engine(bag, tmp_path):
     assert rec["rpe_trans_m"] < 0.05
 
 
+def test_cli_sparse_engine_equals_the_engine(bag, tmp_path, capsys):
+    """--engine sparse runs LidarOdometry: its poses equal the engine's
+    own run on the same dataset bit for bit; its ATE is printed beside the
+    dense engine's on the same bag."""
+    common = ["--bag", bag, "--bag-gt-frame", "odom", "--json", "--device",
+              "cpu", "--input-capacity", "8192"]
+    for s in SETS:
+        common += ["--set", s]
+    out = str(tmp_path / "sparse.npz")
+    rec = _cli(common + ["--engine", "sparse", "--out", out])
+    dense = _cli(common + ["--engine", "dense"])
+    assert rec["n_scans"] == 3              # the bootstrap scan included
+
+    reader = DatasetReader(bag + ".dataset")
+    gt = reader.gt_poses()
+    odo = LidarOdometry(apply_overrides(OdometryConfig(), SETS),
+                        device="cpu")
+    clouds = [PointCloud.from_points_host(r.points[r.mask], capacity=8192,
+                                          device="cpu") for r in reader]
+    poses, log = odo.run(clouds, init_pose=gt[0])
+    np.testing.assert_array_equal(np.load(out)["poses"], poses)
+    assert rec["ate_rmse_m"] == ate_rmse(poses, gt, align=False) < 0.05
+    assert rec["mean_matched_fraction"] == log.summary()[
+        "mean_matched_fraction"]
+    with capsys.disabled():
+        print(f"\ntiny bag ATE: sparse engine {rec['ate_rmse_m']:.5f} m, "
+              f"dense engine {dense['ate_rmse_m']:.5f} m")
+
+
 def test_cli_refuses_the_sparse_engine_and_a_missing_gpu(bag, monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        run_odometry(["--bag", bag, "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        run_odometry(["--dataset", bag + ".dataset", "--engine", "sparse",
-                      "--device", "cpu"])
-    # no --device: CUDA, and without it the run stops before it starts
+    """Both engines run (the sparse one is the default) and neither falls
+    back to the CPU: without --device the run needs CUDA and stops before
+    it starts when there is none."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        run_odometry(["--bag", bag, "--engine", "dense",
-                      "--set", "ndt.window_dims=24,24,8"])
+    for engine in ([], ["--engine", "sparse"], ["--engine", "dense"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_odometry(["--bag", bag, "--set", "ndt.window_dims=24,24,8"]
+                         + engine)
 
 
 def test_cli_module_imports_no_sparse_engine():
     """The reference imports LidarOdometry at module top; the port's CLI
-    names the sparse engine only in its refusal."""
+    imports neither engine until one is chosen."""
+    import ast
+
     import tpu_slam_torch.cli.run_odometry as mod
 
-    src = open(mod.__file__).read()
-    assert "import LidarOdometry" not in src
-    assert "pipeline.odometry import" not in src
+    tree = ast.parse(open(mod.__file__).read())
+    top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                  ast.ImportFrom))]
+    names = {getattr(n, "module", None) or "" for n in top}
+    assert not any(m.startswith("tpu_slam_torch.pipeline.odometry")
+                   for m in names)

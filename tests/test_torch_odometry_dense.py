@@ -132,6 +132,10 @@ def test_config_carried_across(oracle):
         if k not in ("ndt", "icp"):
             assert ref[k] == v, k
     for k, v in dataclasses.asdict(cfg.ndt).items():
+        if k == "terms_impl":
+            # the reference's Pallas terms pass is the port's kernel path
+            assert ref["ndt"][k] == "pallas_interpret" and v == "auto"
+            continue
         assert ref["ndt"][k] == (list(v) if isinstance(v, tuple) else v) \
             or tuple(ref["ndt"][k]) == v, k
 

@@ -285,6 +285,16 @@ def test_slide_window_matches_reference(oracle):
 
 
 def test_system_refuses_what_is_not_ported(oracle):
-    with pytest.raises(NotImplementedError):
-        _system(oracle, odometry_engine="host")
+    """Both engines are ported: "host" (the default) runs the sparse-map
+    LidarOdometry, "dense" the moment-window engine; any other name is
+    refused."""
+    from tpu_slam_torch.pipeline.odometry import LidarOdometry
+
+    host = _system(oracle, odometry_engine="host")
+    assert isinstance(host.odometry, LidarOdometry)
+    assert host.device == torch.device("cpu")
+    assert host.init_state().odom.vmap.capacity == \
+        host.config.odometry.map_capacity
+    with pytest.raises(ValueError):
+        _system(oracle, odometry_engine="sparse")
     assert _system(oracle).device == torch.device("cpu")

@@ -21,6 +21,8 @@ def _patches(world):
     ("ring_corridor", {}),
     ("ring_corridor", dict(outer=(20.0, 16.0, 3.0), inner=(10.0, 6.0))),
     ("default_office", {}),
+    ("outdoor_block", dict(seed=1)),
+    ("outdoor_block", dict(n_buildings=12, extent=80.0, seed=4)),
 ])
 def test_worlds_equal_reference(name, kw):
     np.testing.assert_array_equal(_patches(getattr(syn, name)(**kw)),

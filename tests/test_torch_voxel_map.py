@@ -154,7 +154,8 @@ def test_ndt_field_rows_match_reference_planes(maps, center):
 
 
 def test_ndt_field_whole_grid_window_and_refusals(maps):
-    """A window as large as the grid is the grid: corner 0."""
+    """A window as large as the grid is the grid: corner 0; so is the
+    default cube window; window_dims off the kernel path is refused."""
     _, jmap, tmap = maps
     spec = VoxelGridSpec.centered(leaf=1.0, half_extent=8.0)     # 16 cells
     jspec = JSpec.centered(leaf=1.0, half_extent=8.0)
@@ -169,11 +170,24 @@ def test_ndt_field_whole_grid_window_and_refusals(maps):
     np.testing.assert_allclose(tf.rows.numpy(),
                                _planes_as_rows(jf.planes, dims),
                                rtol=2e-4, atol=2e-4)
-    with pytest.raises(ValueError):
-        ndt_field(tmap, SPEC, NDTParams())
+    # without window_dims the field is the 2^window_bits cube (64 cells a
+    # side here, the whole grid: corner 0), as the reference builds it on
+    # its kernel path
+    cube = (64, 64, 64)
+    jc = j_ndt_field(jmap, JSPEC, JParams(terms_impl="pallas_interpret"))
+    tc = ndt_field(tmap, SPEC, NDTParams())
+    assert tc.window_dims == cube and jc.window_dims == cube
+    assert jc.origin_cell is None and tc.origin_cell.tolist() == [0, 0, 0]
+    ref = _planes_as_rows(jc.planes, cube)
+    np.testing.assert_array_equal(tc.rows.numpy()[:, 9], ref[:, 9])
+    np.testing.assert_allclose(tc.rows.numpy(), ref, rtol=2e-4, atol=2e-4)
     with pytest.raises(ValueError):
         ndt_field(tmap, SPEC, NDTParams(window_dims=FINE,
                                         use_neighborhood=False))
+    with pytest.raises(ValueError):
+        ndt_field(tmap, SPEC, NDTParams(window_dims=FINE, terms_impl="xla"))
+    with pytest.raises(ValueError):
+        NDTParams(terms_impl="pallas")
 
 
 def test_config3_register_matches_reference(maps, monkeypatch):

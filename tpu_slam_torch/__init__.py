@@ -5,26 +5,29 @@ paths and public names follow ``tpu_slam`` so each function's counterpart is
 easy to find; the JAX package stays the reference and this package imports
 nothing of it (nor of JAX).
 
-Layer map of what is ported so far (full SLAM on the dense odometry
-engine with its occupancy and deskew options, scan-to-map NDT on the
-sparse voxel map, bag replay through the CLI, pair ICP on both tiers,
-the gather probes):
+Layer map of what is ported so far (full SLAM on both odometry engines:
+the host engine on the sparse voxel map and the dense-window engine with
+its occupancy and deskew options; scan-to-map NDT on the sparse voxel map,
+bag replay through the CLI, pair ICP on both tiers, the gather probes):
 
-    cli/           run_odometry (--bag/--dataset, --engine dense,
+    cli/           run_odometry (--bag/--dataset, --engine sparse|dense,
                    --device), config overrides
     pipeline/      SLAMSystem (keyframes, loop sweeps, graph, re-anchor),
+                   LidarOdometry and JitLidarOdometry (sparse voxel map),
                    DenseLidarOdometry (occupancy eviction, deskew), config,
                    metrics, state hand-over, checkpoint/resume
     graph/         pose graph (GN + matrix-free PCG), loop-closure
                    candidates and batched symmetric ICP verification,
                    scan-context descriptors
-    registration/  NDT registration (kernel path: frozen-bin terms + LM),
+    registration/  NDT registration (kernel path: frozen-bin terms + LM;
+                   sparse path: 27-neighbour Gaussians by binary search),
                    brute-force ICP (one pair or a batch), raster-tier
                    pair ICP and the size-routed icp_auto, k-NN normals,
                    robust weights
     mapping/       dense moment window (insert, scroll, NDT field,
                    occupancy layer, coarsening), the sparse voxel map
-                   (host bulk build, coarsening)
+                   (insert and incremental merge, eviction, normals, host
+                   bulk build, coarsening) and its occupancy grid
     kernels/       voxel hashing, downsampling, and the hand-written CUDA
                    kernels with their plain versions: NDT terms
                    (csrc/ndt_terms.cu), brute-force NN (csrc/nn_search.cu),

@@ -3,12 +3,12 @@
     python -m tpu_slam_torch.cli.run_odometry --bag seq.bag --engine dense \
         --bag-gt-frame odom --set ndt.window_dims=192,192,32 --json
 
-Port of ``tpu_slam.cli.run_odometry`` on the dense-window engine. A bag is
-first converted into an npz dataset beside it (``<bag>.dataset``); the
-summary then carries the seconds of that conversion (``bag_convert_s``)
-and of the odometry run (``odometry_s``). Runs on CUDA unless
-``--device cpu`` is given. ``--engine sparse`` (the reference's default,
-the sparse voxel-map engine) is not ported yet and raises.
+Port of ``tpu_slam.cli.run_odometry``: ``--engine sparse`` (the default)
+runs the sparse voxel-map engine ``LidarOdometry``, ``--engine dense`` the
+dense-window engine. A bag is first converted into an npz dataset beside
+it (``<bag>.dataset``); the summary then carries the seconds of that
+conversion (``bag_convert_s``) and of the odometry run (``odometry_s``).
+Runs on CUDA unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -45,22 +45,22 @@ def main(argv=None):
     p.add_argument("--input-capacity", type=int, default=32768)
     p.add_argument("--engine", choices=["sparse", "dense"],
                    default="sparse",
-                   help="odometry engine: 'dense' is the moment-window "
-                        "engine (needs --set ndt.window_dims=Wx,Wy,Wz); "
-                        "'sparse' is not ported yet")
+                   help="odometry engine: 'sparse' is the voxel-map engine "
+                        "(LidarOdometry); 'dense' the moment-window engine "
+                        "(needs --set ndt.window_dims=Wx,Wy,Wz)")
     add_common_args(p)
     args = p.parse_args(argv)
 
-    if args.engine != "dense":
-        raise NotImplementedError(
-            "--engine sparse (the sparse voxel-map engine LidarOdometry) is "
-            "not ported yet (ROADMAP Queue 1 item 4); use --engine dense")
     from tpu_slam_torch import default_device
-    from tpu_slam_torch.pipeline.odometry_dense import DenseLidarOdometry
 
     device = default_device(args.device)
     cfg = apply_overrides(OdometryConfig(), args.set)
-    odo = DenseLidarOdometry(cfg, device=device)
+    if args.engine == "dense":
+        from tpu_slam_torch.pipeline.odometry_dense import DenseLidarOdometry
+        odo = DenseLidarOdometry(cfg, device=device)
+    else:
+        from tpu_slam_torch.pipeline.odometry import LidarOdometry
+        odo = LidarOdometry(cfg, device=device)
     dataset = args.dataset
     timing = {}
     if args.bag:

@@ -13,6 +13,24 @@ import torch
 _TWO_PI_3 = 2.0943951023931953  # 2*pi/3
 
 
+def _tri6_of(a: torch.Tensor):
+    """Upper-tri components (a00, a01, a02, a11, a12, a22) of (..., 3, 3)."""
+    return (a[..., 0, 0], a[..., 0, 1], a[..., 0, 2],
+            a[..., 1, 1], a[..., 1, 2], a[..., 2, 2])
+
+
+def _sym_of_tri(t00, t01, t02, t11, t12, t22) -> torch.Tensor:
+    """(..., 3, 3) symmetric matrices from their six upper-tri lanes."""
+    return torch.stack([torch.stack([t00, t01, t02], dim=-1),
+                        torch.stack([t01, t11, t12], dim=-1),
+                        torch.stack([t02, t12, t22], dim=-1)], dim=-2)
+
+
+def eigvals_sym3(a: torch.Tensor) -> torch.Tensor:
+    """Eigenvalues of symmetric (..., 3, 3) matrices, ascending (..., 3)."""
+    return eigvals_sym3_tri(*_tri6_of(a))
+
+
 def eigvals_sym3_tri(a00, a01, a02, a11, a12, a22) -> torch.Tensor:
     """Eigenvalues (ascending, stacked on the last axis) from upper-tri lanes."""
     q = (a00 + a11 + a22) / 3.0
@@ -32,6 +50,28 @@ def eigvals_sym3_tri(a00, a01, a02, a11, a12, a22) -> torch.Tensor:
     lmin = q + 2.0 * p * torch.cos(phi + _TWO_PI_3)
     lmid = 3.0 * q - lmax - lmin
     return torch.stack([lmin, lmid, lmax], dim=-1)
+
+
+def inv_sym3(a: torch.Tensor) -> torch.Tensor:
+    """Closed-form (adjugate / det) inverse of symmetric (..., 3, 3)
+    matrices; |det| below 1e-30 is replaced by 1e-30."""
+    a00, a01, a02, a11, a12, a22 = _tri6_of(a)
+    c00 = a11 * a22 - a12 * a12
+    c01 = a02 * a12 - a01 * a22
+    c02 = a01 * a12 - a02 * a11
+    c11 = a00 * a22 - a02 * a02
+    c12 = a01 * a02 - a00 * a12
+    c22 = a00 * a11 - a01 * a01
+    det = a00 * c00 + a01 * c01 + a02 * c02
+    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-30, det, 1e-30)
+    return _sym_of_tri(c00, c01, c02, c11, c12, c22) * inv_det[..., None,
+                                                                None]
+
+
+def floored_info_sym3(cov: torch.Tensor, floor_ratio: float) -> torch.Tensor:
+    """NDT information matrices (..., 3, 3) of covariances (..., 3, 3):
+    ``floored_info_sym3_tri`` on the upper triangle, mirrored."""
+    return _sym_of_tri(*floored_info_sym3_tri(_tri6_of(cov), floor_ratio))
 
 
 def floored_info_sym3_tri(tri, floor_ratio: float):

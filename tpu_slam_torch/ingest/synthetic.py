@@ -3,8 +3,8 @@
 Copy of the parts of ``tpu_slam.ingest.synthetic`` the ported slices
 need: planar-patch worlds with vectorized ray casting, surface sampling
 (the config-3 map), the VLP-16 ring model, its range images and pcap
-capture, the office, grid-city and ring-corridor worlds, and the corridor
-route of the SLAM workload. The numpy chunk path is the
+capture, the office, grid-city, outdoor-block and ring-corridor worlds,
+and the corridor route of the SLAM workload. The numpy chunk path is the
 reference's, unchanged, so small scenes are bit-identical to it; the large
 single-origin ray-plane pass runs the same algebra in torch on the given
 device (CUDA by default).
@@ -323,6 +323,44 @@ def dense_city(extent: float = 200.0, block_pitch: float = 24.0,
                 Patch(e([hi[0], lo[1], lo[2]]), e([0, dd[1], 0]),
                       e([0, 0, dd[2]])),
             ]
+    return World(patches)
+
+
+def outdoor_block(n_buildings: int = 8, extent: float = 60.0,
+                  seed: int = 0) -> World:
+    """An outdoor city block: a ground plane and box buildings, a clear
+    ring road at 12-18 m of the origin."""
+    rng = np.random.default_rng(seed)
+    e = np.array
+    h = extent / 2
+    patches = [Patch(e([-h, -h, 0.0]), e([extent, 0, 0]), e([0, extent, 0]))]
+    placed = []
+    tries = 0
+    while len(placed) < n_buildings and tries < 200:
+        tries += 1
+        w, d = rng.uniform(5, 12, 2)
+        x, y = rng.uniform(-h + 8, h - 8 - max(w, d), 2)
+        cx, cy = x + w / 2, y + d / 2
+        if math.hypot(cx, cy) < 22.0:
+            continue
+        if any(abs(cx - px) < (w + pw) / 2 + 4
+               and abs(cy - py) < (d + pd) / 2 + 4
+               for px, py, pw, pd in placed):
+            continue
+        placed.append((cx, cy, w, d))
+        z = rng.uniform(4, 10)
+        lo = e([x, y, 0.0]); hi = e([x + w, y + d, z])
+        dd = hi - lo
+        patches += [
+            Patch(e([lo[0], lo[1], hi[2]]), e([dd[0], 0, 0]),
+                  e([0, dd[1], 0])),
+            Patch(lo, e([dd[0], 0, 0]), e([0, 0, dd[2]])),
+            Patch(e([lo[0], hi[1], lo[2]]), e([dd[0], 0, 0]),
+                  e([0, 0, dd[2]])),
+            Patch(lo, e([0, dd[1], 0]), e([0, 0, dd[2]])),
+            Patch(e([hi[0], lo[1], lo[2]]), e([0, dd[1], 0]),
+                  e([0, 0, dd[2]])),
+        ]
     return World(patches)
 
 

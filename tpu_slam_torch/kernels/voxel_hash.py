@@ -103,3 +103,24 @@ def segment_ids_from_sorted_keys(sorted_keys: torch.Tensor
     is_start[1:] = sorted_keys[1:] != sorted_keys[:-1]
     seg_ids = torch.cumsum(is_start.to(torch.int32), 0, dtype=torch.int32) - 1
     return seg_ids, is_start
+
+
+def neighbor_offsets_keys(key: torch.Tensor, spec: VoxelGridSpec
+                          ) -> torch.Tensor:
+    """Keys of the 27 cells of each key's 3x3x3 neighbourhood.
+
+    key (...,) int32. Returns (..., 27) int32 in (dx, dy, dz) order, dz
+    fastest, each offset in (-1, 0, 1); INVALID_KEY where the neighbour
+    leaves the grid or the key itself is INVALID_KEY.
+    """
+    b = spec.dim_bits
+    n = spec.cells_per_axis
+    d = torch.tensor([-1, 0, 1], dtype=torch.int32, device=key.device)
+    dx, dy, dz = torch.meshgrid(d, d, d, indexing="ij")
+    cx = (key >> (2 * b))[..., None] + dx.reshape(-1)
+    cy = ((key >> b) & (n - 1))[..., None] + dy.reshape(-1)
+    cz = (key & (n - 1))[..., None] + dz.reshape(-1)
+    ok = ((cx >= 0) & (cx < n) & (cy >= 0) & (cy < n) & (cz >= 0)
+          & (cz < n) & (key[..., None] != INVALID_KEY))
+    nkey = (cx << (2 * b)) | (cy << b) | cz
+    return torch.where(ok, nkey, INVALID_KEY).to(torch.int32)

@@ -1,25 +1,38 @@
 """Sorted-voxel-list map with per-voxel Gaussian moments.
 
-Port of the parts of ``tpu_slam.mapping.voxel_map`` that scan-to-map NDT
-(bench config 3) uses: the fixed-capacity map sorted by packed cell key
-(empty tail at INVALID_KEY), each voxel's count, sum and sum of outer
-products taken about its own corner, the host bulk build
-(``build_map_host``, numpy, float64 sums as the reference has them) and
-the re-aggregation at a coarser leaf (``coarsen_map``). The per-scan
-insert and the incremental merge of the reference are not ported.
+Port of ``tpu_slam.mapping.voxel_map``: the fixed-capacity map sorted by
+packed cell key (empty tail at INVALID_KEY), each voxel's count, sum and
+sum of outer products taken about its own corner. A scan is aggregated per
+voxel (``scan_to_voxel_stats``) and merged into the map either by the full
+sort-merge (``insert_scan_stats``: concatenate, stable sort, segment sums,
+keep the newest ``capacity`` voxels) or incrementally
+(``insert_scan_stats_incremental``: dense adds on the voxels the scan hits,
+new keys merged in by a gather, the full merge when they do not fit).
+Scrolling-window rebase, eviction, means, covariances, normals, the
+27-neighbourhood moments, the host bulk build (``build_map_host``, numpy,
+float64 sums as the reference has them) and the re-aggregation at a
+coarser leaf (``coarsen_map``) complete the module.
+
+Every float segment sum goes through ``core.scatter`` (fixed order on both
+devices); segment maxima are order-free. Sorts are stable, so ties fall as
+the reference's ``argsort(stable=True)`` lets them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 
+from tpu_slam_torch.core.pointcloud import PAD_COORD, PointCloud
 from tpu_slam_torch.core.scatter import accumulate_rows
 from tpu_slam_torch.kernels.voxel_hash import (INVALID_KEY, VoxelGridSpec,
-                                               segment_ids_from_sorted_keys)
+                                               neighbor_offsets_keys,
+                                               segment_ids_from_sorted_keys,
+                                               voxel_keys)
 
 _INT32_MIN = -2 ** 31
 
@@ -85,6 +98,374 @@ def decode_corner(keys: torch.Tensor, spec: VoxelGridSpec) -> torch.Tensor:
     coords = torch.stack([(keys >> (2 * b)) & m, (keys >> b) & m, keys & m],
                          dim=-1).to(torch.float32)
     return coords * spec.leaf + spec.origin_tensor(keys.device)
+
+
+def _spare_index(seg: torch.Tensor, m: int,
+                 valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """``seg``, with each row where ``valid`` is False sent to a spare row
+    of its own past ``m``: an INVALID_KEY tail is one long run of one
+    segment, and a scatter that reduces a run in order would walk it row
+    by row."""
+    if valid is None:
+        return seg
+    spare = m + torch.arange(seg.shape[0], device=seg.device)
+    return torch.where(valid, seg, spare)
+
+
+def _segment_max(vals: torch.Tensor, seg: torch.Tensor, m: int,
+                 fill, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-segment maximum of ``vals`` over ``m`` segments (``fill`` where a
+    segment is empty), leaving out the rows where ``valid`` is False; a
+    maximum does not depend on the order."""
+    idx = _spare_index(seg, m, valid)
+    out = torch.full((m + (0 if valid is None else seg.shape[0]),), fill,
+                     dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce_(0, idx, vals, "amax")[:m]
+
+
+def _segment_sums(seg: torch.Tensor, m: int, valid: torch.Tensor,
+                  *vals: torch.Tensor):
+    """Per-segment sums of each (M, ...) tensor over ``m`` segments, in row
+    order, leaving out the rows where ``valid`` is False (one scatter for
+    all of them)."""
+    n = seg.shape[0]
+    flats = [v.reshape(n, -1) for v in vals]
+    widths = [f.shape[1] for f in flats]
+    cat = torch.cat(flats, dim=1)
+    acc = torch.zeros((m + n, cat.shape[1]), dtype=cat.dtype,
+                      device=cat.device)
+    acc = accumulate_rows(acc, _spare_index(seg, m, valid), cat)[:m]
+    return [a.reshape((m,) + tuple(v.shape[1:]))
+            for a, v in zip(acc.split(widths, dim=1), vals)]
+
+
+def _first_keys(k: torch.Tensor, seg: torch.Tensor, is_start: torch.Tensor,
+                valid: torch.Tensor, m: int) -> torch.Tensor:
+    """Each segment's key from its first (valid) row: one write a segment,
+    INT32_MIN where a segment has none."""
+    first = is_start & valid
+    mk = torch.full((m,), _INT32_MIN, dtype=torch.int32, device=k.device)
+    mk[seg[first]] = k[first]
+    return mk
+
+
+def _stable_order(flag: torch.Tensor) -> torch.Tensor:
+    """Stable argsort of a bool tensor (False first)."""
+    return torch.argsort(flag.to(torch.uint8), stable=True)
+
+
+def scan_to_voxel_stats(cloud: PointCloud, spec: VoxelGridSpec):
+    """Aggregate a cloud into per-voxel moments about each voxel's corner.
+
+    Returns (keys (N,), count (N,), sum_pts (N, 3), sum_outer (N, 3, 3)),
+    one leading row per occupied voxel in key order, INVALID_KEY tail; N is
+    the cloud's capacity.
+    """
+    n = cloud.capacity
+    keys = voxel_keys(cloud, spec)
+    order = torch.argsort(keys, stable=True)
+    skeys = keys[order]
+    spts = cloud.points[order]
+    valid = skeys != INVALID_KEY
+    local = torch.where(valid[:, None], spts - decode_corner(skeys, spec),
+                        0.0)
+    outer = local[:, :, None] * local[:, None, :]
+    seg_ids, is_start = segment_ids_from_sorted_keys(skeys)
+    seg = seg_ids.long()
+    w = valid.to(torch.float32)
+    cnt, ssum, souter = _segment_sums(seg, n, valid, w, local,
+                                      outer * w[:, None, None])
+    seg_valid = cnt > 0
+    out_keys = torch.where(seg_valid,
+                           _first_keys(skeys, seg, is_start, valid, n),
+                           INVALID_KEY).to(torch.int32)
+    order2 = _stable_order(~seg_valid)
+    return out_keys[order2], cnt[order2], ssum[order2], souter[order2]
+
+
+def insert_scan_stats(vmap: VoxelMap, keys: torch.Tensor,
+                      count: torch.Tensor, sum_pts: torch.Tensor,
+                      sum_outer: torch.Tensor, stamp) -> VoxelMap:
+    """Merge per-voxel aggregates into the map: concatenate, stable sort,
+    segment-reduce equal keys, keep the ``capacity`` voxels with the newest
+    stamps (ties in sorted-key order), and restore key order."""
+    C = vmap.capacity
+    dev = vmap.keys.device
+    stamp = torch.as_tensor(stamp, dtype=torch.float32, device=dev)
+    new_stamp = torch.where(keys != INVALID_KEY, stamp, -math.inf)
+    all_keys = torch.cat([vmap.keys, keys])
+    order = torch.argsort(all_keys, stable=True)
+    k = all_keys[order]
+    c = torch.cat([vmap.count, count])[order]
+    s = torch.cat([vmap.sum_pts, sum_pts])[order]
+    o = torch.cat([vmap.sum_outer, sum_outer])[order]
+    st = torch.cat([vmap.stamp, new_stamp])[order]
+
+    m = k.shape[0]
+    seg_ids, is_start = segment_ids_from_sorted_keys(k)
+    seg = seg_ids.long()
+    valid = k != INVALID_KEY
+    mc, ms, mo = _segment_sums(seg, m, valid, c, s, o)
+    mst = _segment_max(st, seg, m, -math.inf, valid)
+    seg_valid = mc > 0
+    mk = torch.where(seg_valid, _first_keys(k, seg, is_start, valid, m),
+                     INVALID_KEY).to(torch.int32)
+
+    # keep the C most recent voxels, then restore key order
+    evict_rank = torch.where(seg_valid, -mst, math.inf)
+    keep = torch.argsort(evict_rank, stable=True)[:C]
+    kk = mk[keep]
+    final = torch.argsort(kk, stable=True)
+    sel = keep[final]
+    return VoxelMap(keys=kk[final], count=mc[sel], sum_pts=ms[sel],
+                    sum_outer=mo[sel], stamp=mst[sel])
+
+
+def insert_scan_stats_incremental(vmap: VoxelMap, keys: torch.Tensor,
+                                  count: torch.Tensor, sum_pts: torch.Tensor,
+                                  sum_outer: torch.Tensor, stamp,
+                                  new_cap: int = 8192):
+    """Incremental merge: dense adds on the map voxels the scan hits, and
+    the first ``new_cap`` new keys merged in by a gather (for output slot k,
+    the new rows placed at or before k are counted by a binary search over
+    their destinations; both sources are in key order, so nothing is
+    re-sorted).
+
+    When more than ``new_cap`` keys are new, or they would overflow the
+    map, the full merge ``insert_scan_stats`` of the original map runs
+    instead: that choice is one host read of one flag. Returns
+    ``(vmap, overflowed)``.
+    """
+    C = vmap.capacity
+    s_cap = keys.shape[0]
+    dev = vmap.keys.device
+    stamp = torch.as_tensor(stamp, dtype=torch.float32, device=dev)
+    valid = keys != INVALID_KEY
+    occ = vmap.occupied_mask()
+
+    # -- hits: each map key searched among the scan's sorted keys --------
+    pos = torch.clamp(torch.searchsorted(keys, vmap.keys), 0, s_cap - 1)
+    hit = (keys[pos] == vmap.keys) & occ
+    h = hit.to(torch.float32)
+    new_count = vmap.count + h * count[pos]
+    new_sum = vmap.sum_pts + h[:, None] * sum_pts[pos]
+    new_outer = vmap.sum_outer + h[:, None, None] * sum_outer[pos]
+    new_stamp = torch.where(hit, torch.maximum(vmap.stamp, stamp),
+                            vmap.stamp)
+
+    # -- new keys ---------------------------------------------------------
+    mpos = torch.clamp(torch.searchsorted(vmap.keys, keys), 0, C - 1)
+    is_new = valid & (vmap.keys[mpos] != keys)
+    new_cap = min(new_cap, s_cap)
+    n_new = is_new.sum(dtype=torch.int32)
+    overflow = (n_new > new_cap) | (occ.sum(dtype=torch.int32) + n_new > C)
+    if bool(overflow.item()):
+        return insert_scan_stats(vmap, keys, count, sum_pts, sum_outer,
+                                 stamp), True
+
+    # the first new_cap new rows, already in key order
+    order = _stable_order(~is_new)[:new_cap]
+    nk = torch.where(is_new[order], keys[order], INVALID_KEY).to(torch.int32)
+    # destination of new row j: its insertion point among the old keys
+    # plus its own rank; INVALID rows land past the end and are never read
+    ins = torch.searchsorted(vmap.keys, nk).to(torch.int32)
+    rank = torch.arange(new_cap, dtype=torch.int32, device=dev)
+    dest = torch.where(nk != INVALID_KEY, ins + rank,
+                       C + new_cap).to(torch.int32)
+    k_out = torch.arange(C, dtype=torch.int32, device=dev)
+    r = torch.searchsorted(dest, k_out).to(torch.int32)      # side left
+    rc = torch.clamp(r, 0, new_cap - 1).long()
+    take_new = dest[rc] == k_out
+    msrc = torch.clamp(k_out - r, 0, C - 1).long()
+
+    def pick(new_a, old_a):
+        m = take_new.reshape((-1,) + (1,) * (new_a.ndim - 1))
+        return torch.where(m, new_a[rc], old_a[msrc])
+
+    return VoxelMap(
+        keys=pick(nk, vmap.keys),
+        count=pick(count[order], new_count),
+        sum_pts=pick(sum_pts[order], new_sum),
+        sum_outer=pick(sum_outer[order], new_outer),
+        stamp=pick(torch.where(nk != INVALID_KEY, stamp, -math.inf),
+                   new_stamp)), False
+
+
+def insert_cloud(vmap: VoxelMap, cloud: PointCloud, spec: VoxelGridSpec,
+                 stamp=0.0, incremental: bool = True) -> VoxelMap:
+    """Integrate a (map-frame) cloud into the map. With ``incremental``,
+    ``insert_cloud.fallbacks`` counts the inserts that took the full
+    merge and ``insert_cloud.incremental`` those that did not."""
+    keys, cnt, ssum, souter = scan_to_voxel_stats(cloud, spec)
+    if not incremental:
+        return insert_scan_stats(vmap, keys, cnt, ssum, souter, stamp)
+    vmap, overflowed = insert_scan_stats_incremental(vmap, keys, cnt, ssum,
+                                                     souter, stamp)
+    if overflowed:
+        insert_cloud.fallbacks += 1
+    else:
+        insert_cloud.incremental += 1
+    return vmap
+
+
+insert_cloud.fallbacks = 0
+insert_cloud.incremental = 0
+
+
+def _rekey(vmap: VoxelMap, keys: torch.Tensor) -> VoxelMap:
+    """The map with ``keys`` (INVALID_KEY = drop): dropped rows zeroed and
+    stamped -inf, then one stable sort back to key order."""
+    dead = keys == INVALID_KEY
+    order = torch.argsort(keys, stable=True)
+
+    def z(a):
+        return torch.where(dead.reshape((-1,) + (1,) * (a.ndim - 1)), 0.0,
+                           a)[order]
+
+    return VoxelMap(keys=keys[order], count=z(vmap.count),
+                    sum_pts=z(vmap.sum_pts), sum_outer=z(vmap.sum_outer),
+                    stamp=torch.where(dead, -math.inf, vmap.stamp)[order])
+
+
+def shift_map_cells(vmap: VoxelMap, spec: VoxelGridSpec,
+                    shift: torch.Tensor) -> VoxelMap:
+    """Scrolling-window rebase: cell c becomes c - shift ((3,) int32);
+    voxels leaving the grid are dropped. Moments are corner-relative, so
+    only the keys change."""
+    b = spec.dim_bits
+    n = spec.cells_per_axis
+    keys = vmap.keys
+    shift = torch.as_tensor(shift, dtype=torch.int32, device=keys.device)
+    cx = ((keys >> (2 * b)) & (n - 1)) - shift[0]
+    cy = ((keys >> b) & (n - 1)) - shift[1]
+    cz = (keys & (n - 1)) - shift[2]
+    inb = ((keys != INVALID_KEY) & (cx >= 0) & (cx < n) & (cy >= 0)
+           & (cy < n) & (cz >= 0) & (cz < n))
+    return _rekey(vmap, torch.where(inb, (cx << (2 * b)) | (cy << b) | cz,
+                                    INVALID_KEY).to(torch.int32))
+
+
+def evict_where(vmap: VoxelMap, drop: torch.Tensor) -> VoxelMap:
+    """Remove the voxels where ``drop`` is True (seen-through voxels)."""
+    return _rekey(vmap, torch.where(drop, INVALID_KEY,
+                                    vmap.keys).to(torch.int32))
+
+
+def voxel_means(vmap: VoxelMap, spec: VoxelGridSpec) -> torch.Tensor:
+    """(C, 3) world-frame voxel means; PAD_COORD where empty."""
+    cnt = torch.clamp(vmap.count, min=1.0)
+    mean = decode_corner(vmap.keys, spec) + vmap.sum_pts / cnt[:, None]
+    return torch.where(vmap.occupied_mask()[:, None], mean, PAD_COORD)
+
+
+def voxel_covariances(vmap: VoxelMap, min_count: float = 5.0,
+                      regularization: float = 1e-3) -> torch.Tensor:
+    """(C, 3, 3) covariance about the voxel mean plus ``regularization`` I;
+    voxels under ``min_count`` points get 0.05 I."""
+    cnt = torch.clamp(vmap.count, min=1.0)
+    mean = vmap.sum_pts / cnt[:, None]
+    cov = (vmap.sum_outer / cnt[:, None, None]
+           - mean[:, :, None] * mean[:, None, :])
+    eye = torch.eye(3, dtype=cov.dtype, device=cov.device)
+    cov = cov + regularization * eye
+    poor = vmap.count < min_count
+    return torch.where(poor[:, None, None], eye * 0.05, cov)
+
+
+# batched 3x3 eigh on the card refuses batches of 32,768 and more (the
+# solver's workspace query fails); 16,384 a call works
+EIGH_BATCH = 16384
+
+
+def _smallest_normal(cov: torch.Tensor, planarity: float):
+    """Eigenvector of the smallest eigenvalue and the planarity test
+    (smallest < planarity x middle). ``torch.linalg.eigh`` as the
+    reference's ``jnp.linalg.eigh``, in batches of EIGH_BATCH matrices:
+    the sign (and, for a repeated eigenvalue, the direction within its
+    space) is the solver's."""
+    parts = [torch.linalg.eigh(c) for c in cov.split(EIGH_BATCH)]
+    evals = torch.cat([p[0] for p in parts])
+    evecs = torch.cat([p[1] for p in parts])
+    planar = evals[:, 0] < planarity * torch.clamp(evals[:, 1], min=1e-12)
+    return evecs[:, :, 0], planar
+
+
+def voxel_normals(vmap: VoxelMap, min_count: float = 5.0):
+    """(normals (C, 3), valid (C,)) from each voxel's own covariance."""
+    normals, planar = _smallest_normal(
+        voxel_covariances(vmap, min_count=min_count), 0.25)
+    return normals, vmap.occupied_mask() & (vmap.count >= min_count) & planar
+
+
+def lookup_voxels(vmap: VoxelMap, query_keys: torch.Tensor) -> torch.Tensor:
+    """(N,) int32 slot of each query key in the sorted map, -1 if absent."""
+    pos = torch.clamp(torch.searchsorted(vmap.keys, query_keys), 0,
+                      vmap.capacity - 1)
+    hit = (vmap.keys[pos] == query_keys) & (query_keys != INVALID_KEY)
+    return torch.where(hit, pos, -1).to(torch.int32)
+
+
+def neighborhood_moments(vmap: VoxelMap, spec: VoxelGridSpec,
+                         lookup: Optional[torch.Tensor] = None):
+    """27-neighbourhood moments of every voxel, each neighbour's moments
+    moved to the centre voxel's corner (s' = s + n d,
+    o' = o + d s^T + s d^T + n d d^T, d = corner_v - corner_0).
+
+    The neighbours are found by binary search over the sorted keys, or
+    with ``lookup`` (``build_dense_lookup``) by one gather. Returns
+    (count (C,), mean_world (C, 3), cov (C, 3, 3)).
+    """
+    c = vmap.capacity
+    nkeys = neighbor_offsets_keys(vmap.keys, spec)           # (C, 27)
+    if lookup is not None:
+        pos = lookup[torch.clamp(nkeys, 0, lookup.shape[0] - 1).long()]
+        hit = (pos >= 0) & (nkeys != INVALID_KEY) & (nkeys >= 0)
+        pos = torch.clamp(pos, min=0).long()
+    else:
+        pos = torch.clamp(torch.searchsorted(vmap.keys, nkeys), 0, c - 1)
+        hit = (vmap.keys[pos] == nkeys) & (nkeys != INVALID_KEY)
+    w = hit.to(torch.float32)
+    n_v = vmap.count[pos] * w
+    s_v = vmap.sum_pts[pos] * w[..., None]
+    o_v = vmap.sum_outer[pos] * w[..., None, None]
+    corners0 = decode_corner(vmap.keys, spec)
+    d = torch.where(hit[..., None],
+                    decode_corner(nkeys, spec) - corners0[:, None, :], 0.0)
+    s_shift = s_v + n_v[..., None] * d
+    o_shift = (o_v + d[..., :, None] * s_v[..., None, :]
+               + s_v[..., :, None] * d[..., None, :]
+               + n_v[..., None, None] * d[..., :, None] * d[..., None, :])
+    cnt = n_v.sum(dim=1)
+    ssum = s_shift.sum(dim=1)
+    souter = o_shift.sum(dim=1)
+    safe = torch.clamp(cnt, min=1.0)
+    mean_local = ssum / safe[:, None]
+    cov = (souter / safe[:, None, None]
+           - mean_local[:, :, None] * mean_local[:, None, :])
+    mean_world = torch.where(vmap.occupied_mask()[:, None],
+                             corners0 + mean_local, PAD_COORD)
+    return cnt, mean_world, cov
+
+
+def voxel_normals_neighborhood(vmap: VoxelMap, spec: VoxelGridSpec,
+                               min_count: float = 6.0,
+                               planarity: float = 0.25):
+    """(normals (C, 3), valid (C,)) from the 27-neighbourhood covariance."""
+    cnt, _, cov = neighborhood_moments(vmap, spec)
+    cov = cov + 1e-6 * torch.eye(3, dtype=cov.dtype, device=cov.device)
+    normals, planar = _smallest_normal(cov, planarity)
+    return normals, vmap.occupied_mask() & (cnt >= min_count) & planar
+
+
+def build_dense_lookup(vmap: VoxelMap, spec: VoxelGridSpec) -> torch.Tensor:
+    """Dense cell -> slot table (2^(3 dim_bits) entries, -1 empty); keys
+    are unique, so each occupied voxel writes its own entry."""
+    size = 1 << (3 * spec.dim_bits)
+    dev = vmap.keys.device
+    table = torch.full((size + 1,), -1, dtype=torch.int32, device=dev)
+    idx = torch.where(vmap.occupied_mask(), vmap.keys, size).long()
+    table[idx] = torch.arange(vmap.capacity, dtype=torch.int32, device=dev)
+    return table[:size]
 
 
 def build_map_host(points, spec: VoxelGridSpec, capacity: int,
@@ -171,28 +552,15 @@ def coarsen_map(vmap: VoxelMap, spec: VoxelGridSpec, factor: int = 4
     seg_ids, is_start = segment_ids_from_sorted_keys(k)
     seg = seg_ids.long()
     valid = k != INVALID_KEY
-    mc = accumulate_rows(torch.zeros(m, dtype=f32, device=dev), seg,
-                         torch.where(valid, nw[order], 0.0))
-    ms = accumulate_rows(torch.zeros((m, 3), dtype=f32, device=dev), seg,
-                         torch.where(valid[:, None], s_shift[order], 0.0))
-    mo = accumulate_rows(torch.zeros((m, 9), dtype=f32, device=dev), seg,
-                         torch.where(valid[:, None],
-                                     o_shift[order].reshape(m, 9), 0.0))
-    # each run is contiguous in the sorted order: its largest stamp is a
-    # segment max over the runs' lengths (empty segments get -inf)
-    lengths = torch.bincount(seg, minlength=m)
-    mst = torch.segment_reduce(
-        torch.where(valid, vmap.stamp[order], -math.inf), "max",
-        lengths=lengths, unsafe=True, initial=-math.inf)
-    # first key of each run: one write a run, no two to one row
-    first = is_start & valid
-    mk = torch.full((m,), _INT32_MIN, dtype=torch.int32, device=dev)
-    mk[seg[first]] = k[first]
-    mk = torch.where(mc > 0, mk, INVALID_KEY).to(torch.int32)
+    mc, ms, mo = _segment_sums(seg, m, valid, nw[order], s_shift[order],
+                               o_shift[order])
+    # each run's largest stamp (empty segments get -inf)
+    mst = _segment_max(vmap.stamp[order], seg, m, -math.inf, valid)
+    mk = torch.where(mc > 0, _first_keys(k, seg, is_start, valid, m),
+                     INVALID_KEY).to(torch.int32)
     order2 = torch.argsort(mk, stable=True)
     return VoxelMap(keys=mk[order2], count=mc[order2], sum_pts=ms[order2],
-                    sum_outer=mo[order2].reshape(m, 3, 3),
-                    stamp=mst[order2])
+                    sum_outer=mo[order2], stamp=mst[order2])
 
 
 def coarse_spec_of(spec: VoxelGridSpec, factor: int) -> VoxelGridSpec:

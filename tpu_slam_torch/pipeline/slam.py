@@ -1,13 +1,17 @@
 """Full 6D SLAM: odometry + keyframes + loop closure + pose-graph backend.
 
-Port of ``tpu_slam.pipeline.slam`` for the dense-window odometry engine.
-Keyframe clouds, normals, scan-context descriptors and the pose graph live
-in fixed-capacity tensors on the engine's device; loop candidates are
+Port of ``tpu_slam.pipeline.slam`` on both odometry engines: the sparse
+voxel-map engine (``odometry_engine="host"``, ``pipeline.odometry``, the
+default) and the dense-window engine (``"dense"``). Keyframe clouds,
+normals, scan-context descriptors and the pose graph live in
+fixed-capacity tensors on the engine's device; loop candidates are
 verified as one batched symmetric ICP (graph.loop_closure); the pose graph
 is optimized with the matrix-free GN (graph.pose_graph). After an accepted
-loop the odometry is re-anchored at the optimized keyframe and its windows
+loop the odometry is re-anchored at the optimized keyframe and its map
 rebuilt from the keyframes (``reanchor_after_loop`` /
 ``rebuild_map_after_loop``), or left to free-run (loosely coupled).
+With ``collect_loop_debug`` each loop sweep appends its proposed pairs
+and their outcomes to ``loop_debug``.
 
 ``stage_seconds`` accumulates the wall time of each stage of ``step``
 (odometry, keyframe store, loop verification, graph solve), each closed by
@@ -17,7 +21,7 @@ a device synchronisation so the time lands in the stage that spent it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,8 +39,10 @@ from tpu_slam_torch.mapping.dense_map import (centered_origin_cell,
                                               empty_grid,
                                               empty_occupancy_grid,
                                               grid_insert)
+from tpu_slam_torch.mapping.voxel_map import empty_map, insert_cloud
 from tpu_slam_torch.pipeline.config import SLAMConfig
 from tpu_slam_torch.pipeline.metrics import MetricsLog, ScanMetrics, Stopwatch
+from tpu_slam_torch.pipeline.odometry import LidarOdometry, OdometryState
 from tpu_slam_torch.pipeline.odometry_dense import (DenseLidarOdometry,
                                                     DenseOdomState)
 from tpu_slam_torch.registration.normals import estimate_normals
@@ -48,7 +54,7 @@ STAGES = ("odometry", "keyframe", "verify", "graph")
 class SLAMState:
     """Host-side handle onto the full SLAM state."""
 
-    odom: Optional[DenseOdomState]
+    odom: Optional[Union[OdometryState, DenseOdomState]]
     graph: PoseGraph
     kf_points: torch.Tensor    # (K, P, 3) keyframe clouds (body frame)
     kf_mask: torch.Tensor      # (K, P)
@@ -78,19 +84,35 @@ def _set_row(buf: torch.Tensor, k: int, val: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _flat_keyframes(poses, kf_points, kf_mask, n: int) -> PointCloud:
+    """Every keyframe cloud at its optimized pose as one (K*P,) cloud, the
+    keyframes from n on masked out."""
+    K, P = kf_points.shape[:2]
+    world = (torch.einsum("kij,kpj->kpi", poses[:, :3, :3], kf_points)
+             + poses[:, None, :3, 3])
+    live = kf_mask & (torch.arange(K, device=kf_mask.device)[:, None] < n)
+    return PointCloud(points=world.reshape(K * P, 3),
+                      mask=live.reshape(K * P))
+
+
+def _rebuild_map_batched(poses, kf_points, kf_mask, n: int, *, spec,
+                         capacity):
+    """Sparse-map rebuild from keyframes at optimized poses: one
+    ``insert_cloud`` of every live keyframe point into an empty map, all
+    stamped n (recency restarts at the rebuild)."""
+    return insert_cloud(empty_map(capacity, device=kf_points.device),
+                        _flat_keyframes(poses, kf_points, kf_mask, n), spec,
+                        stamp=float(n))
+
+
 def _rebuild_grid_batched(poses, kf_points, kf_mask, n: int, center, *,
                           spec, dims, align):
     """Dense-window rebuild from keyframes at optimized poses: re-center
     the window on ``center``, then one grid_insert of every live keyframe
     point at its optimized pose."""
-    K, P = kf_points.shape[:2]
-    world = (torch.einsum("kij,kpj->kpi", poses[:, :3, :3], kf_points)
-             + poses[:, None, :3, 3])
-    live = kf_mask & (torch.arange(K, device=kf_mask.device)[:, None] < n)
-    flat = PointCloud(points=world.reshape(K * P, 3),
-                      mask=live.reshape(K * P))
     c0 = centered_origin_cell(center, spec, dims, align=align)
-    return grid_insert(empty_grid(dims, c0), flat, spec)
+    return grid_insert(empty_grid(dims, c0),
+                       _flat_keyframes(poses, kf_points, kf_mask, n), spec)
 
 
 class SLAMSystem:
@@ -106,16 +128,24 @@ class SLAMSystem:
                 "re-integrated at optimized world poses after loop "
                 "closures); it bounds memory with the fixed-lag keyframe "
                 "window instead of the scrolling window")
-        if config.odometry_engine != "dense":
-            raise NotImplementedError(
-                f"odometry_engine={config.odometry_engine!r}: only the "
-                "dense engine is ported; pass odometry_engine='dense'")
+        if config.odometry_engine not in ("host", "dense"):
+            raise ValueError(f"odometry_engine={config.odometry_engine!r}: "
+                             "'host' or 'dense'")
         self.config = config
-        self.odometry = DenseLidarOdometry(config.odometry, device=device)
+        engine = (DenseLidarOdometry if self._dense else LidarOdometry)
+        self.odometry = engine(config.odometry, device=device)
         self.device = self.odometry.device
         self.metrics = MetricsLog()
         self.stage_seconds: Dict[str, float] = dict.fromkeys(STAGES, 0.0)
         self._pending_init_pose = None
+        # per-sweep loop diagnostics (proposed pairs and each one's
+        # outcome), filled when collect_loop_debug is True
+        self.collect_loop_debug = False
+        self.loop_debug: List[dict] = []
+
+    @property
+    def _dense(self) -> bool:
+        return self.config.odometry_engine == "dense"
 
     def _stage(self, name: str) -> "_StageTimer":
         return _StageTimer(self, name)
@@ -124,7 +154,7 @@ class SLAMSystem:
 
     def init_state(self, init_pose=None) -> SLAMState:
         """Empty SLAM state; the dense engine bootstraps from the first
-        scan, so the odometry state is made in the first ``step``."""
+        scan, so its odometry state is made in the first ``step``."""
         cfg = self.config
         K, P = cfg.keyframe_capacity, cfg.keyframe_cloud_capacity
         sc = cfg.loop.sc
@@ -132,7 +162,7 @@ class SLAMSystem:
         self._pending_init_pose = init_pose
         f32 = dict(dtype=torch.float32, device=dev)
         return SLAMState(
-            odom=None,
+            odom=None if self._dense else self.odometry.init_state(init_pose),
             graph=empty_graph(K, cfg.edge_capacity, device=dev),
             kf_points=torch.full((K, P, 3), PAD_COORD, **f32),
             kf_mask=torch.zeros((K, P), dtype=torch.bool, device=dev),
@@ -144,12 +174,23 @@ class SLAMSystem:
 
     # -- keyframe policy --------------------------------------------------
 
-    def _is_keyframe(self, state: SLAMState, pose_np: np.ndarray) -> bool:
-        """Keyframe test on the host, from the pose ``step`` already read
-        back and the host mirror of the newest keyframe pose (every path
-        that sets a keyframe pose sets the mirror): no extra sync."""
+    def _is_keyframe(self, state: SLAMState,
+                     pose_np: Optional[np.ndarray]) -> bool:
+        """Keyframe test. The dense engine's ``step`` has read the pose
+        back: the test runs on the host from it and the host mirror of the
+        newest keyframe pose (every path that sets a keyframe pose sets the
+        mirror), with no extra read. The host engine's (``pose_np`` None)
+        runs as the reference's does, on the device's log of the relative
+        pose, read back in one copy."""
         if state.n_keyframes == 0:
             return True
+        if pose_np is None:
+            xi = se3.log(se3.inverse(state.last_kf_pose) @ state.odom.pose)
+            t, r = (float(v) for v in torch.stack([
+                torch.linalg.vector_norm(xi[:3]),
+                torch.linalg.vector_norm(xi[3:])]).cpu())
+            return (t >= self.config.keyframe_translation
+                    or r >= self.config.keyframe_rotation)
         d = np.linalg.inv(state.last_kf_pose_np) @ pose_np
         t = float(np.linalg.norm(d[:3, 3]))
         cosang = np.clip((np.trace(d[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
@@ -292,6 +333,8 @@ class SLAMSystem:
         with self._stage("verify"):
             ci, cj = self._candidates(state)
             if ci.size == 0:
+                if self.collect_loop_debug:
+                    self.loop_debug.append({"n": n, "pairs": []})
                 return state, 0
             # the batch holds the real pairs only: pairs are independent in
             # the batched solve, so the reference's padding to
@@ -307,6 +350,9 @@ class SLAMSystem:
             if not ok:
                 tried[(int(a), int(b))] = n
         state = dataclasses.replace(state, tried_pairs=tried)
+        if self.collect_loop_debug:
+            self.loop_debug.append(self._loop_record(state, n, ci, cj, res,
+                                                     accept_np))
         if not accept_np.any():
             return state, 0
 
@@ -331,22 +377,55 @@ class SLAMSystem:
                 state = self._reanchor(state)
         return state, len(accepted)
 
+    @staticmethod
+    def _loop_record(state: SLAMState, n: int, ci, cj, res,
+                     accept_np) -> dict:
+        """One sweep's diagnostics: for each verified pair its matched
+        fraction, error, the refined edge's deviation from the graph's
+        estimate (translation and rotation norms), convergence and
+        outcome."""
+        poses = state.graph.poses
+        ii = torch.as_tensor(np.asarray(ci, np.int64), device=poses.device)
+        jj = torch.as_tensor(np.asarray(cj, np.int64), device=poses.device)
+        init = se3.inverse(poses[ii]) @ poses[jj]
+        dev = se3.log(se3.inverse(res.T) @ init).cpu().numpy()
+        frac = res.matched_fraction.cpu().numpy()
+        err = res.error.cpu().numpy()
+        conv = res.converged.cpu().numpy()
+        return {"n": n, "pairs": [
+            {"i": int(a), "j": int(b), "frac": float(frac[k]),
+             "err": float(err[k]),
+             "dev_t": float(np.linalg.norm(dev[k, :3])),
+             "dev_r": float(np.linalg.norm(dev[k, 3:])),
+             "converged": bool(conv[k]), "accepted": bool(accept_np[k])}
+            for k, (a, b) in enumerate(zip(ci, cj))]}
+
     def _reanchor(self, state: SLAMState) -> SLAMState:
         """Move odometry onto the optimized newest keyframe:
         pose = optimized_kf @ (old_kf^-1 @ pose), and rebuild both windows
         from the keyframes when ``rebuild_map_after_loop``.
 
-        The rebuilt fine window may sit at a new origin, so the occupancy
-        layer starts again empty at that origin. (The reference keeps the
-        old layer, origin and evidence both, so its eviction then clears
-        cells that are not the ones its evidence was gathered for.)"""
+        On the dense engine the rebuilt fine window may sit at a new
+        origin, so the occupancy layer starts again empty at that origin.
+        (The reference keeps the old layer, origin and evidence both, so its
+        eviction then clears cells that are not the ones its evidence was
+        gathered for.) The host engine's map and occupancy grid are keyed
+        on the same world-fixed grid, so its occupancy grid carries
+        over."""
         n = state.n_keyframes
         graph = state.graph
         new_kf = graph.poses[n - 1]
         new_pose = new_kf @ (se3.inverse(state.last_kf_pose)
                              @ state.odom.pose)
         odom = dataclasses.replace(state.odom, pose=new_pose)
-        if self.config.rebuild_map_after_loop:
+        if self.config.rebuild_map_after_loop and not self._dense:
+            cfg = self.config.odometry
+            vmap = _rebuild_map_batched(
+                graph.poses, state.kf_points, state.kf_mask, n,
+                spec=self.odometry.map_spec, capacity=cfg.map_capacity)
+            # the cached NDT field is stale after a rebuild
+            odom = dataclasses.replace(odom, vmap=vmap, field=None)
+        elif self.config.rebuild_map_after_loop:
             o = self.odometry
             rebuild = dict(poses=graph.poses, kf_points=state.kf_points,
                            kf_mask=state.kf_mask, n=n,
@@ -371,7 +450,10 @@ class SLAMSystem:
         cfg = self.config
         with Stopwatch(self.device) as sw:
             with self._stage("odometry"):
-                if state.odom is None:
+                if not self._dense:
+                    odom_state, m = self.odometry.step(state.odom, cloud)
+                    pose_np = None
+                elif state.odom is None:
                     odom_state = self.odometry.init_state(
                         cloud, self._pending_init_pose)
                     mm = np.zeros((5,), np.float32)
@@ -385,10 +467,12 @@ class SLAMSystem:
                                       ).cpu().numpy()
                     pose_np = fused[:16].reshape(4, 4)
                     mm = fused[16:]
-            m = ScanMetrics(scan_index=len(self.metrics.records),
-                            iterations=int(mm[0]), residual=0.0,
-                            matched_fraction=float(mm[1]), wall_time_s=0.0)
-            self.last_pose_np = pose_np
+            if self._dense:
+                m = ScanMetrics(scan_index=len(self.metrics.records),
+                                iterations=int(mm[0]), residual=0.0,
+                                matched_fraction=float(mm[1]),
+                                wall_time_s=0.0)
+                self.last_pose_np = pose_np
             state = dataclasses.replace(state, odom=odom_state)
 
             n_loops = 0

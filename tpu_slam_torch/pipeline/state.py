@@ -2,8 +2,11 @@
 
 The system has no weights; what two engines must share to continue from
 the same point is their state: ``DenseOdomState`` (pose, last delta, both
-moment windows, the occupancy layer, scan index, last metrics) and, for SLAM, the pose graph,
-the keyframe buffers, the counters and the loop bookkeeping. These helpers
+moment windows, the occupancy layer, scan index, last metrics), the host
+engine's ``OdometryState`` (pose, last delta, the voxel map's five
+arrays, scan index, the occupancy grid, the scrolling-window offset) and,
+for SLAM, the pose graph, the keyframe buffers, the counters and the loop
+bookkeeping. These helpers
 convert both to and from dicts of numpy arrays — the form any engine's
 state takes after ``np.asarray`` — and build the port's ``OdometryConfig``
 and ``SLAMConfig`` from ``dataclasses.asdict`` of configurations with the
@@ -21,7 +24,10 @@ from tpu_slam_torch.graph.loop_closure import LoopClosureParams
 from tpu_slam_torch.graph.pose_graph import GraphSolveParams, PoseGraph
 from tpu_slam_torch.graph.scan_context import ScanContextParams
 from tpu_slam_torch.mapping.dense_map import DenseMomentGrid
+from tpu_slam_torch.mapping.occupancy import OccupancyGrid
+from tpu_slam_torch.mapping.voxel_map import VoxelMap
 from tpu_slam_torch.pipeline.config import OdometryConfig, SLAMConfig
+from tpu_slam_torch.pipeline.odometry import OdometryState
 from tpu_slam_torch.pipeline.odometry_dense import DenseOdomState
 from tpu_slam_torch.registration.icp import ICPParams
 from tpu_slam_torch.registration.ndt import NDTParams
@@ -31,9 +37,13 @@ STATE_KEYS = ("pose", "last_delta", "grid_rows", "grid_origin_cell",
               "scan_index", "last_metrics")
 
 # NDTParams fields of the reference that select TPU gather/layout tiers;
-# the port has one kernel path and ignores them
+# the port does not have those tiers and ignores them
 _TPU_TIER_FIELDS = ("dense_lookup_max_bits", "pack_budget_mb",
-                    "pack_any_backend", "window_bits", "terms_impl")
+                    "pack_any_backend")
+# the reference's terms_impl values -> the port's: its Pallas kernel
+# (compiled or interpreted) is the port's kernel path
+_TERMS_IMPL = {"auto": "auto", "pallas": "auto", "pallas_interpret": "auto",
+               "xla": "xla"}
 
 
 def state_from_numpy(d: Dict[str, np.ndarray], dims: Tuple[int, int, int],
@@ -76,17 +86,66 @@ def state_to_numpy(state: DenseOdomState) -> Dict[str, np.ndarray]:
     return d
 
 
+HOST_STATE_KEYS = ("pose", "last_delta", "map_keys", "map_count",
+                   "map_sum_pts", "map_sum_outer", "map_stamp", "scan_index",
+                   "occ_keys", "occ_log_odds", "map_offset")
+_MAP_FIELDS = ("keys", "count", "sum_pts", "sum_outer", "stamp")
+
+
+def host_state_to_numpy(state: OdometryState) -> Dict[str, np.ndarray]:
+    """The host engine's state as host arrays under HOST_STATE_KEYS
+    (``occ_*`` None without occupancy, ``map_offset`` None off the
+    scrolling window; the cached field is derived, not state)."""
+    def a(x):
+        return x.detach().cpu().numpy()
+
+    d = {"pose": a(state.pose), "last_delta": a(state.last_delta),
+         "scan_index": np.int64(state.scan_index),
+         "map_offset": (None if state.map_offset is None
+                        else np.asarray(state.map_offset, np.float64))}
+    for f in _MAP_FIELDS:
+        d["map_" + f] = a(getattr(state.vmap, f))
+    d["occ_keys"] = None if state.occ is None else a(state.occ.keys)
+    d["occ_log_odds"] = None if state.occ is None else a(state.occ.log_odds)
+    return d
+
+
+def host_state_from_numpy(d: Dict[str, np.ndarray],
+                          device) -> OdometryState:
+    """OdometryState on ``device`` from a dict of HOST_STATE_KEYS arrays
+    (the field cache starts empty: the next step rebuilds it)."""
+    def t(key, dtype):
+        return torch.as_tensor(np.array(d[key]), dtype=dtype, device=device)
+
+    vmap = VoxelMap(**{f: t("map_" + f, torch.int32 if f == "keys"
+                            else torch.float32) for f in _MAP_FIELDS})
+    occ = None
+    if d.get("occ_keys") is not None:
+        occ = OccupancyGrid(keys=t("occ_keys", torch.int32),
+                            log_odds=t("occ_log_odds", torch.float32))
+    offset = d.get("map_offset")
+    return OdometryState(
+        pose=t("pose", torch.float32),
+        last_delta=t("last_delta", torch.float32), vmap=vmap,
+        scan_index=int(d["scan_index"]), occ=occ,
+        map_offset=None if offset is None else np.array(offset,
+                                                        np.float64))
+
+
 def config_from_dict(d: dict) -> OdometryConfig:
     """OdometryConfig from ``dataclasses.asdict`` of an odometry config.
 
     Unknown fields raise (TypeError from the dataclass), except the NDT
-    fields that only select the reference's TPU tiers.
+    fields that only select the reference's TPU tiers; the reference's
+    Pallas ``terms_impl`` values become the port's kernel path ("auto").
     """
     d = dict(d)
     ndt = {k: v for k, v in dict(d.pop("ndt")).items()
            if k not in _TPU_TIER_FIELDS}
     if ndt.get("window_dims") is not None:
         ndt["window_dims"] = tuple(ndt["window_dims"])
+    if "terms_impl" in ndt:
+        ndt["terms_impl"] = _TERMS_IMPL[ndt["terms_impl"]]
     icp = dict(d.pop("icp"))
     return OdometryConfig(ndt=NDTParams(**ndt), icp=ICPParams(**icp), **d)
 
@@ -105,13 +164,18 @@ def slam_config_from_dict(d: dict) -> SLAMConfig:
 
 def slam_state_to_numpy(state) -> Dict[str, np.ndarray]:
     """A SLAMState as host arrays: odometry state under ``odom_<key>``
-    (absent before the first scan, and the wide window's entries when there
-    is none), the graph under ``graph_<field>``, the keyframe buffers,
-    counters, archived poses and the loop bookkeeping (``loop_pairs``
-    (L, 2) and ``tried_pairs`` (T, 3) rows (i, j, n), sorted)."""
+    (the dense engine's STATE_KEYS or the host engine's HOST_STATE_KEYS;
+    absent before the dense engine's first scan, and the entries of
+    absent windows or grids left out), the graph under ``graph_<field>``,
+    the keyframe buffers, counters, archived poses and the loop
+    bookkeeping (``loop_pairs`` (L, 2) and ``tried_pairs`` (T, 3) rows
+    (i, j, n), sorted)."""
     d = {}
     if state.odom is not None:
-        d.update({"odom_" + k: v for k, v in state_to_numpy(state.odom).items()
+        to_numpy = (host_state_to_numpy
+                    if isinstance(state.odom, OdometryState)
+                    else state_to_numpy)
+        d.update({"odom_" + k: v for k, v in to_numpy(state.odom).items()
                   if v is not None})
     g = state.graph
 
@@ -145,7 +209,8 @@ def slam_state_to_numpy(state) -> Dict[str, np.ndarray]:
 def slam_state_from_numpy(d: Dict[str, np.ndarray],
                           dims: Optional[Tuple[int, int, int]], device):
     """SLAMState on ``device`` from the dict of ``slam_state_to_numpy``;
-    ``dims`` is the dense window shape (unused when there is no odometry
+    ``dims`` is the dense window shape (unused for the host engine's state,
+    which the ``odom_map_keys`` entry marks, and when there is no odometry
     state yet)."""
     from tpu_slam_torch.pipeline.slam import SLAMState
 
@@ -154,8 +219,9 @@ def slam_state_from_numpy(d: Dict[str, np.ndarray],
 
     odom = None
     if "odom_pose" in d:
-        odom = state_from_numpy({k[5:]: v for k, v in d.items()
-                                 if k.startswith("odom_")}, dims, device)
+        sub = {k[5:]: v for k, v in d.items() if k.startswith("odom_")}
+        odom = (host_state_from_numpy(sub, device) if "map_keys" in sub
+                else state_from_numpy(sub, dims, device))
     graph = PoseGraph(
         poses=t("graph_poses", torch.float32),
         n_nodes=int(d["graph_n_nodes"]),

@@ -1,22 +1,28 @@
 """NDT (normal-distributions transform) scan-to-map registration.
 
-Port of the kernel path of ``tpu_slam.registration.ndt``: the scan is binned
-into the dense field window once per solve stage (frozen bins, live gate),
-every Levenberg-Marquardt evaluation is one NDT terms pass
-(``kernels.ndt_terms``), and the solve runs
+Port of ``tpu_slam.registration.ndt``. Two paths, chosen by the field:
 
-  1. a yaw-candidate search (one bin + one pass per candidate heading),
-  2. a graduated-non-convexity coarse stage at a raised temperature,
-     re-binned every iteration,
-  3. the fine stage, re-binned every ``rebin_iters`` iterations,
+* the **kernel path** (a dense field window, ``NDTField.rows``): the scan
+  is binned into the window once per solve stage (frozen bins, live gate),
+  every Levenberg-Marquardt evaluation is one NDT terms pass
+  (``kernels.ndt_terms``, the CUDA kernel on the card), and the solve runs
+  a yaw-candidate search, a graduated-non-convexity coarse stage re-binned
+  every iteration, then the fine stage re-binned every ``rebin_iters``
+  iterations, with an optional far tier (scan points outside the fine
+  window scored against a wider, coarser field);
+* the **sparse path** (the map's per-voxel Gaussians, ``NDTField.means``
+  / ``info`` / ``valid``): each point's 27 neighbour cells are found by
+  binary search over the sorted keys and their Gaussians gathered, the
+  terms summed by einsum; an optional isotropic (point-to-mean) stage,
+  the coarse stage and the fine stage are plain LM solves.
 
-with an optional far tier (scan points outside the fine window scored
-against a wider, coarser field) and an optional motion prior toward the
-init pose.
-
-``ndt_field`` builds the same dense field window from a sparse voxel map
-(the reference's ``window_dims`` branch); its sparse field tiers are not
-ported.
+``NDTParams.terms_impl`` picks the field ``ndt_field`` builds: "auto" the
+dense window (``window_dims``, or the ``2^window_bits`` cube) on every
+device, "xla" the sparse views. (The reference's "auto" takes the dense
+window only on its accelerator and the sparse views elsewhere.) The
+reference's dense-lookup, packed-row and neighbour-packed tiers of the
+sparse path exist for the TPU's gather cost and are not ported: the
+binary search finds the same slots.
 
 The reference's ``lax.while_loop``s exit on data; here they are host loops
 that read the exit condition with one ``.item()`` per iteration, so
@@ -34,13 +40,19 @@ import torch
 
 from tpu_slam_torch.core import se3
 from tpu_slam_torch.core.pointcloud import PointCloud
-from tpu_slam_torch.kernels.voxel_hash import VoxelGridSpec
+from tpu_slam_torch.core.sym3 import floored_info_sym3
+from tpu_slam_torch.kernels.voxel_hash import (INVALID_KEY, VoxelGridSpec,
+                                               cell_coords,
+                                               neighbor_offsets_keys,
+                                               pack_key)
+
+TERMS_IMPLS = ("auto", "xla")
 
 
 @dataclasses.dataclass(frozen=True)
 class NDTParams:
-    """Static NDT solve configuration (the reference's fields that steer the
-    kernel path; its TPU gather-tier knobs have no counterpart here)."""
+    """Static NDT solve configuration (the reference's fields; its TPU
+    gather-tier knobs have no counterpart here)."""
 
     max_iterations: int = 30
     tolerance: float = 1e-4
@@ -52,22 +64,39 @@ class NDTParams:
     coarse_temperature_scale: float = 16.0  # GNC stage-1 gamma multiplier
     coarse_iterations: int = 10      # LM iterations of the coarse stage
     isotropic_iterations: int = 0    # point-to-mean stage (sparse path only)
+    window_bits: int = 6             # dense cube window: 2^window_bits
+                                     # cells a side (when window_dims is
+                                     # None and the grid has >= 16)
     window_dims: Optional[Tuple[int, int, int]] = None  # dense window
+    terms_impl: str = "auto"         # "auto": dense window and the terms
+                                     # kernel; "xla": the sparse path
     raster_q: int = 4                # per-cell point capacity of the bins
     yaw_candidates: int = 0          # headings tried before the coarse stage
     yaw_span: float = 0.3            # half-range of the yaw search (rad)
     motion_prior_weight: float = 0.0  # w I added to H, pulling to init_T
     rebin_iters: int = 4             # fine stage re-bins every this many
 
+    def __post_init__(self):
+        if self.terms_impl not in TERMS_IMPLS:
+            raise ValueError(f"terms_impl={self.terms_impl!r}: the port has "
+                             f"{TERMS_IMPLS}")
+
 
 @dataclasses.dataclass(frozen=True)
 class NDTField:
-    """Solver-ready dense field window: per-cell rows (G, 16) x-major
-    [mean world (3), information upper triangle (6), valid, pad (6)]."""
+    """Solver-ready view of a map: either the dense field window (``rows``
+    (G, 16) x-major [mean world (3), information upper triangle (6),
+    valid, pad (6)], its corner cell and dims: the kernel path), or the
+    sparse per-voxel views (``keys``, ``means``, ``info``, ``valid``: the
+    sparse path)."""
 
-    rows: torch.Tensor
-    origin_cell: torch.Tensor                # (3,) int32 window corner
-    window_dims: Tuple[int, int, int]
+    rows: Optional[torch.Tensor] = None
+    origin_cell: Optional[torch.Tensor] = None   # (3,) int32 window corner
+    window_dims: Optional[Tuple[int, int, int]] = None
+    keys: Optional[torch.Tensor] = None      # (C,) int32 sorted map keys
+    means: Optional[torch.Tensor] = None     # (C, 3) world frame
+    info: Optional[torch.Tensor] = None      # (C, 3, 3) floored inverse
+    valid: Optional[torch.Tensor] = None     # (C,) bool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,13 +156,53 @@ def _nbr_moment_pass(a: torch.Tensor, axis: int, t: float) -> torch.Tensor:
 
 def ndt_field(vmap, spec: VoxelGridSpec, params: NDTParams = NDTParams(),
               center: Optional[torch.Tensor] = None) -> NDTField:
-    """The solver-ready dense field window of a sparse voxel map.
+    """The solver-ready NDT field of a sparse voxel map.
 
-    The reference's ``window_dims`` branch (``_ndt_field_dense``): the
-    voxels inside a (Wx, Wy, Wz) window are scattered into dense rows (one
-    write a voxel, the dropped ones into a spare row), the 27-cell sums
-    and floored inverses follow as in ``grid_ndt_field``, and a cell is
-    valid where a voxel was scattered and the 27-cell count reaches
+    With ``terms_impl="auto"`` and ``use_neighborhood``: the dense field
+    window, ``window_dims`` or else the cube of ``2^min(dim_bits,
+    window_bits)`` cells a side (when that is at least 16), for the kernel
+    path. Otherwise the sparse views: each voxel's Gaussian from its
+    27-neighbourhood moments (valid from ``min_voxel_count`` points), or
+    from its own moments without ``use_neighborhood``, inverted with the
+    eigenvalue floor (``floored_info_sym3``, no ``eigh``).
+    """
+    from tpu_slam_torch.mapping.voxel_map import (neighborhood_moments,
+                                                  voxel_covariances,
+                                                  voxel_means)
+
+    kernel = params.terms_impl == "auto"
+    if params.window_dims is not None:
+        if not (kernel and params.use_neighborhood):
+            raise ValueError("window_dims needs the kernel path: "
+                             "terms_impl='auto' and use_neighborhood")
+        return _ndt_field_dense(vmap, spec, params, params.window_dims,
+                                center)
+    wb = min(spec.dim_bits, params.window_bits)
+    if kernel and params.use_neighborhood and wb >= 4:
+        return _ndt_field_dense(vmap, spec, params, (1 << wb,) * 3, center)
+    occ = vmap.occupied_mask()
+    if params.use_neighborhood:
+        cnt, means, cov = neighborhood_moments(vmap, spec)
+        valid = occ & (cnt >= params.min_voxel_count)
+    else:
+        means = voxel_means(vmap, spec)
+        cov = voxel_covariances(vmap, min_count=params.min_voxel_count,
+                                regularization=0.0)
+        valid = occ & (vmap.count >= params.min_voxel_count)
+    return NDTField(keys=vmap.keys, means=means,
+                    info=floored_info_sym3(cov, params.evec_floor_ratio),
+                    valid=valid)
+
+
+def _ndt_field_dense(vmap, spec: VoxelGridSpec, params: NDTParams,
+                     window_dims: Tuple[int, int, int],
+                     center: Optional[torch.Tensor]) -> NDTField:
+    """The dense field window (the reference's ``_ndt_field_dense``).
+
+    The voxels inside a (Wx, Wy, Wz) window are scattered into dense rows
+    (one write a voxel, the dropped ones into a spare row), the 27-cell
+    sums and floored inverses follow as in ``grid_ndt_field``, and a cell
+    is valid where a voxel was scattered and the 27-cell count reaches
     ``min_voxel_count`` (counts floored at 1 in the division). The window
     corner is clip(floor((center - origin) / leaf) - dims // 2, 0,
     n - dims), ``center`` defaulting to the map's centroid; a window as
@@ -142,15 +211,9 @@ def ndt_field(vmap, spec: VoxelGridSpec, params: NDTParams = NDTParams(),
     from tpu_slam_torch.mapping.dense_map import field_rows
     from tpu_slam_torch.mapping.voxel_map import decode_corner
 
-    if params.window_dims is None:
-        raise ValueError("ndt_field builds the dense window field only: set "
-                         "params.window_dims (the sparse field tiers are "
-                         "not ported)")
-    if not params.use_neighborhood:
-        raise ValueError("the dense field needs use_neighborhood")
     b = spec.dim_bits
     n = spec.cells_per_axis
-    dims = tuple(min(d, n) for d in params.window_dims)
+    dims = tuple(min(d, n) for d in window_dims)
     wx, wy, wz = dims
     g = wx * wy * wz
     dev = vmap.keys.device
@@ -209,26 +272,118 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def _require_sparse_views(field: NDTField, who: str) -> None:
+    if field.means is None:
+        raise ValueError(f"{who} needs the sparse field views; this field "
+                         "is a dense window (build it with "
+                         "terms_impl='xla')")
+
+
+def _probe_slots(field: NDTField, nkeys: torch.Tensor):
+    """(..., 27) neighbour keys -> (slots, hit) by binary search over the
+    field's sorted keys."""
+    c = field.keys.shape[0]
+    pos = torch.clamp(torch.searchsorted(field.keys, nkeys), 0, c - 1)
+    hit = (field.keys[pos] == nkeys) & (nkeys != INVALID_KEY)
+    return pos, hit
+
+
+def _neighbour_slots(pts: torch.Tensor, field: NDTField,
+                     spec: VoxelGridSpec):
+    """Slots of each point's 27 neighbour cells and whether each holds a
+    valid Gaussian: (pos (N, 27), ok (N, 27))."""
+    nkeys = neighbor_offsets_keys(pack_key(cell_coords(pts, spec), spec),
+                                  spec)
+    pos, hit = _probe_slots(field, nkeys)
+    return pos, hit & field.valid[pos]
+
+
+def _ndt_correspond(pts: torch.Tensor, field: NDTField,
+                    spec: VoxelGridSpec):
+    """Best Gaussian of each point's 27-neighbourhood by Mahalanobis
+    distance (the first on ties). Returns (mu (N, 3), Lambda (N, 3, 3),
+    matched (N,), d2 (N,); d2 = inf where nothing matched)."""
+    _require_sparse_views(field, "_ndt_correspond")
+    pos, ok = _neighbour_slots(pts, field, spec)
+    mus = field.means[pos]                                   # (N, 27, 3)
+    lams = field.info[pos]                                   # (N, 27, 3, 3)
+    d = pts[:, None, :] - mus
+    d2 = torch.einsum("nki,nkij,nkj->nk", d, lams, d)
+    d2 = torch.where(ok, d2, math.inf)
+    best = torch.argmin(d2, dim=1)
+    rows = torch.arange(pts.shape[0], device=pts.device)
+    best_d2 = d2[rows, best]
+    return (mus[rows, best], lams[rows, best], torch.isfinite(best_d2),
+            best_d2)
+
+
+def _ndt_terms(src: PointCloud, T: torch.Tensor, field: NDTField,
+               spec: VoxelGridSpec, params: NDTParams,
+               gamma: Optional[float] = None, isotropic: bool = False):
+    """Smooth NDT objective and its Gauss-Newton terms at pose T over the
+    sparse views, summed over every valid Gaussian of each point's
+    27-neighbourhood: cost = -sum s, s = exp(-0.5 min(d2 / gamma, 30))
+    gated by |Tp - mu| < max_corr_dist; H = sum s J^T Lambda J,
+    b = sum s J^T Lambda r. ``isotropic`` scores the Euclidean distance
+    with Lambda = I / sigma^2, sigma = max_corr_dist / 2 (the point-to-mean
+    stage). Returns (H, b, cost, matched fraction)."""
+    _require_sparse_views(field, "_ndt_terms")
+    pts = se3.apply(T, src.points)
+    n = pts.shape[0]
+    pos, ok = _neighbour_slots(pts, field, spec)
+    mus = field.means[pos]
+    lams = field.info[pos]
+    r = pts[:, None, :] - mus
+    d2 = torch.einsum("nki,nkij,nkj->nk", r, lams, r)
+    de2 = torch.sum(r * r, dim=-1)
+    gate = ok & src.mask[:, None] & (de2 < params.max_corr_dist ** 2)
+    g = _f32(params.score_temperature) if gamma is None else gamma
+    if isotropic:
+        sig2 = _f32((0.5 * params.max_corr_dist) ** 2)
+        eye3 = torch.eye(3, dtype=pts.dtype, device=pts.device) / sig2
+        lams = eye3.expand(lams.shape)
+        s = torch.where(gate, torch.exp(-0.5 * de2 / _f32(sig2 * g)), 0.0)
+    else:
+        s = torch.where(gate, torch.exp(-0.5 * torch.clamp(d2 / g,
+                                                           max=30.0)), 0.0)
+    L = torch.einsum("nk,nkij->nij", s, lams)                # (N, 3, 3)
+    y = torch.einsum("nk,nkij,nkj->ni", s, lams, r)          # (N, 3)
+    eye = torch.eye(3, dtype=pts.dtype, device=pts.device).expand(n, 3, 3)
+    J = torch.cat([eye, -se3.hat(pts)], dim=2)               # (N, 3, 6)
+    H = torch.einsum("nia,nij,njb->ab", J, L, J)
+    b = torch.einsum("nia,ni->a", J, y)
+    matched = gate.any(dim=1)
+    frac = matched.sum(dtype=pts.dtype) / torch.clamp(
+        src.mask.sum(dtype=pts.dtype), min=1.0)
+    return H, b, -torch.sum(s), frac
+
+
 def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
                  init_T: Optional[torch.Tensor] = None,
                  params: NDTParams = NDTParams(),
                  far_field: Optional[NDTField] = None,
                  far_spec: Optional[VoxelGridSpec] = None) -> NDTResult:
-    """Register a source cloud against a dense NDT field (scan-to-map).
+    """Register a source cloud against an NDT field (scan-to-map).
 
-    Levenberg-Marquardt with accept/reject on the NDT objective. With
-    ``far_field``/``far_spec``, source points whose fine-window cell at the
-    stage-entry pose is outside the window are binned into the far field's
-    window and their terms added to the same H and b.
+    Levenberg-Marquardt with accept/reject on the NDT objective. A dense
+    field takes the kernel path; there, with ``far_field``/``far_spec``,
+    source points whose fine-window cell at the stage-entry pose is
+    outside the window are binned into the far field's window and their
+    terms added to the same H and b. A sparse field takes the sparse path
+    (``far_field`` and ``yaw_candidates`` are kernel-path options and are
+    not used there).
     """
     from tpu_slam_torch.kernels.ndt_terms import build_terms_raster, ndt_terms
 
-    if params.isotropic_iterations > 0:
+    use_kernel = field.rows is not None
+    if use_kernel and params.isotropic_iterations > 0:
         raise ValueError("isotropic_iterations > 0 needs the sparse field "
-                         "path, which is not ported; use the coarse pyramid "
-                         "for large-init capture")
-    if not params.use_neighborhood:
+                         "views (terms_impl='xla'); on the kernel path use "
+                         "the coarse pyramid for large-init capture")
+    if use_kernel and not params.use_neighborhood:
         raise ValueError("the dense kernel path needs use_neighborhood")
+    if not use_kernel:
+        _require_sparse_views(field, "ndt_register")
     dev = source.points.device
     f32 = torch.float32
     if init_T is None:
@@ -237,9 +392,10 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
     n_src_pts = torch.clamp(src.mask.sum(dtype=f32), min=1.0)
     q = params.raster_q
     dims = field.window_dims
-    origin_w = (spec.origin_tensor(dev)
-                + field.origin_cell.to(f32) * spec.leaf)
-    use_far = far_field is not None
+    use_far = use_kernel and far_field is not None
+    if use_kernel:
+        origin_w = (spec.origin_tensor(dev)
+                    + field.origin_cell.to(f32) * spec.leaf)
     if use_far:
         far_origin_w = (far_spec.origin_tensor(dev)
                         + far_field.origin_cell.to(f32) * far_spec.leaf)
@@ -257,11 +413,7 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
                                     far_field.window_dims, q)
         return fine, far
 
-    eye6 = torch.eye(6, dtype=f32, device=dev)
-    w_prior = _f32(params.motion_prior_weight)
-    init_T_inv = se3.inverse(init_T)
-
-    def terms(T, gamma, raster):
+    def kernel_terms(T, gamma, raster):
         fine, far = raster
         H, b, cost, cnt = ndt_terms(fine, field.rows, T, gamma,
                                     params.max_corr_dist, dims)
@@ -270,7 +422,20 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
                                             far_corr, far_field.window_dims)
             H, b = H + Hf, b + bf
             cost, cnt = cost + costf, cnt + cntf
-        frac = cnt / n_src_pts
+        return H, b, cost, cnt / n_src_pts
+
+    def sparse_terms(T, gamma, isotropic):
+        return _ndt_terms(src, T, field, spec, params, gamma, isotropic)
+
+    eye6 = torch.eye(6, dtype=f32, device=dev)
+    w_prior = _f32(params.motion_prior_weight)
+    init_T_inv = se3.inverse(init_T)
+
+    def terms(T, gamma, ctx):
+        """The path's terms at T (ctx: the stage's raster on the kernel
+        path, the isotropic flag on the sparse one), plus the prior."""
+        H, b, cost, frac = (kernel_terms if use_kernel
+                            else sparse_terms)(T, gamma, ctx)
         if w_prior > 0.0:
             xi_e = se3.log(se3.compose(T, init_T_inv))
             H = H + w_prior * eye6
@@ -278,8 +443,8 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
             cost = cost + 0.5 * w_prior * torch.sum(xi_e * xi_e)
         return H, b, cost, frac
 
-    def lm_solve(T0, gamma, max_iters, tol, raster):
-        H, b, cost, frac = terms(T0, gamma, raster)
+    def lm_solve(T0, gamma, max_iters, tol, ctx):
+        H, b, cost, frac = terms(T0, gamma, ctx)
         T = T0
         lam = torch.tensor(1e-4, dtype=f32, device=dev)
         dx = torch.tensor(math.inf, dtype=f32, device=dev)
@@ -290,7 +455,7 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
             xi = -xi
             xi = torch.where(torch.isfinite(xi) & (info == 0), xi, 0.0)
             T_try = se3.retract(T, xi)
-            H_t, b_t, cost_t, frac_t = terms(T_try, gamma, raster)
+            H_t, b_t, cost_t, frac_t = terms(T_try, gamma, ctx)
             accept = cost_t < cost
             T = torch.where(accept, T_try, T)
             lam = torch.where(accept, torch.clamp(lam / 3.0, min=1e-7),
@@ -304,8 +469,8 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
         return T, cost, frac, it, dx
 
     def staged_solve(T0, gamma, n_iters, iters_per_stage, tol):
-        """Re-binned LM: bin at the current pose at every stage entry;
-        convergence (dx <= tol) skips the remaining stages."""
+        """Kernel path: re-binned LM, binning at the current pose at every
+        stage entry; convergence (dx <= tol) skips the remaining stages."""
         n_stages = -(-n_iters // iters_per_stage)
         T, it = T0, 0
         frac = torch.zeros((), dtype=f32, device=dev)
@@ -321,7 +486,7 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
 
     gamma_f = _f32(params.score_temperature)
     T_c, it_c = init_T, 0
-    if params.yaw_candidates > 1:
+    if use_kernel and params.yaw_candidates > 1:
         gamma_y = _f32(gamma_f * max(params.coarse_temperature_scale, 1.0))
         offs = torch.linspace(-params.yaw_span, params.yaw_span,
                               params.yaw_candidates, dtype=f32, device=dev)
@@ -340,16 +505,33 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
             costs.append(cost)
             Tys.append(Ty)
         T_c = torch.stack(Tys)[torch.argmin(torch.stack(costs))]
+    if params.isotropic_iterations > 0:
+        # stage 0 (sparse path): point-to-mean pull, a basin independent of
+        # the Gaussians' shapes
+        T_c, _, _, it0, _ = lm_solve(T_c, gamma_f,
+                                     params.isotropic_iterations,
+                                     10.0 * params.tolerance, True)
+        it_c += it0
     if params.coarse_iterations > 0 and params.coarse_temperature_scale > 1.0:
         gamma_c = _f32(gamma_f * params.coarse_temperature_scale)
-        T_c, it1, _, _, _ = staged_solve(T_c, gamma_c,
-                                         params.coarse_iterations, 1,
-                                         10.0 * params.tolerance)
+        if use_kernel:
+            T_c, it1, _, _, _ = staged_solve(T_c, gamma_c,
+                                             params.coarse_iterations, 1,
+                                             10.0 * params.tolerance)
+        else:
+            T_c, _, _, it1, _ = lm_solve(T_c, gamma_c,
+                                         params.coarse_iterations,
+                                         10.0 * params.tolerance, False)
         it_c += it1
 
-    T, iters, frac, cost, dx = staged_solve(
-        T_c, gamma_f, params.max_iterations, max(1, params.rebin_iters),
-        params.tolerance)
+    if use_kernel:
+        T, iters, frac, cost, dx = staged_solve(
+            T_c, gamma_f, params.max_iterations, max(1, params.rebin_iters),
+            params.tolerance)
+    else:
+        T, cost, frac, iters, dx = lm_solve(T_c, gamma_f,
+                                            params.max_iterations,
+                                            params.tolerance, False)
     return NDTResult(T=T, iterations=iters + it_c, score=-cost / n_src_pts,
                      matched_fraction=frac,
                      converged=dx <= params.tolerance)
