@@ -4,7 +4,9 @@ full SLAM on the dense engine (bench config 4), pair ICP on both tiers
 (bench config 1), the gather probes, the dense engine's options, the host
 engine on the sparse voxel map (LidarOdometry, JitLidarOdometry and
 SLAMSystem on it), scan-to-map NDT on the sparse voxel map (bench config
-3) and bag replay through the CLI (bench config 6).
+3), bag replay through the CLI (bench config 6), the rotating unit's live
+chain (CoLa-A stream -> native poller -> aggregator -> SLAM, and run_live)
+and the extrinsic calibration.
 
     python3 chip_smoke.py
 
@@ -113,6 +115,30 @@ Phases, each printing one JSON line:
                port's run_odometry CLI (--engine dense, the bench's --set
                list): scans, ATE, RPE, wall time, scans/s and the share of
                the host conversions
+  live         the rotating unit's live chain: an LMS100 (541 beams, 270
+               degrees) on loopback TCP at 50 Hz, CoLa-A telegrams with the
+               mm quantization, the unit turning without a break while the
+               base stops at 32 poses of a 2.5 m circle in the office (150
+               lines a 3D scan, 4,800 lines) -> NativeLms -> NativeFeeder ->
+               FrameChain -> ScanAggregator -> SLAMSystem on the host engine:
+               points a scan, feeder drops (must be 0), lines/s, SLAM step
+               p50/p95, keyframes, loops, ATE against the route held within
+               0.02 m of the reference's CPU run (LIVE_REF); the first 4
+               captures again unpaced (bit-identical; lines/s); launches,
+               H2D copies and device-to-host reads a line and a scan; the
+               device's idle share over a scan
+  live_cli     run_live.main against the fake LMS100 and a fake motor
+               controller for 2 scans: its JSON lines; the speed commanded,
+               then the unit stopped
+  kernels      ndt_terms on the survey's fine field, nn_search on its
+               verification batch
+  calibration  720 segments x 541 beams (389,520 raw points) in the
+               reference test's room with its TRUE_PARAMS, CalibConfig():
+               twiddle (2,000 evaluations at most), annealing (seed 0), the
+               gradient solver (200 Adam steps), each one's gauge error
+               against the truth (bars 0.04 and 0.025, annealing's cost no
+               higher than its start), evaluations/s, ms an overlap_cost and
+               a gradient step, the verification's matched fraction
 
 then the script's total seconds, the card's name and power limit
 (nvidia-smi), one JSON line with every kernel's numbers, and as the last
@@ -1221,15 +1247,15 @@ def nn_split_case(device, seed=0, n=300, m=200_000):
     return g(q), g(t), g(q_mask), g(t_mask)
 
 
-def verification_batch(state, cfg, n_pairs=6):
+def verification_batch(state, cfg, n_pairs=6, pairs=None):
     """The first ICP iteration's NN inputs of a verification batch from the
-    slam run's keyframes: the accepted loop pairs (i, j), source cloud j
-    moved by the initial guess T_i^-1 T_j, target cloud i."""
+    slam run's keyframes: the accepted loop pairs (i, j) (or ``pairs``),
+    source cloud j moved by the initial guess T_i^-1 T_j, target cloud i."""
     import torch
 
     from tpu_slam_torch.core import se3
 
-    pairs = sorted(state.loop_pairs)[:n_pairs]
+    pairs = sorted(pairs or state.loop_pairs)[:n_pairs]
     dev = state.kf_points.device
     ci = torch.as_tensor([p[0] for p in pairs], device=dev)
     cj = torch.as_tensor([p[1] for p in pairs], device=dev)
@@ -2586,6 +2612,7 @@ def host_step_profile(engine, state, clouds):
             lambda k: k in ("cudaLaunchKernel", "cuLaunchKernel",
                             "cuLaunchKernelEx")) / steps,
         dtoh_reads_per_step=count(lambda k: "Memcpy DtoH" in k) / steps,
+        h2d_copies_per_step=count(lambda k: "Memcpy HtoD" in k) / steps,
         scalar_reads_per_step=count(
             lambda k: k == "aten::_local_scalar_dense") / steps,
         ndt_terms_calls_per_step=terms_calls / steps,
@@ -3098,6 +3125,647 @@ def phase_host_kernels(fine_args, cube_args, nn_args):
     return terms, nn
 
 
+# ---------------------------------------------------------------------------
+# The rotating-scanner live chain: an LMS100 on the rotating unit streaming
+# CoLa-A telegrams -> NativeLms -> NativeFeeder -> FrameChain ->
+# ScanAggregator -> SLAMSystem (tpu_slam_torch/pipeline/live.py)
+# ---------------------------------------------------------------------------
+
+LMS_HZ = 50.0                   # LMS100's line rate
+LMS_BEAMS = 541                 # 270 degrees at 0.5 degree a beam
+LMS_STEP_DEG = 0.5
+# the survey's startAngle (LiveConfig.start_angle_deg): beam i at -135 +
+# 0.5 i degrees in the laser frame, so the fan's middle beam runs along
+# the unit's rotation axis (the laser's x) and a 1.1 pi turn sees the whole
+# sphere; the default -45 centres the fan across the axis, and a 1.1 pi
+# turn then sees 1.1 pi of azimuth (the reference's own loopback test,
+# tests/test_native.py:453, also runs the LMS100 at -135)
+LIVE_START_DEG = -135.0
+# the survey: the base stops at the 32 poses of a closed 2.5 m circle in the
+# office (0.49 m and 11.25 degrees apart) while the unit turns on without a
+# break; an encoder step a line of 1.1 pi / 148.5 makes each 3D scan 150
+# lines (the first latches, 149 steps pass the 1.1 pi trigger, 148 fall
+# 0.0116 rad short of it: far outside the float32 sums' error). At 16
+# stops (0.98 m, 22.5 degrees) the host engine's NDT cannot register the
+# first step from its zero-velocity prediction, nor later ones from the
+# constant-velocity prediction clamped to 0.7 m / 0.3 rad: the reference
+# loses that route at its first registration (ATE 5.33 m on a CPU)
+SURVEY_STOPS = 32
+SURVEY_RADIUS = 2.5
+SURVEY_STEP = 1.1 * math.pi / 148.5
+SURVEY_RERUN = 4                # captures of the unpaced rerun
+# loop.min_index_gap of the survey's SLAMConfig: a keyframe comes every
+# second stop (0.98 m), ~16 in all, and the default gap of 20 keyframes
+# never passes; 12 lets the closing pair (keyframes 0 and 14, 1.91 m
+# apart) be verified at the 15-keyframe sweep
+SURVEY_LOOP_GAP = 12
+# tpu_slam's ScanAggregator + SLAMSystem on the same lines on a CPU
+# (python -m tests.test_torch_live_reference: 17 keyframes, 2 loops), and
+# the bar around it
+LIVE_REF = dict(ate_m=0.011763400779688628)
+LIVE_TOL_M = 0.02
+# the calibration capture: 2 pi at 0.5 degree a line in the reference
+# test's room (tests/test_calibration.py:40-43) with its TRUE_PARAMS
+CALIB_SEGMENTS = 720
+CALIB_TRUE = (0.02, -0.015, 0.012, -0.018, 0.025)
+CALIB_TWIDDLE_BAR = 0.04
+CALIB_GRADIENT_BAR = 0.025
+CALIB_GRADIENT_STEPS = 200
+
+
+class Loopback:
+    """A device on a loopback TCP port served by a thread of its own
+    (``_serve``); ``join`` waits for it and raises what it raised."""
+
+    def __init__(self):
+        import socket
+        import threading
+
+        self.srv = socket.create_server(("127.0.0.1", 0))
+        self.srv.settimeout(120.0)
+        self.port = self.srv.getsockname()[1]
+        self.error = None
+        self.thread = threading.Thread(target=self._serve, daemon=True)
+
+    def join(self, timeout=10.0):
+        self.thread.join(timeout)
+        if self.thread.is_alive():
+            raise RuntimeError(f"{type(self).__name__} did not finish")
+        if self.error is not None:
+            raise self.error
+
+
+class FakeLms(Loopback):
+    """A CoLa-A scanner on loopback: after ``sEN LMDscandata 1`` it sends
+    the given telegrams on a fixed schedule, one every ``period_s``, then
+    closes. ``max_late_s`` is the most a telegram left after its due time.
+    With ``gate`` it sends telegram k once ``gate(k)`` holds instead: as
+    fast as the consumer takes them, without overflowing its ring. A
+    client that hangs up early ends the stream (``client_left``)."""
+
+    def __init__(self, telegrams, period_s=1.0 / LMS_HZ, gate=None):
+        import threading
+
+        super().__init__()
+        self.telegrams = telegrams
+        self.period_s = period_s
+        self.gate = gate
+        self.max_late_s = 0.0
+        self.sent = 0
+        self.client_left = False
+        self._stop = threading.Event()
+        self.thread.start()
+
+    def _serve(self):
+        try:
+            conn, _ = self.srv.accept()
+            with conn:
+                if b"sEN LMDscandata 1" not in conn.recv(256):
+                    raise ConnectionError("no LMDscandata request")
+                t0 = time.perf_counter()
+                for k, raw in enumerate(self.telegrams):
+                    if self.gate is not None:
+                        while not self.gate(k) and not self._stop.is_set():
+                            time.sleep(0.0005)
+                    elif self.period_s:
+                        late = time.perf_counter() - (t0 + k * self.period_s)
+                        if late < 0:
+                            time.sleep(-late)
+                        self.max_late_s = max(self.max_late_s, late)
+                    if self._stop.is_set():
+                        break
+                    conn.sendall(raw)
+                    self.sent += 1
+                time.sleep(0.3)
+        except (BrokenPipeError, ConnectionResetError):
+            self.client_left = True
+        except OSError as e:
+            self.error = e
+        finally:
+            self.srv.close()
+
+    def stop(self):
+        """End the stream early (a gate that will never open)."""
+        self._stop.set()
+
+
+class FakeM3d(Loopback):
+    """The rotating unit's motor controller on loopback, speaking the sp/gp
+    parameter protocol (driverLib.cpp): records every write; the k-th read
+    of the position register (0x396A) returns ``ticks(k)``."""
+
+    def __init__(self, ticks, enc_res_hw=2500):
+        super().__init__()
+        self.ticks = ticks
+        self.reads = 0
+        self.params = {(0x3962, 0x0): enc_res_hw}
+        self.writes = []
+        self.thread.start()
+
+    def _serve(self):
+        try:
+            conn, _ = self.srv.accept()
+            with conn:
+                buf = b""
+                while True:
+                    data = conn.recv(256)
+                    if not data:
+                        break
+                    buf += data
+                    while b"\n" in buf:
+                        line, buf = buf.split(b"\n", 1)
+                        self._handle(conn, line.decode().split())
+        except OSError as e:
+            self.error = e
+        finally:
+            self.srv.close()
+
+    def _handle(self, conn, parts):
+        if len(parts) < 2:
+            return
+        idx, sub = parts[1].split(".")
+        addr = (int(idx.rstrip("h"), 16), int(sub.rstrip("h"), 16))
+        if parts[0] == "sp":
+            val = int(parts[2])
+            self.params[addr] = val
+            self.writes.append((addr[0], addr[1], val))
+            conn.sendall(f"sp {parts[1]} {val}\n".encode())
+        elif parts[0] == "gp":
+            if addr == (0x396A, 0x0):
+                val = int(self.ticks(self.reads))
+                self.reads += 1
+            else:
+                val = self.params.get(addr, 0)
+            # four fields, the value third (driverLib.cpp:145)
+            conn.sendall(f"gp {parts[1]} {val} ok".encode())
+
+
+def lms_telegram(ranges_m, k, start_deg=LIVE_START_DEG):
+    """LMS100's telegram of one line: ranges in mm on the wire."""
+    from tpu_slam_torch.ingest.sick_cola import format_telegram
+
+    mm = np.round(np.asarray(ranges_m, np.float64) * 1000).astype(np.uint32)
+    return format_telegram(mm, scan_no=k, start_angle_deg=start_deg,
+                           ang_step_deg=LMS_STEP_DEG,
+                           scan_frequency_hz=LMS_HZ)
+
+
+def render_lines(world, T_world_base, T_base_laser, beams=LMS_BEAMS,
+                 start_deg=LIVE_START_DEG):
+    """Ranges (m, 0 = no return) of lines seen from the laser poses
+    T_world_base[k] @ T_base_laser[k], beam i at start_deg + 0.5 i degrees
+    in the laser frame (the simulator's scanner is symmetric about its x,
+    so its frame is the laser's turned by start_deg + 135 degrees)."""
+    from tpu_slam_torch.ingest.synthetic import simulate_line_scan
+
+    fov = LMS_STEP_DEG * (beams - 1)
+    turn = math.radians(start_deg + fov / 2)
+    c, s = math.cos(turn), math.sin(turn)
+    rz = np.array([[c, -s, 0, 0], [s, c, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    out = np.zeros((len(T_base_laser), beams))
+    for k, (Tw, Tl) in enumerate(zip(T_world_base, T_base_laser)):
+        pts, valid = simulate_line_scan(
+            world, Tw @ np.asarray(Tl, np.float64) @ rz, n_beams=beams,
+            fov_deg=fov)
+        out[k] = np.linalg.norm(pts.astype(np.float64), axis=1) * valid
+    return out
+
+
+def survey(n_stops=SURVEY_STOPS, beams=LMS_BEAMS):
+    """The stop-and-go survey's line stream.
+
+    The encoder angle of line k is k * SURVEY_STEP. Which stop a line
+    belongs to is decided by the aggregator's own trigger: a CPU
+    ScanAggregator runs over the lines' transforms, and the base moves to
+    the next stop at the line after each emit. Returns (telegrams,
+    encoder angles, the stop of each line, the route (n_stops, 4, 4)).
+    """
+    import torch
+
+    from tpu_slam_torch.ingest import synthetic as syn
+    from tpu_slam_torch.ingest.aggregator import (AggregatorConfig,
+                                                  ScanAggregator)
+    from tpu_slam_torch.ingest.frames import FrameChain, SensorModel
+
+    chain = FrameChain(sensor=SensorModel.by_name("LMS100"))
+    agg = ScanAggregator(AggregatorConfig(capacity=1, line_length=1),
+                         device="cpu")
+    zero_p = torch.zeros((1, 3))
+    zero_v = torch.zeros(1, dtype=torch.bool)
+    state = agg.init_state()
+    angles, stops, T_bl = [], [], []
+    stop = 0
+    while stop < n_stops:
+        a = len(angles) * SURVEY_STEP
+        T = chain.base_from_laser(a)
+        angles.append(a)
+        stops.append(stop)
+        T_bl.append(T.numpy())
+        state = agg.add_line(state, zero_p, zero_v, T)
+        if bool(agg.ready(state)):
+            _, state = agg.emit(state)
+            stop += 1
+    route = syn.trajectory_loop(n_stops, radius=SURVEY_RADIUS)
+    ranges = render_lines(syn.default_office(), route[stops], T_bl, beams)
+    telegrams = [lms_telegram(r, k) for k, r in enumerate(ranges)]
+    return telegrams, np.asarray(angles), np.asarray(stops), route
+
+
+def survey_slam_config():
+    """SLAMConfig() on the host engine, the loop gap cut to the survey."""
+    from tpu_slam_torch.graph.loop_closure import LoopClosureParams
+    from tpu_slam_torch.pipeline.config import SLAMConfig
+
+    return SLAMConfig(loop=LoopClosureParams(min_index_gap=SURVEY_LOOP_GAP))
+
+
+def counter_source(angles):
+    """The angle source of a replayed stream: the k-th call returns the
+    k-th line's angle (the producer calls it once a line)."""
+    k = [0]
+
+    def source():
+        a = angles[min(k[0], len(angles) - 1)]
+        k[0] += 1
+        return float(a)
+
+    return source
+
+
+def relative_route(route, n):
+    """Ground truth of the SLAM poses, which start at the identity: the
+    route's first n poses relative to its first."""
+    return np.linalg.inv(route[0]) @ route[:n]
+
+
+def survey_pipeline():
+    """A LivePipeline of the survey on the card: LiveConfig() at the
+    survey's startAngle, AggregatorConfig(), SLAMSystem on the host
+    engine."""
+    from tpu_slam_torch.pipeline.live import LiveConfig, LivePipeline
+    from tpu_slam_torch.pipeline.slam import SLAMSystem
+
+    return LivePipeline(LiveConfig(start_angle_deg=LIVE_START_DEG),
+                        slam=SLAMSystem(survey_slam_config()))
+
+
+def stream(pipe, telegrams, angles, period_s=1.0 / LMS_HZ, gated=False,
+           **kw):
+    """Drive ``pipe`` from a fake LMS100 sending ``telegrams``: every
+    period_s, or (gated) as fast as the chain takes them, never more than
+    64 lines ahead of the consumer. Returns (results, clouds, poses,
+    seconds, the fake's largest lateness)."""
+    from tpu_slam_torch.ingest.native import NativeLms
+
+    gate = (lambda k: k < pipe.lines + 64) if gated else None
+    dev = FakeLms(telegrams, period_s=period_s, gate=gate)
+    lms = NativeLms(cap=pipe.config.line_capacity)
+    clouds, poses = [], []
+
+    def on_scan(cloud, metrics):
+        clouds.append(cloud)
+        if pipe.slam is not None:
+            poses.append(pipe.slam_state.odom.pose)
+
+    t0 = time.perf_counter()
+    try:
+        lms.connect("127.0.0.1", dev.port)
+        lms.start_scan()
+        results = pipe.run(lms, angle_source=counter_source(angles),
+                           on_scan=on_scan, **kw)
+    finally:
+        dt = time.perf_counter() - t0
+        lms.close()
+        dev.stop()
+        dev.join()
+    return results, clouds, poses, dt, dev.max_late_s
+
+
+def live_line_profile(telegrams, angles):
+    """The consumer's cost a line: one capture streamed (gated) through
+    the chain with no SLAM, under torch.profiler: kernel launches, H2D
+    copies, device-to-host reads, device busy time and the host clock a
+    line."""
+    import torch
+
+    from tpu_slam_torch.pipeline.live import LiveConfig, LivePipeline
+
+    pipe = LivePipeline(LiveConfig(start_angle_deg=LIVE_START_DEG))
+    n = len(telegrams)
+
+    def run():
+        stream(pipe, telegrams, angles, gated=True, max_lines=n)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    per_kernel, prof = device_time_us(run, 1)
+    ka = prof.key_averages()
+
+    def count(pred):
+        return sum(e.count for e in ka if pred(e.key))
+
+    return dict(
+        lines=pipe.lines, host_ms_per_line=wall * 1e3 / n,
+        device_busy_us_per_line=sum(per_kernel.values()) / n,
+        kernel_launches_per_line=count(
+            lambda k: k in ("cudaLaunchKernel", "cuLaunchKernel",
+                            "cuLaunchKernelEx")) / n,
+        h2d_copies_per_line=count(lambda k: "Memcpy HtoD" in k) / n,
+        dtoh_reads_per_line=count(lambda k: "Memcpy DtoH" in k) / n,
+        scalar_reads_per_line=count(
+            lambda k: k == "aten::_local_scalar_dense") / n,
+        top_ops_per_line=[(e.key[:60], e.count / n) for e in sorted(
+            (e for e in ka if e.key.startswith("aten::")),
+            key=lambda e: -e.count)[:12]])
+
+
+def phase_live():
+    """The rotating unit's live chain on the card: the survey streamed at
+    LMS100's 50 Hz through LivePipeline -> SLAMSystem, then its first
+    captures again unpaced (bit-identical), the cost a line and a scan,
+    and the kernel cases of the path. Returns ({kernel: launches}, the
+    ndt_terms args and the nn_search args of the path)."""
+    import torch
+
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms, ndt_terms_plain
+    from tpu_slam_torch.kernels.nn_search import (nearest_neighbors,
+                                                  nearest_neighbors_plain)
+    from tpu_slam_torch.pipeline.metrics import ate_rmse
+
+    t0 = time.perf_counter()
+    telegrams, angles, stops, route = survey()
+    gen_s = time.perf_counter() - t0
+    pipe = survey_pipeline()
+    plain_before = (ndt_terms_plain.launches,
+                    nearest_neighbors_plain.launches)
+    ndt_terms.launches = nearest_neighbors.launches = 0
+    results, clouds, poses, dt, late = stream(pipe, telegrams, angles,
+                                              max_scans=SURVEY_STOPS)
+    launches = dict(ndt_terms=ndt_terms.launches,
+                    nn_search=nearest_neighbors.launches)
+    state = pipe.slam_state
+    poses = torch.stack(poses).cpu().numpy()
+    n = len(results)
+    gt = relative_route(route, n)
+    ate = ate_rmse(poses, gt, align=False)
+    step_ms = np.array([m.wall_time_s * 1e3 for _, m in results])
+    points = [int(c.mask.sum()) for c in clouds]
+
+    # the first captures again, as fast as the chain takes them
+    k = int(np.searchsorted(stops, SURVEY_RERUN))
+    again = survey_pipeline()
+    r2, c2, p2, dt2, _ = stream(again, telegrams[:k], angles[:k],
+                                gated=True, max_scans=SURVEY_RERUN)
+    same = (len(c2) == SURVEY_RERUN and all(
+        torch.equal(a.points, b.points) and torch.equal(a.mask, b.mask)
+        for a, b in zip(c2, clouds)) and all(
+        torch.equal(a, b) for a, b in zip(
+            p2, [torch.as_tensor(p, device="cuda") for p in poses])))
+
+    # the cost a line (no SLAM) and of a SLAM step (scans 2 and 3 replayed
+    # from the state after scan 1)
+    first = int(np.searchsorted(stops, 1))
+    per_line = live_line_profile(telegrams[:first], angles[:first])
+    slam = again.slam
+    s = slam.init_state()
+    s, _ = slam.step(s, clouds[0])
+    s, _ = slam.step(s, clouds[1])
+    per_step = host_step_profile(slam, s, clouds[2:4])
+    lines_per_scan = first
+    busy_ms = (lines_per_scan * per_line["device_busy_us_per_line"] / 1e3
+               + per_step["device_busy_ms_per_step"])
+    unpaced_ms = (lines_per_scan * per_line["host_ms_per_line"]
+                  + per_step["wall_ms_per_step"])
+    per_scan = {key: lines_per_scan * per_line[f"{key}_per_line"]
+                + per_step[f"{key}_per_step"]
+                for key in ("kernel_launches", "h2d_copies", "dtoh_reads",
+                            "scalar_reads")}
+    emit("live", lines=len(telegrams), stops=SURVEY_STOPS,
+         beams=LMS_BEAMS, line_hz=LMS_HZ, generate_seconds=gen_s,
+         scans=n, points_per_scan=points,
+         mean_points=float(np.mean(points)),
+         feeder_dropped=pipe.dropped_lines, lines_consumed=pipe.lines,
+         seconds=dt, lines_per_s=pipe.lines / dt,
+         fake_lms_max_late_ms=late * 1e3,
+         slam_step_ms_p50=float(np.percentile(step_ms, 50)),
+         slam_step_ms_p95=float(np.percentile(step_ms, 95)),
+         slam_step_ms=[round(x, 1) for x in step_ms],
+         keyframes=state.n_keyframes, loops=state.n_loop_closures,
+         ate_m=ate, reference_ate_m=LIVE_REF["ate_m"],
+         matched=[round(m.matched_fraction, 4) for _, m in results],
+         launches=launches,
+         ndt_terms_launches_per_scan=launches["ndt_terms"] / n,
+         rerun_scans=len(c2), rerun_lines=again.lines,
+         rerun_dropped=again.dropped_lines,
+         rerun_bit_identical=bool(same),
+         unpaced_lines_per_s=again.lines / dt2, per_line=per_line,
+         per_step=per_step, per_scan=per_scan,
+         device_busy_ms_per_scan=busy_ms,
+         device_idle_share_paced=1.0 - busy_ms / (
+             lines_per_scan / LMS_HZ * 1e3),
+         device_idle_share_unpaced=1.0 - busy_ms / unpaced_ms)
+    if (ndt_terms_plain.launches, nearest_neighbors_plain.launches) \
+            != plain_before or min(launches.values()) <= 0:
+        raise AssertionError("the live path launched no ndt_terms or "
+                             f"nn_search kernel ({launches}), or ran a "
+                             "plain version")
+    if pipe.dropped_lines != 0 or again.dropped_lines != 0:
+        raise AssertionError(f"feeder dropped {pipe.dropped_lines} lines "
+                             f"at 50 Hz ({again.dropped_lines} unpaced)")
+    if n != SURVEY_STOPS or pipe.lines != len(telegrams):
+        raise AssertionError(f"live: {n} scans of {pipe.lines} lines")
+    if not np.all(np.isfinite(poses)) or min(points) <= 0:
+        raise AssertionError("live: poses not finite or an empty scan")
+    if not abs(ate - LIVE_REF["ate_m"]) <= LIVE_TOL_M:
+        raise AssertionError(f"live ATE {ate} m is not within {LIVE_TOL_M} "
+                             f"m of the reference's {LIVE_REF['ate_m']} m")
+    if not same:
+        raise AssertionError("the unpaced rerun differs from the paced run")
+    cfg = survey_slam_config()
+    pairs = sorted(state.loop_pairs) or [(0, state.n_keyframes - 1)]
+    terms_args = host_terms_args(slam.odometry, state.odom, clouds[-1])
+    nn_args = verification_batch(state, cfg, pairs=pairs)
+    return launches, terms_args, nn_args
+
+
+def phase_live_cli(tmpdir):
+    """run_live.main against the fake LMS100 and a fake motor controller
+    for 2 scans: its JSON lines, the speed it commanded, and the stop."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from tpu_slam_torch.cli import run_live
+    from tpu_slam_torch.ingest import synthetic as syn
+    from tpu_slam_torch.ingest.frames import (Calibration, FrameChain,
+                                              SensorModel)
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms
+    from tpu_slam_torch.kernels.nn_search import nearest_neighbors
+
+    # the unit's encoder: 10,000 ticks a turn, 40 ticks a line (138 lines
+    # a 3D scan); run_live's LiveConfig() reads the LMS100 at -45 degrees
+    enc_res, per_line, n_lines = 10000, 40, 330
+    ticks = np.arange(n_lines) * per_line
+    angles = -2.0 * math.pi * (ticks % enc_res) / enc_res
+    chain = FrameChain(sensor=SensorModel.by_name("LMS100"))
+    T_bl = [chain.base_from_laser(float(a)).numpy() for a in angles]
+    start = syn.trajectory_loop(SURVEY_STOPS, radius=SURVEY_RADIUS)[0]
+    ranges = render_lines(syn.default_office(), [start] * n_lines, T_bl,
+                          start_deg=-45.0)
+    telegrams = [lms_telegram(r, k, start_deg=-45.0)
+                 for k, r in enumerate(ranges)]
+    calib = Calibration().save(os.path.join(tmpdir, "m3d_calibration.yaml"))
+    lms = FakeLms(telegrams)
+    m3d = FakeM3d(ticks=lambda k: ticks[min(k, n_lines - 1)],
+                  enc_res_hw=enc_res // 4)
+    ndt_terms.launches = nearest_neighbors.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            run_live.main(["--lms-host", "127.0.0.1", "--lms-port",
+                           str(lms.port), "--m3d-host", "127.0.0.1",
+                           "--m3d-port", str(m3d.port), "--speed", "12",
+                           "--scans", "2", "--calibration", calib, "--json"])
+    finally:
+        dt = time.perf_counter() - t0
+        lms.stop()
+        lms.join()
+        m3d.join()
+    torch.cuda.synchronize()
+    lines = [json.loads(x) for x in out.getvalue().splitlines()]
+    for rec in lines:
+        print(json.dumps(rec), flush=True)
+    launches = dict(ndt_terms=ndt_terms.launches,
+                    nn_search=nearest_neighbors.launches)
+    speed = [(0x3003, 0x0, 3), (0x3000, 0x10, 12), (0x3000, 0x1, 0),
+             (0x3000, 0x1, 49)]
+    stop = [(0x3003, 0x0, 3), (0x3000, 0x10, 0), (0x3000, 0x1, 0),
+            (0x3000, 0x1, 49)]
+    emit("live_cli", seconds=dt, json_lines=len(lines),
+         motor_writes=[[hex(a), hex(b), v] for a, b, v in m3d.writes],
+         encoder_reads=m3d.reads, telegrams_sent=lms.sent,
+         launches=launches)
+    scans = [r for r in lines if "n_points" in r]
+    if not (len(scans) == 2 and all(r["n_points"] > 0 for r in scans)
+            and lines[-1].get("n_scans") == 2
+            and lines[-1].get("dropped_lines") == 0):
+        raise AssertionError(f"run_live printed {lines}")
+    if m3d.writes[:4] != speed or m3d.writes[-4:] != stop:
+        raise AssertionError(f"run_live's motor writes {m3d.writes}")
+    return launches
+
+
+def calibration_capture(device, segments=CALIB_SEGMENTS, beams=LMS_BEAMS):
+    """A full rotation in the reference test's room whose true mount
+    carries CALIB_TRUE: segments of the LMS100's 270 degrees."""
+    from tpu_slam_torch.cli.run_calibration import demo_data
+
+    return demo_data(device, segments, beams,
+                     fov_deg=LMS_STEP_DEG * (beams - 1), true=CALIB_TRUE)[0]
+
+
+def gauge_error(found, true):
+    """Extrinsic error modulo the spin-axis gauge (a pre-rotation about the
+    laser's x is an encoder-zero shift the cost cannot see), as
+    tests/test_calibration.py measures it: min over phi in [-0.1, 0.1] of
+    |log((Rx(phi) M_true)^-1 M_found)|."""
+    import torch
+
+    from tpu_slam_torch.core import se3
+    from tpu_slam_torch.ingest.calibration import extrinsic_matrix
+
+    M_f = extrinsic_matrix(torch.as_tensor(found, dtype=torch.float32))
+    M_t = extrinsic_matrix(torch.as_tensor(true, dtype=torch.float32))
+    phi = torch.linspace(-0.1, 0.1, 401)
+    Rx = torch.zeros(401, 4, 4)
+    Rx[:, 0, 0] = Rx[:, 3, 3] = 1.0
+    Rx[:, 1, 1] = Rx[:, 2, 2] = torch.cos(phi)
+    Rx[:, 1, 2], Rx[:, 2, 1] = -torch.sin(phi), torch.sin(phi)
+    e = se3.log(se3.inverse(Rx @ M_t) @ M_f)
+    return float(torch.linalg.vector_norm(e, dim=1).min())
+
+
+def phase_calibration():
+    """The extrinsic calibration at full width on the card: 720 segments
+    x 541 beams (389,520 raw points), CalibConfig() at its defaults;
+    twiddle, annealing, the gradient solver and the verification."""
+    import torch
+
+    from tpu_slam_torch.ingest.calibration import (CalibConfig,
+                                                   calibrate_gradient,
+                                                   calibrate_sa,
+                                                   calibrate_twiddle,
+                                                   export_verification,
+                                                   overlap_cost,
+                                                   soft_overlap_cost)
+
+    t0 = time.perf_counter()
+    data = calibration_capture("cuda")
+    capture_s = time.perf_counter() - t0
+    cfg = CalibConfig()
+    true = np.asarray(CALIB_TRUE, np.float32)
+    zero = np.zeros(5, np.float32)
+    cost_ms = time_ms(lambda: overlap_cost(data, zero, cfg), 20)
+
+    def grad_step():
+        p = torch.zeros(5, device="cuda", requires_grad=True)
+        soft_overlap_cost(data, p, cfg).backward()
+        return p.grad
+
+    grad_ms = time_ms(grad_step, 10)
+    out = {}
+    for name, solve in (
+            ("twiddle", lambda: calibrate_twiddle(data, cfg)),
+            ("sa", lambda: calibrate_sa(data, cfg, seed=0)),
+            ("gradient", lambda: calibrate_gradient(
+                data, cfg, steps=CALIB_GRADIENT_STEPS))):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t1
+        out[name] = dict(seconds=sec, evaluations=res.evaluations,
+                         evaluations_per_s=res.evaluations / sec,
+                         cost=res.cost, start_cost=res.history[0],
+                         params5=[float(v) for v in res.params5],
+                         gauge_error=gauge_error(res.params5, true))
+    verify = export_verification(data, out["gradient"]["params5"], cfg)
+    verify_true = export_verification(data, true, cfg)
+    emit("calibration", segments=int(data.points.shape[0]),
+         beams=int(data.points.shape[1]),
+         raw_points=int(data.valid.numel()),
+         valid_points=int(data.valid.sum()), capture_seconds=capture_s,
+         overlap_cost_ms=cost_ms, gradient_step_ms=grad_ms,
+         cost_at_truth=int(overlap_cost(data, true, cfg)),
+         cost_at_zero=int(overlap_cost(data, zero, cfg)),
+         solvers=out, verification=verify,
+         verification_at_truth=verify_true,
+         bars=dict(twiddle=CALIB_TWIDDLE_BAR, gradient=CALIB_GRADIENT_BAR))
+    if not out["twiddle"]["gauge_error"] < CALIB_TWIDDLE_BAR:
+        raise AssertionError(f"twiddle gauge error {out['twiddle']}")
+    if not out["gradient"]["gauge_error"] < CALIB_GRADIENT_BAR:
+        raise AssertionError(f"gradient gauge error {out['gradient']}")
+    if not out["sa"]["cost"] <= out["sa"]["start_cost"]:
+        raise AssertionError(f"annealing raised the cost {out['sa']}")
+
+
+def phase_live_kernels(terms_args, nn_args):
+    """ndt_terms on the live survey's fine field (its map after the last
+    scan, the last scan binned) and nn_search on its verification batch,
+    each against its plain version."""
+    terms = [check_terms_case("live_survey_fine", terms_args)]
+    nn = [check_nn_case("live_survey_verify", *nn_args)]
+    emit("kernels", kernels=["ndt_terms", "nn_search"], cases=terms + nn,
+         rtol_of_max=RTOL_OF_MAX)
+    return terms, nn
+
+
 def kernel_entry(name, source, replaces, launches, cases, main):
     """One kernel's object of the final JSON line; ``main`` is the case
     whose times stand for the kernel."""
@@ -3169,14 +3837,30 @@ def main() -> int:
     c3_launches, c3_cases = phase_config3(config3_workload("cuda"))
     with tempfile.TemporaryDirectory() as tmpdir:
         c6_launches = phase_config6(tmpdir)
+
+    # the rotating unit's live chain and the extrinsic calibration
+    t_live = time.perf_counter()
+    live_launches, live_terms_args, live_nn_args = phase_live()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        cli_launches = phase_live_cli(tmpdir)
+    live_terms_cases, live_nn_cases = phase_live_kernels(live_terms_args,
+                                                         live_nn_args)
+    del live_terms_args, live_nn_args
+    phase_calibration()
+    emit("live_phases_total", seconds=time.perf_counter() - t_live)
+
     terms_launches = dict(config2=launches, config2_occupancy=options_launches,
                           config3=c3_launches, config6=c6_launches,
                           host_odometry=host_launches,
                           host_engine_cases=case_launches["ndt_terms"],
-                          slam_host=slam_host_launches["ndt_terms"])
+                          slam_host=slam_host_launches["ndt_terms"],
+                          live=live_launches["ndt_terms"],
+                          live_cli=cli_launches["ndt_terms"])
     nn_launches = dict(config4=run["nn_launches"], config1=nn_c1_launches,
                        host_engine_cases=case_launches["nn_search"],
-                       slam_host=slam_host_launches["nn_search"])
+                       slam_host=slam_host_launches["nn_search"],
+                       live=live_launches["nn_search"],
+                       live_cli=cli_launches["nn_search"])
 
     emit("total", seconds=time.perf_counter() - t_start)
     by_case = {c["case"]: c for c in gather_cases}
@@ -3187,14 +3871,17 @@ def main() -> int:
         dict(kernel_entry("ndt_terms", src + "ndt_terms.cu",
                           "tpu_slam/kernels/ndt_terms.py:199",
                           sum(terms_launches.values()),
-                          cases + c3_cases + host_terms_cases,
+                          cases + c3_cases + host_terms_cases
+                          + live_terms_cases,
                           cases[0]), launches_by_path=terms_launches),
         # launches on all of its paths: config 4's verification, config
-        # 1's brute tier, the host engine's ICP and SLAM verification
+        # 1's brute tier, the host engine's ICP and SLAM verification, the
+        # live survey's verification
         dict(kernel_entry("nn_search", src + "nn_search.cu",
                           "tpu_slam/kernels/nn_search.py:57",
                           sum(nn_launches.values()),
-                          nn_cases + nn_c1_cases + host_nn_cases,
+                          nn_cases + nn_c1_cases + host_nn_cases
+                          + live_nn_cases,
                           nn_cases[0]), launches_by_path=nn_launches),
         # icp_terms: no single PyTorch call computes it
         kernel_entry("icp_terms", src + "icp_terms.cu",

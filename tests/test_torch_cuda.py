@@ -436,3 +436,74 @@ def test_occupancy_update_repeats_bit_for_bit_and_matches_the_cpu(cuda):
     # a cell may differ only where a sample lies within an ulp of a face
     differ = int((ref[1].rows != first[1].rows.cpu()).sum())
     assert differ <= 1e-4 * g
+
+
+def test_aggregator_on_the_card_equals_the_cpu(cuda):
+    """ScanAggregator.add_line on the card against the same stream on the
+    CPU, line by line: masks, write_idx, dropped and the emitting line
+    exact (a 2,000-slot capacity that overflows inside each scan, points
+    inside the exclusion box); points within 1e-5 m (the card's matmul
+    rounds in another order); the sweep of each within the float32 bound
+    a line of the exact sum of the steps (test_torch_aggregator.py: the
+    arccos of a near-1 dot product turns its last bit into ~2e-5 rad at a
+    0.05 rad step)."""
+    import math
+
+    import numpy as np
+
+    from tpu_slam_torch.ingest.aggregator import (AggregatorConfig,
+                                                  ScanAggregator)
+    from tpu_slam_torch.ingest.frames import FrameChain, SensorModel
+
+    rng = np.random.default_rng(0)
+    chain = FrameChain(sensor=SensorModel.by_name("LMS100"))
+    cfg = AggregatorConfig(capacity=2000, line_length=64)
+    aggs = [ScanAggregator(cfg, device=d) for d in ("cpu", cuda)]
+    states = [a.init_state() for a in aggs]
+    emits = [[], []]
+    bound = 4 * 2.0 ** -23 / math.sin(0.05 / 2) + 1e-6
+    n_inc, latched = 0, False       # steps summed since the latching line
+    for k in range(160):
+        p = torch.from_numpy(rng.uniform(-4, 4, (64, 3)).astype(np.float32))
+        v = torch.from_numpy(rng.random(64) < 0.8)
+        i = torch.from_numpy(rng.random(64).astype(np.float32))
+        for n, (a, d) in enumerate(zip(aggs, ("cpu", cuda))):
+            states[n] = a.add_line(states[n], p.to(d), v.to(d),
+                                   chain.base_from_laser(k * 0.05, device=d),
+                                   i.to(d))
+        cpu, card = states
+        assert int(card.write_idx) == int(cpu.write_idx)
+        assert int(card.dropped) == int(cpu.dropped)
+        assert torch.equal(card.mask[:2000].cpu(), cpu.mask[:2000])
+        assert (card.points[:2000].cpu() - cpu.points[:2000]).abs().max() \
+            <= 1e-5
+        n_inc, latched = (n_inc + 1 if latched else 0), True
+        for st in (card, cpu):
+            assert abs(float(st.angular_distance) - 0.05 * n_inc) \
+                <= n_inc * bound
+        for n, a in enumerate(aggs):
+            if bool(a.ready(states[n])):
+                emits[n].append(k)
+                _, states[n] = a.emit(states[n])
+                n_inc, latched = 0, False
+    n = math.ceil(1.1 * math.pi / 0.05)
+    assert emits[0] == emits[1] == [n, 2 * n + 1]
+
+
+def test_overlap_cost_on_the_card(cuda):
+    """overlap_cost at the truth of chip_smoke's calibration capture (the
+    reference test's room, at a quarter of the segments) on the card and
+    on the CPU: the counts within 0.5 %, below the cost at zero."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_slam_torch.ingest.calibration import CalibConfig, overlap_cost
+
+    true = np.asarray(chip_smoke.CALIB_TRUE, np.float32)
+    data = chip_smoke.calibration_capture(cuda, segments=180)
+    cpu = chip_smoke.calibration_capture("cpu", segments=180)
+    cfg = CalibConfig()
+    got = int(overlap_cost(data, true, cfg))
+    ref = int(overlap_cost(cpu, true, cfg))
+    assert abs(got - ref) <= 0.005 * ref
+    assert got < int(overlap_cost(data, np.zeros(5, np.float32), cfg))

@@ -27,12 +27,22 @@ print(len(names), bad)
 print(" ".join(names))
 """
 
-# modules whose absence would leave a slice's path unchecked: the CLI and
-# the replay and deskew ingest, the sparse voxel map
+# modules whose absence would leave a slice's path unchecked: the CLIs,
+# the replay, deskew and live-chain ingest, the sparse voxel map, the live
+# pipeline, the calibration
 NEW_MODULES = ("tpu_slam_torch.cli.run_odometry", "tpu_slam_torch.cli.common",
                "tpu_slam_torch.ingest.deskew", "tpu_slam_torch.ingest.velodyne",
                "tpu_slam_torch.ingest.rosbag", "tpu_slam_torch.ingest.dataset",
-               "tpu_slam_torch.mapping.voxel_map")
+               "tpu_slam_torch.mapping.voxel_map",
+               "tpu_slam_torch.ingest.sick_cola", "tpu_slam_torch.ingest.native",
+               "tpu_slam_torch.ingest.frames",
+               "tpu_slam_torch.ingest.aggregator",
+               "tpu_slam_torch.ingest.calibration",
+               "tpu_slam_torch.pipeline.live", "tpu_slam_torch.utils.ply",
+               "tpu_slam_torch.cli.run_live", "tpu_slam_torch.cli.run_slam",
+               "tpu_slam_torch.cli.run_calibration",
+               "tpu_slam_torch.cli.make_dataset",
+               "tpu_slam_torch.cli.pcap_convert")
 
 
 def test_port_and_chip_smoke_import_neither_jax_nor_tpu_slam():

@@ -8,14 +8,18 @@ nothing of it (nor of JAX).
 Layer map of what is ported so far (full SLAM on both odometry engines:
 the host engine on the sparse voxel map and the dense-window engine with
 its occupancy and deskew options; scan-to-map NDT on the sparse voxel map,
-bag replay through the CLI, pair ICP on both tiers, the gather probes):
+bag replay through the CLI, pair ICP on both tiers, the gather probes; the
+rotating unit's live chain and the extrinsic calibration):
 
-    cli/           run_odometry (--bag/--dataset, --engine sparse|dense,
-                   --device), config overrides
+    cli/           run_odometry (--bag/--dataset, --engine sparse|dense),
+                   run_slam (checkpoint/resume), run_live, run_calibration,
+                   make_dataset, pcap_convert; --device, config overrides
     pipeline/      SLAMSystem (keyframes, loop sweeps, graph, re-anchor),
                    LidarOdometry and JitLidarOdometry (sparse voxel map),
-                   DenseLidarOdometry (occupancy eviction, deskew), config,
-                   metrics, state hand-over, checkpoint/resume
+                   DenseLidarOdometry (occupancy eviction, deskew), the live
+                   pipeline (native poller -> feeder -> frame chain ->
+                   aggregator -> SLAM), config, metrics, state hand-over,
+                   checkpoint/resume
     graph/         pose graph (GN + matrix-free PCG), loop-closure
                    candidates and batched symmetric ICP verification,
                    scan-context descriptors
@@ -34,12 +38,18 @@ bag replay through the CLI, pair ICP on both tiers, the gather probes):
                    ICP terms (csrc/icp_terms.cu), row gathers
                    (csrc/gather.cu), built with nvcc at first use
     benchmarks/    the gather probes on the gather kernels
-    ingest/        synthetic worlds, routes and the VLP-16 simulator,
-                   deskew, VLP-16 packets and pcap, rosbag, npz datasets
+    ingest/        the CoLa-A telegram code and the native runtime's
+                   binding (native/src built with g++ at first use), the
+                   unit's frame chain, the scan aggregator, the extrinsic
+                   calibration (twiddle, annealing, autograd + Adam),
+                   synthetic worlds, routes, the line scanner, the rotating
+                   capture and the VLP-16 simulator, deskew, VLP-16 packets
+                   and pcap, rosbag, npz datasets
     core/          SE(3) and quaternions (batched), symmetric 3x3 closed
                    forms, padded point clouds, the deterministic
                    scatter-add
-    utils/         timing on the card (slope_time, call_ms)
+    utils/         timing on the card (slope_time, call_ms), the PLY
+                   writer
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; a
 missing GPU raises instead of silently falling back.

@@ -72,9 +72,50 @@ class PointCloud:
         pts = torch.where(self.mask[..., None], self.points, PAD_COORD)
         return dataclasses.replace(self, points=pts)
 
+    def filter(self, keep: torch.Tensor) -> "PointCloud":
+        """AND the mask with ``keep`` and re-sanitize (same capacity)."""
+        mask = self.mask & keep
+        pts = torch.where(mask[:, None], self.points, PAD_COORD)
+        return dataclasses.replace(self, points=pts, mask=mask)
+
     def compact(self) -> "PointCloud":
         """Stable-sort valid points to the front (same capacity)."""
         order = torch.argsort((~self.mask).to(torch.int32), stable=True)
         attrs = None if self.attrs is None else self.attrs[order]
         return PointCloud(points=self.points[order], mask=self.mask[order],
                           attrs=attrs)
+
+
+def exclusion_box_filter(cloud: PointCloud, box_min, box_max) -> PointCloud:
+    """Robot self-filter: KEEP the points OUTSIDE the axis-aligned box
+    (the aggregator's inverted bounding box: points inside the box around
+    the robot are dropped)."""
+    lo = torch.as_tensor(box_min, dtype=cloud.points.dtype,
+                         device=cloud.device)
+    hi = torch.as_tensor(box_max, dtype=cloud.points.dtype,
+                         device=cloud.device)
+    inside = ((cloud.points >= lo) & (cloud.points <= hi)).all(dim=-1)
+    return cloud.filter(~inside)
+
+
+def range_filter(cloud: PointCloud, min_range: float, max_range: float,
+                 origin=None) -> PointCloud:
+    """Keep the points whose range from ``origin`` lies in [min_range,
+    max_range]."""
+    pts = cloud.points
+    if origin is not None:
+        pts = pts - torch.as_tensor(origin, dtype=pts.dtype,
+                                    device=cloud.device)
+    r2 = (pts * pts).sum(dim=-1)
+    keep = (r2 >= min_range * min_range) & (r2 <= max_range * max_range)
+    return cloud.filter(keep)
+
+
+def merge(a: PointCloud, b: PointCloud) -> PointCloud:
+    """Concatenate two padded clouds (capacity = sum of capacities); the
+    attributes only when both have them."""
+    attrs = None
+    if a.attrs is not None and b.attrs is not None:
+        attrs = torch.cat([a.attrs, b.attrs])
+    return PointCloud(points=torch.cat([a.points, b.points]),
+                      mask=torch.cat([a.mask, b.mask]), attrs=attrs)

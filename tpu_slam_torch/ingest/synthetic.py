@@ -3,8 +3,9 @@
 Copy of the parts of ``tpu_slam.ingest.synthetic`` the ported slices
 need: planar-patch worlds with vectorized ray casting, surface sampling
 (the config-3 map), the VLP-16 ring model, its range images and pcap
-capture, the office, grid-city, outdoor-block and ring-corridor worlds,
-and the corridor route of the SLAM workload. The numpy chunk path is the
+capture, the planar line scanner and the rotating-unit capture, the
+office, grid-city, outdoor-block and ring-corridor worlds, and the
+corridor and loop routes. The numpy chunk path is the
 reference's, unchanged, so small scenes are bit-identical to it; the large
 single-origin ray-plane pass runs the same algebra in torch on the given
 device (CUDA by default).
@@ -213,6 +214,74 @@ def vlp16_directions(n_azimuth: int = 900) -> np.ndarray:
                     axis=-1).reshape(-1, 3)
 
 
+def scan_directions_2d(n_beams: int, fov_deg: float = 270.0) -> np.ndarray:
+    """Beam directions of a planar scanner in its own frame (xy-plane):
+    beam i at angle_min + i*step, x = cos, y = sin (the aggregator's
+    polar->cartesian expansion, m3d_aggregator.cpp:269-286)."""
+    half = math.radians(fov_deg) / 2
+    ang = np.linspace(-half, half, n_beams, dtype=np.float64)
+    return np.stack([np.cos(ang), np.sin(ang), np.zeros(n_beams)], axis=1)
+
+
+def simulate_line_scan(world: World, T_world_sensor: np.ndarray,
+                       n_beams: int = 541, fov_deg: float = 270.0,
+                       max_range: float = 100.0,
+                       noise_std: float = 0.0,
+                       rng: Optional[np.random.Generator] = None
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """One 2D scan line: (points_sensor (N, 3) f32, valid (N,) bool)."""
+    dirs_s = scan_directions_2d(n_beams, fov_deg)
+    R, t = T_world_sensor[:3, :3], T_world_sensor[:3, 3]
+    dirs_w = dirs_s @ R.T
+    origins = np.broadcast_to(t, dirs_w.shape)
+    r = world.raycast(origins, dirs_w, max_range)
+    valid = np.isfinite(r)
+    if noise_std > 0 and rng is not None:
+        r = r + rng.normal(0.0, noise_std, r.shape)
+    pts = dirs_s * np.where(valid, r, 0.0)[:, None]
+    return pts.astype(np.float32), valid
+
+
+@dataclasses.dataclass
+class RotatingCapture:
+    """One rotating-unit capture: the inputs a ScanAggregator consumes."""
+
+    line_points: np.ndarray      # (L, B, 3) float32, sensor frame
+    line_valid: np.ndarray       # (L, B) bool
+    line_transforms: np.ndarray  # (L, 4, 4) float32 base<-sensor
+    encoder_angles: np.ndarray   # (L,) float32
+
+
+def simulate_rotating_capture(world: World, chain,
+                              T_world_base: np.ndarray,
+                              n_lines: int = 180,
+                              sweep_rad: float = 1.2 * math.pi,
+                              n_beams: int = 541,
+                              fov_deg: float = 270.0,
+                              noise_std: float = 0.0,
+                              rng: Optional[np.random.Generator] = None
+                              ) -> RotatingCapture:
+    """Simulate one rotating-unit 3D capture.
+
+    The encoder sweeps ``sweep_rad`` over ``n_lines`` scan lines; each line
+    is ray-cast from the composed world<-base<-laser pose of ``chain`` (an
+    ``ingest.frames.FrameChain``, evaluated on the CPU).
+    """
+    angles = np.linspace(0.0, sweep_rad, n_lines).astype(np.float32)
+    Ts = chain.base_from_laser(torch.from_numpy(angles)).numpy()
+
+    pts = np.zeros((n_lines, n_beams, 3), np.float32)
+    val = np.zeros((n_lines, n_beams), bool)
+    for i in range(n_lines):
+        T_ws = T_world_base @ Ts[i]
+        pts[i], val[i] = simulate_line_scan(
+            world, T_ws, n_beams=n_beams, fov_deg=fov_deg,
+            noise_std=noise_std, rng=rng)
+    return RotatingCapture(line_points=pts, line_valid=val,
+                           line_transforms=Ts.astype(np.float32),
+                           encoder_angles=angles)
+
+
 def simulate_vlp16_revolution(world: World, T_world_sensor: np.ndarray,
                               n_azimuth: int = 900,
                               max_range: float = 130.0,
@@ -290,6 +359,17 @@ def se2_pose(x: float, y: float, yaw: float, z: float = 0.0) -> np.ndarray:
     T[:3, :3] = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
     T[:3, 3] = [x, y, z]
     return T
+
+
+def trajectory_loop(n_poses: int, radius: float = 3.0,
+                    z: float = 0.5) -> np.ndarray:
+    """(N, 4, 4) circular trajectory that closes on itself (loop closure)."""
+    Ts = np.zeros((n_poses, 4, 4))
+    for i in range(n_poses):
+        a = 2 * np.pi * i / n_poses
+        Ts[i] = se2_pose(radius * math.cos(a), radius * math.sin(a),
+                         a + np.pi / 2, z)
+    return Ts
 
 
 def dense_city(extent: float = 200.0, block_pitch: float = 24.0,

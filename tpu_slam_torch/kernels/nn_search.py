@@ -14,6 +14,9 @@ hand-written CUDA kernels of ``csrc/nn_search.cu`` for CUDA tensors (one
 call for all B pairs) and calls ``nearest_neighbors_plain`` for CPU
 tensors; there is no fallback between the two.
 
+``nearest_neighbors_hash`` is the grid-hash search of the calibration's
+overlap cost (plain torch: the reference's is plain XLA, no kernel).
+
 On the card the target range may be cut into splits (``split_plan``), each
 scanned by its own blocks, and the splits' results merged in ascending
 order with a strict '<': the minimum of d^2 with the lowest index on ties
@@ -32,7 +35,11 @@ from typing import Tuple
 
 import torch
 
+from tpu_slam_torch.core.pointcloud import PointCloud
 from tpu_slam_torch.kernels import _build
+from tpu_slam_torch.kernels.voxel_hash import (INVALID_KEY,
+                                               neighbor_offsets_keys,
+                                               voxel_keys)
 
 BLOCK_QUERIES = 512       # must equal kThreads * kR in csrc/nn_search.cu
 FILL_BLOCKS = 8192        # split the targets until the grid has this many
@@ -223,3 +230,46 @@ def nearest_neighbors(query: torch.Tensor, target: torch.Tensor,
 
 
 nearest_neighbors.launches = 0
+
+
+_BIG = 3.0e38
+
+
+def nearest_neighbors_hash(query: torch.Tensor, sorted_keys: torch.Tensor,
+                           sorted_target: torch.Tensor, spec,
+                           k_per_cell: int = 2
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grid-hash NN: a 27-cell probe over a key-sorted target.
+
+    Args:
+      query: (N, 3) float32 query points.
+      sorted_keys: (M,) int32 voxel keys of the target, ascending
+        (``voxel_hash.sort_by_key``).
+      sorted_target: (M, 3) float32 target points in that order.
+      spec: the ``VoxelGridSpec`` of the keys; exact within one leaf.
+      k_per_cell: candidates taken from each neighbouring cell.
+
+    Returns (idx (N,) int32 into the *sorted* target, dist (N,) float32):
+    -1 and +inf for a query with no candidate in its 27 cells. The lowest
+    candidate (cell order, then rank in the cell) wins a tie.
+    """
+    m = sorted_target.shape[0]
+    n = query.shape[0]
+    qkeys = voxel_keys(PointCloud(points=query, mask=torch.ones(
+        n, dtype=torch.bool, device=query.device)), spec)
+    nkeys = neighbor_offsets_keys(qkeys, spec)                 # (N, 27)
+    starts = torch.searchsorted(sorted_keys, nkeys).to(torch.int32)
+    offs = torch.arange(k_per_cell, dtype=torch.int32, device=query.device)
+    cand = torch.clamp(starts[..., None] + offs, 0, m - 1).long()
+    ok = ((sorted_keys[cand] == nkeys[..., None])
+          & (nkeys[..., None] != INVALID_KEY))                 # (N, 27, K)
+    diff = sorted_target[cand] - query[:, None, None, :]
+    d2 = torch.where(ok, (diff * diff).sum(-1), _BIG).reshape(n, -1)
+    best = torch.argmin(d2, dim=1, keepdim=True)
+    best_d2 = torch.gather(d2, 1, best)[:, 0]
+    best_i = torch.gather(cand.reshape(n, -1), 1, best)[:, 0]
+    found = best_d2 < _BIG
+    idx = torch.where(found, best_i, -1).to(torch.int32)
+    dist = torch.where(found, torch.sqrt(torch.clamp(best_d2, min=0.0)),
+                       torch.inf)
+    return idx, dist

@@ -1,0 +1,329 @@
+"""The composed live pipeline: device stream -> 3D scans -> SLAM.
+
+Port of ``tpu_slam.pipeline.live``, the runtime twin of the reference's
+bringup (universal.launch + m3d_husky_bringup.launch): where the reference
+wires lms_poller -> (TF from encoder_node_li) -> m3d_aggregator ->
+gpu_6dslam_node through ROS topics, this pipeline wires
+
+    NativeLms (C++ TCP poller)  --producer thread-->  NativeFeeder (C++
+    ring)  --consumer-->  polar->cartesian  ->  FrameChain (encoder TF)
+    ->  ScanAggregator (on the device)  ->  SLAMSystem
+
+in one process. The encoder angle is sampled at line arrival (producer
+side), or interpolated at the line's arrival time from a sampler thread's
+history (``encoder_rate_hz``), the reference's TF lookup
+(m3d_aggregator.cpp:261-262).
+
+Per line the consumer makes three host-to-device copies (points, valid
+flags, intensities), computes the line's transform on the device and
+reads one flag back (is the 3D scan complete?), in the reference's order.
+Everything the chain builds or initialises at first use (the native
+library, the kernels of the SLAM path, the device's context) is done
+before the stream opens: the feeder holds ``feeder_slots`` lines (2.56 s
+of an LMS100 at 50 Hz), and a first step that waited on a compiler would
+overflow it and drop real lines.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import threading
+import time
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tpu_slam_torch.ingest.aggregator import AggregatorConfig, ScanAggregator
+from tpu_slam_torch.ingest.frames import (EncoderHistory, FrameChain,
+                                          SensorModel, front_laser_transform)
+from tpu_slam_torch.ingest.native import NativeFeeder, NativeLms
+
+# the CUDA libraries SLAMSystem's path launches (NDT terms in every LM
+# evaluation, brute-force NN in loop verification)
+SLAM_KERNELS = ("ndt_terms", "nn_search")
+
+
+@dataclasses.dataclass(frozen=True)
+class LiveConfig:
+    """Static configuration of the live chain."""
+
+    sensor_model: str = "LMS100"
+    line_capacity: int = 1024        # padded beams per line (static shape)
+    range_min: float = 0.01          # lms_poller.cpp:26-29 params
+    range_max: float = 100.0
+    start_angle_deg: float = -45.0   # startAngle param (lms_poller.cpp:74)
+    invert_scan: bool = False        # mirror-mounted scanner
+    feeder_slots: int = 128
+    poll_timeout_ms: int = 2000
+    aggregator: AggregatorConfig = AggregatorConfig(line_length=1024)
+
+
+class LivePipeline:
+    """Feed from a connected NativeLms; produce 3D scans (and SLAM poses).
+
+    ``angle_source`` is called once per scan line (producer side) and must
+    return the current encoder angle in radians: live hardware passes
+    ``NativeM3d.angle``, tests and simulations a profile. Runs on the
+    device of ``slam`` when one is given, else on ``device`` (CUDA unless
+    the caller asks for the CPU).
+
+    ``slam_state`` is the SLAM state after the newest scan (``on_scan``
+    may read it); after ``run``, ``lines`` counts the lines consumed and
+    ``dropped_lines`` the lines the full feeder ring refused.
+    """
+
+    def __init__(self, config: LiveConfig, chain: Optional[FrameChain] = None,
+                 slam=None, device=None):
+        from tpu_slam_torch import default_device
+
+        if config.aggregator.line_length != config.line_capacity:
+            raise ValueError("aggregator.line_length must equal "
+                             "line_capacity")
+        if slam is not None:
+            if device is not None and torch.device(device) != slam.device:
+                raise ValueError(f"device {device} is not the SLAM system's "
+                                 f"({slam.device})")
+            self.device = slam.device
+        else:
+            self.device = default_device(device)
+        self.config = config
+        self.chain = chain or FrameChain(
+            sensor=SensorModel.by_name(config.sensor_model))
+        self.slam = slam
+        self.aggregator = ScanAggregator(config.aggregator,
+                                         device=self.device)
+        self._dirs = None            # (L, 3) beam direction table
+        self._meta0 = None
+        self._producer_done = threading.Event()
+        self._producer_error: Optional[BaseException] = None
+        self._enc_hist: Optional[EncoderHistory] = None
+        self.line_angles: List[Tuple[float, float]] = []  # (t, angle) used
+        self.lines = 0
+        self.dropped_lines = 0
+        self.slam_state = None
+
+    # -- producer ----------------------------------------------------------
+
+    def _produce(self, lms: NativeLms, feeder: NativeFeeder,
+                 angle_source: Optional[Callable[[], float]],
+                 max_lines: Optional[int]) -> None:
+        n = 0
+        interp = self._enc_hist is not None
+        try:
+            while max_lines is None or n < max_lines:
+                out = lms.poll(timeout_ms=self.config.poll_timeout_ms)
+                if out is None:                      # poll timeout
+                    break
+                meta, ranges, intens = out
+                if self._meta0 is None:
+                    self._meta0 = meta
+                if intens.size != ranges.size:
+                    intens = np.zeros_like(ranges)
+                # interpolated mode: the feeder's angle slot carries the
+                # line's arrival time RELATIVE to the run's start (the slot
+                # is float32, and absolute monotonic time would lose ~50 ms
+                # in it); the consumer interpolates the encoder history at
+                # it. Otherwise: the angle source sampled at arrival.
+                a = (time.monotonic() - self._t_ref if interp
+                     else float(angle_source()))
+                feeder.push(ranges, intens,
+                            stamp=meta.time_since_startup_us * 1e-6,
+                            angle=a)
+                n += 1
+        except ConnectionError:
+            pass                                     # device closed: drain
+        except BaseException as e:                   # raised again in run()
+            self._producer_error = e
+        finally:
+            self._producer_done.set()
+
+    # -- consumer ----------------------------------------------------------
+
+    def _directions(self, n_beams: int) -> np.ndarray:
+        """Beam direction table from the first telegram's metadata
+        (polar->cartesian of m3d_aggregator.cpp:269-286 with the
+        startAngle override of lms_poller.cpp:74-100)."""
+        if self._dirs is not None and self._dirs.shape[0] == n_beams:
+            return self._dirs
+        meta = self._meta0
+        step = math.radians(meta.ang_step_deg) if meta else math.radians(0.5)
+        a0 = math.radians(self.config.start_angle_deg)
+        ang = a0 + step * np.arange(n_beams)
+        if self.config.invert_scan:
+            ang = ang[::-1].copy()
+        self._dirs = np.stack([np.cos(ang), np.sin(ang),
+                               np.zeros(n_beams)], axis=1).astype(np.float32)
+        return self._dirs
+
+    def warm_up(self) -> None:
+        """Everything built or initialised at first use, done now: one
+        aggregator step on the device (its context and kernels), and the
+        CUDA libraries of the SLAM path built and loaded."""
+        L = self.config.line_capacity
+        dev = self.device
+        warm = self.aggregator.add_line(
+            self.aggregator.init_state(),
+            torch.zeros((L, 3), dtype=torch.float32, device=dev),
+            torch.zeros(L, dtype=torch.bool, device=dev),
+            self.chain.base_from_laser(0.0, device=dev),
+            torch.zeros(L, dtype=torch.float32, device=dev))
+        bool(self.aggregator.ready(warm))
+        if self.slam is not None and dev.type == "cuda":
+            from tpu_slam_torch.kernels import _build
+            for name in SLAM_KERNELS:
+                _build.load(name)
+
+    def run(self, lms: NativeLms,
+            angle_source: Callable[[], float],
+            max_scans: Optional[int] = None,
+            max_lines: Optional[int] = None,
+            on_scan: Optional[Callable] = None,
+            encoder_rate_hz: float = 0.0) -> List[Tuple]:
+        """Drive the chain until the stream ends or ``max_scans`` emitted.
+
+        Returns a list of (cloud, slam_metrics_or_None) per emitted 3D
+        scan; when a SLAMSystem was supplied each emitted cloud is also
+        fed through it.
+
+        ``encoder_rate_hz`` > 0 enables the time-interpolated encoder
+        join: a sampler thread polls ``angle_source`` at that rate into an
+        EncoderHistory, and each line's angle is INTERPOLATED at the
+        line's arrival time instead of sampled once per line. The angles
+        used are recorded in ``self.line_angles``.
+        """
+        cfg = self.config
+        dev = self.device
+        sampler = None
+        self._enc_hist = None
+        self._sampler_stop = threading.Event()
+        self._producer_done.clear()
+        self._producer_error = None
+        self.line_angles = []
+        self.lines = 0
+        self.slam_state = None
+        if encoder_rate_hz > 0:
+            hist = EncoderHistory()
+            self._enc_hist = hist
+
+            def _sample():
+                # the unwrap needs consecutive samples < pi apart:
+                # encoder_rate_hz must exceed rotation_speed / pi. The
+                # sampler outlives the producer on purpose: lines backlogged
+                # in the socket are drained in a burst, and the consumer
+                # must still find bracketing samples for them.
+                period = 1.0 / encoder_rate_hz
+                while not self._sampler_stop.is_set():
+                    hist.push(time.monotonic() - self._t_ref,
+                              float(angle_source()))
+                    time.sleep(period)
+
+            sampler = threading.Thread(target=_sample, daemon=True)
+        feeder = NativeFeeder(cfg.feeder_slots, cfg.line_capacity)
+        producer = threading.Thread(
+            target=self._produce, args=(lms, feeder, angle_source, max_lines),
+            daemon=True)
+        self.warm_up()
+        agg_state = self.aggregator.init_state()
+        slam_state = self.slam.init_state() if self.slam is not None else None
+        results: List[Tuple] = []
+        if sampler is not None:
+            # t_ref after the warm-up: a reference sample taken long before
+            # the sampler's first could be > pi of rotation away from it
+            # and fold the unwrap by 2 pi
+            self._t_ref = time.monotonic()
+            self._enc_hist.push(0.0, float(angle_source()))
+            sampler.start()
+        producer.start()
+        L = cfg.line_capacity
+        try:
+            while max_scans is None or len(results) < max_scans:
+                out = feeder.pop(timeout_ms=100)
+                if out is None:
+                    if self._producer_done.is_set() and feeder.depth == 0:
+                        break
+                    continue
+                ranges, intens, stamp, angle = out
+                if self._enc_hist is not None:
+                    q = float(angle)              # line arrival, rel. t_ref
+                    t_arr = self._t_ref + q
+                    # bounded wait for a bracketing sample: one comes at
+                    # most a sampler period away, so wait up to ~5 periods
+                    deadline = time.monotonic() + 5.0 / encoder_rate_hz
+                    while (self._enc_hist.newest_t() < q
+                           and time.monotonic() < deadline):
+                        time.sleep(0.25 / encoder_rate_hz)
+                    angle = self._enc_hist.at(q)
+                    self.line_angles.append((t_arr, angle))
+                n = ranges.shape[0]
+                dirs = self._directions(n)
+                pts = dirs * ranges[:, None]
+                valid = (ranges >= cfg.range_min) & (ranges <= cfg.range_max)
+                pts_p = np.zeros((L, 3), np.float32)
+                val_p = np.zeros((L,), bool)
+                int_p = np.zeros((L,), np.float32)
+                pts_p[:n], val_p[:n], int_p[:n] = pts, valid, intens
+                T = self.chain.base_from_laser(float(angle), device=dev)
+                agg_state = self.aggregator.add_line(
+                    agg_state, torch.from_numpy(pts_p).to(dev),
+                    torch.from_numpy(val_p).to(dev), T,
+                    torch.from_numpy(int_p).to(dev))
+                self.lines += 1
+                if bool(self.aggregator.ready(agg_state)):
+                    cloud, agg_state = self.aggregator.emit(agg_state)
+                    metrics = None
+                    if self.slam is not None:
+                        slam_state, metrics = self.slam.step(slam_state,
+                                                             cloud)
+                        self.slam_state = slam_state
+                    results.append((cloud, metrics))
+                    if on_scan is not None:
+                        on_scan(cloud, metrics)
+        finally:
+            self._producer_done.wait(timeout=cfg.poll_timeout_ms / 1e3 + 1.0)
+            producer.join(timeout=2.0)
+            self._sampler_stop.set()
+            if sampler is not None:
+                sampler.join(timeout=2.0)
+            self.dropped_lines = feeder.dropped
+            feeder.close()
+        if self._producer_error is not None:
+            raise self._producer_error
+        self.slam_state = slam_state
+        return results
+
+    # -- second (front) static laser ----------------------------------------
+
+    def run_front(self, lms: NativeLms,
+                  on_line: Callable[[np.ndarray, np.ndarray, float], None],
+                  max_lines: Optional[int] = None,
+                  sensor_model: Optional[str] = None) -> int:
+        """Stream the front-facing STATIC laser (universal.launch's second
+        SICK; TF at encoder_node_li.cpp:83-85) into base-frame planar
+        scans on the host: ``on_line(points_base, valid, stamp)`` receives
+        each line. Returns the number of lines delivered."""
+        cfg = self.config
+        sm = SensorModel.by_name(sensor_model or cfg.sensor_model)
+        T = front_laser_transform(sm).numpy()
+        dirs = None
+        n = 0
+        while max_lines is None or n < max_lines:
+            out = lms.poll(timeout_ms=cfg.poll_timeout_ms)
+            if out is None:
+                break
+            meta, ranges, _ = out
+            if dirs is None or dirs.shape[0] != ranges.shape[0]:
+                step = math.radians(meta.ang_step_deg)
+                ang = (math.radians(cfg.start_angle_deg)
+                       + step * np.arange(ranges.shape[0]))
+                if cfg.invert_scan:
+                    ang = ang[::-1].copy()
+                dirs = np.stack([np.cos(ang), np.sin(ang),
+                                 np.zeros_like(ang)], axis=1)
+            pts = (dirs * ranges[:, None]) @ T[:3, :3].T + T[:3, 3]
+            valid = (ranges >= cfg.range_min) & (ranges <= cfg.range_max)
+            on_line(pts.astype(np.float32), valid,
+                    meta.time_since_startup_us * 1e-6)
+            n += 1
+        return n
