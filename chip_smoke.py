@@ -4,7 +4,9 @@ full SLAM on the dense engine (bench config 4), pair ICP on both tiers
 (bench config 1), the gather probes, the dense engine's options, the host
 engine on the sparse voxel map (LidarOdometry, JitLidarOdometry and
 SLAMSystem on it), scan-to-map NDT on the sparse voxel map (bench config
-3), bag replay through the CLI (bench config 6), the rotating unit's live
+3), bag replay through the CLI (bench config 6), the distributed layer
+(bench config 5: the sharded map and NDT; the sharded dense step, ICP
+batch and pose-graph solvers; the heartbeat), the rotating unit's live
 chain (CoLa-A stream -> native poller -> aggregator -> SLAM, and run_live)
 and the extrinsic calibration.
 
@@ -115,6 +117,37 @@ Phases, each printing one JSON line:
                port's run_odometry CLI (--engine dense, the bench's --set
                list): scans, ATE, RPE, wall time, scans/s and the share of
                the host conversions
+  distributed  tpu_slam_torch.distributed on 4 gloo ranks sharing this
+               card (spawned once through distributed.mesh.run_ranks; every
+               collective staged through host memory, counted), each case
+               against the single device on the same inputs:
+               dist_map (config 5 at config 3's scale: the 453,009-voxel
+               map split by slab_owner, the street scan through
+               insert_cloud_sharded, each rank's keys and counts the single
+               map's rows of its slab; ndt_register_sharded on the kernel
+               tier over the (160, 160, 32) window from the bench's
+               perturbation: pose within 1e-4, score within 1e-3, matched
+               equal; registrations/s, collectives and staged bytes a
+               registration, rank 0's profile), dist_dense
+               (dense_step_sharded, config 2 at pyramid_factor 1 without
+               scroll, its 6 scans of 65,536 rays through the turn, the
+               first motion seeded: pose within 1e-4 of
+               DenseLidarOdometry at every step), dist_icp
+               (sharded_pairwise_icp on the slam run's verification batch,
+               6 pairs x 4,096 padded to 8: T within 1e-5 of the batched
+               icp), dist_graph (optimize_pose_graph_sharded and
+               optimize_pose_graph_schur on the slam run's graph against
+               optimize_pose_graph's PCG and dense solves: 2e-3 / 1e-2;
+               Schur 1e-4 / 1e-4, in float64 against the float64 dense
+               solve and in float32 against both the float32 and the
+               float64 dense solve; ms and kernel launches a solve),
+               dist_health
+               (the heartbeat, healthy and with a hung probe); every rank
+               bit-identical; then dist_map, dist_icp and dist_graph at
+               world size 1 on NCCL (bit-equality to the single device
+               recorded), and what NCCL says to two ranks on one card
+  kernels      ndt_terms on rank 0's share of dist_map's terms pass and
+               nn_search on rank 0's verification shard
   live         the rotating unit's live chain: an LMS100 (541 beams, 270
                degrees) on loopback TCP at 50 Hz, CoLa-A telegrams with the
                mm quantization, the unit turning without a break while the
@@ -151,6 +184,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -3766,6 +3800,808 @@ def phase_live_kernels(terms_args, nn_args):
     return terms, nn
 
 
+# ---------------------------------------------------------------------------
+# The distributed layer (tpu_slam_torch/distributed): config 5 and the
+# multichip paths, on ranks spawned through distributed.mesh.run_ranks
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 4
+DIST_MAP_REGS = 5               # timed registrations a run
+DIST_DENSE_STEPS = 6
+DIST_DENSE_FIRST = 7            # config 2's scans 7-13: the turn
+DIST_ICP_PAIRS = 6
+# bars against the single-device result on the same inputs: the
+# reference's own test bars (tests/test_distributed.py)
+DIST_MAP_POSE_TOL = 1e-4
+DIST_MAP_SCORE_TOL = 1e-3
+DIST_DENSE_POSE_TOL = 1e-4
+DIST_ICP_T_TOL = 1e-5
+DIST_PCG_POSE_TOL, DIST_PCG_CHI2_RTOL = 2e-3, 1e-2
+DIST_SCHUR_POSE_TOL, DIST_SCHUR_CHI2_RTOL = 1e-4, 1e-4
+DIST_HEARTBEAT_TIMEOUT_S = 1.0
+
+
+def dist_map_params():
+    """Config 3's fine solve (phase_config3's fparams) with a two-iteration
+    GNC stage on the same window, from the bench's perturbation."""
+    from tpu_slam_torch.registration.ndt import NDTParams
+
+    return NDTParams(max_iterations=5, coarse_iterations=2, tolerance=1e-3,
+                     min_voxel_count=3.0, rebin_iters=5, window_dims=C3_FINE)
+
+
+def dist_graph_solves():
+    """(name, solver, params, dtype): the edge-sharded PCG (held to the
+    single-device PCG), the Schur solve (held to the dense solve), and the
+    Schur solve in float64 (held to the dense solve in float64: the two
+    are the same exact elimination, so float32's rounding on a 216-pose
+    graph is measured apart from the algorithm)."""
+    from tpu_slam_torch.graph.pose_graph import GraphSolveParams
+
+    pcg = GraphSolveParams(gn_iterations=6, cg_iterations=200,
+                           cg_tolerance=1e-12)
+    dense = GraphSolveParams(gn_iterations=6, solver="dense")
+    return [("pcg", "pcg", pcg, "float32"),
+            ("schur", "schur", dense, "float32"),
+            ("schur64", "schur", dense, "float64")]
+
+
+def dist_config2():
+    """Config 2 at pyramid_factor 1 with the window held still (the
+    sharded step has no scroll, as in the reference)."""
+    import dataclasses
+
+    return dataclasses.replace(config2(), pyramid_factor=1,
+                               rebase_fraction=10.0)
+
+
+def _sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def _graph_numpy(g):
+    return dict(poses=g.poses.cpu().numpy(), n_nodes=int(g.n_nodes),
+                edge_i=g.edge_i.cpu().numpy(), edge_j=g.edge_j.cpu().numpy(),
+                edge_T=g.edge_T.cpu().numpy(),
+                edge_info=g.edge_info.cpu().numpy(),
+                edge_mask=g.edge_mask.cpu().numpy())
+
+
+def _graph_torch(g, device, dtype="float32"):
+    import torch
+
+    from tpu_slam_torch.graph.pose_graph import PoseGraph
+
+    def t(x, dt):
+        return torch.as_tensor(np.array(x), dtype=dt, device=device)
+
+    f = getattr(torch, dtype)
+    return PoseGraph(poses=t(g["poses"], f), n_nodes=int(g["n_nodes"]),
+                     edge_i=t(g["edge_i"], torch.long),
+                     edge_j=t(g["edge_j"], torch.long),
+                     edge_T=t(g["edge_T"], f), edge_info=t(g["edge_info"], f),
+                     edge_mask=t(g["edge_mask"], torch.bool))
+
+
+def _cloud(pts_mask, device):
+    import torch
+
+    from tpu_slam_torch.core.pointcloud import PointCloud
+
+    pts, mask = pts_mask
+    return PointCloud(points=torch.as_tensor(pts, device=device),
+                      mask=torch.as_tensor(mask, device=device))
+
+
+def _rank_profile(mesh, fn, counter):
+    """registration_profile on rank 0; the other ranks make the same three
+    calls (the collectives need every rank)."""
+    if mesh.rank == 0:
+        return registration_profile(fn, counter)
+    for _ in range(3):
+        fn()
+    _sync()
+    return None
+
+
+def dist_map_rank(mesh, job):
+    """Config 5 on a rank: its slab of config 3's map (from the stacked
+    arrays on disk), the street scan inserted through insert_cloud_sharded,
+    then ndt_register_sharded on the kernel tier: the counted main-path
+    registration, DIST_MAP_REGS timed ones, a profiled one, and rank 0's
+    terms inputs at the result for the kernel check."""
+    import torch
+
+    from tpu_slam_torch.distributed import map_shard as ms
+    from tpu_slam_torch.kernels.ndt_terms import (build_terms_raster,
+                                                  ndt_terms, ndt_terms_plain)
+
+    dev = mesh.device
+    stacked = {f: np.load(f"{job['dir']}/{mesh.size}/{f}.npy",
+                          mmap_mode="r")
+               for f in ms.MAP_FIELDS}
+    smap = ms.from_stacked(mesh, stacked)
+    spec, params = job["spec"], job["params"]
+    smap = ms.insert_cloud_sharded(mesh, smap, _cloud(job["world"], dev),
+                                   spec, job["stamp"])
+    occ = smap.shard.occupied_mask()
+    out = dict(keys=smap.shard.keys[occ].cpu().numpy(),
+               count=smap.shard.count[occ].cpu().numpy())
+    src = _cloud(job["src"], dev)
+    init = torch.as_tensor(job["init"], device=dev)
+    center = torch.as_tensor(job["center"], device=dev)
+
+    def register():
+        return ms.ndt_register_sharded(mesh, src, smap, spec, init_T=init,
+                                       params=params, center=center)
+
+    plain_before = ndt_terms_plain.launches
+    _sync()
+    mesh.stats.reset()
+    ndt_terms.launches = 0
+    t0 = time.perf_counter()
+    res = register()
+    _sync()
+    out.update(seconds=time.perf_counter() - t0,
+               launches=ndt_terms.launches,
+               plain_launches=ndt_terms_plain.launches - plain_before,
+               collectives=mesh.stats.as_dict(),
+               T=res.T.cpu().numpy(), score=float(res.score),
+               matched=float(res.matched_fraction),
+               iterations=int(res.iterations))
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(job["regs"]):
+        register()
+    _sync()
+    out["regs_per_s"] = job["regs"] / (time.perf_counter() - t0)
+    out["profile"] = _rank_profile(mesh, register,
+                                   lambda: ndt_terms.launches)
+    # rank 0's share of the terms pass at the result, for the kernel check
+    wx, wy, wz = params.window_dims
+    rows, c0 = ms.window_rows_local(mesh, smap.shard, spec, params,
+                                    params.window_dims, center)
+    if mesh.rank == 0:
+        s = wx // mesh.size
+        sane = src.sanitize()
+        origin_w = spec.origin_tensor(dev) + c0.to(torch.float32) * spec.leaf
+        slots, _ = build_terms_raster(sane.points, sane.mask, res.T,
+                                      origin_w, spec.leaf, (wx, wy, wz),
+                                      params.raster_q, own_x=(0, s))
+        out["case"] = dict(points=slots.points.cpu().numpy(),
+                           cell=slots.cell.cpu().numpy(),
+                           valid=slots.valid.cpu().numpy(),
+                           rows=rows.cpu().numpy(), T=res.T.cpu().numpy(),
+                           gamma=float(np.float32(params.score_temperature)),
+                           max_corr=params.max_corr_dist,
+                           dims=(s + 2, wy, wz))
+    return out
+
+
+def dist_dense_rank(mesh, job):
+    """dense_step_sharded over config 2's scans through the turn from this
+    rank's x-chunk of the engine's first window."""
+    import torch
+
+    from tpu_slam_torch.distributed.dense_shard import dense_step_sharded
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms, ndt_terms_plain
+
+    dev = mesh.device
+    dims = job["dims"]
+    per = dims[0] // mesh.size * dims[1] * dims[2]
+    rows0 = np.load(job["rows"], mmap_mode="r")
+    rows = torch.as_tensor(np.array(rows0[mesh.rank * per:
+                                          (mesh.rank + 1) * per]),
+                           device=dev)
+    oc = torch.as_tensor(job["origin_cell"], device=dev)
+    pose = torch.as_tensor(job["pose"], device=dev)
+    delta = torch.as_tensor(job["delta"], device=dev)
+    scans = [_cloud(s, dev) for s in job["scans"]]
+    poses, metrics, step_s = [], [], []
+    plain_before = ndt_terms_plain.launches
+    _sync()
+    mesh.stats.reset()
+    ndt_terms.launches = 0
+    for scan in scans:
+        t0 = time.perf_counter()
+        rows, pose, delta, m = dense_step_sharded(
+            mesh, rows, oc, pose, delta, scan, job["spec"], dims,
+            job["params"], **job["gates"])
+        poses.append(pose.cpu().numpy())
+        metrics.append(m.cpu().numpy())
+        step_s.append(time.perf_counter() - t0)
+    return dict(poses=np.stack(poses), metrics=np.stack(metrics),
+                step_s=step_s, launches=ndt_terms.launches,
+                plain_launches=ndt_terms_plain.launches - plain_before,
+                collectives=mesh.stats.as_dict())
+
+
+def dist_icp_rank(mesh, job):
+    """sharded_pairwise_icp on the slam run's verification batch."""
+    import torch
+
+    from tpu_slam_torch.distributed.registration_dist import \
+        sharded_pairwise_icp
+    from tpu_slam_torch.kernels.nn_search import (nearest_neighbors,
+                                                  nearest_neighbors_plain)
+
+    dev = mesh.device
+    args = [torch.as_tensor(job[k], device=dev)
+            for k in ("src", "src_mask", "tgt", "tgt_mask", "init")]
+    plain_before = nearest_neighbors_plain.launches
+    _sync()
+    mesh.stats.reset()
+    nearest_neighbors.launches = 0
+    t0 = time.perf_counter()
+    res = sharded_pairwise_icp(mesh, *args, params=job["params"])
+    _sync()
+    return dict(seconds=time.perf_counter() - t0,
+                launches=nearest_neighbors.launches,
+                plain_launches=nearest_neighbors_plain.launches
+                - plain_before,
+                collectives=mesh.stats.as_dict(),
+                T=res.T.cpu().numpy(), iterations=res.iterations.cpu().numpy(),
+                converged=res.converged.cpu().numpy())
+
+
+def _rank_launches(mesh, fn):
+    """Kernel launches and host syncs of one call of ``fn`` on rank 0,
+    under torch.profiler; the other ranks make the same call unprofiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if mesh.rank != 0:
+        fn()
+        _sync()
+        return None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    return dict(
+        kernel_launches=sum(e.count for e in ka if e.key in (
+            "cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")),
+        host_syncs=sum(e.count for e in ka
+                       if e.key == "aten::_local_scalar_dense"))
+
+
+def dist_graph_rank(mesh, job):
+    """The edge-sharded PCG and the Schur solves on the slam run's graph,
+    each timed; then one GN iteration of each float32 solve with rank 0
+    under the profiler (kernel launches an iteration; a whole PCG solve,
+    ~70,000 launches, takes the profiler minutes)."""
+    import dataclasses
+
+    from tpu_slam_torch.distributed.pose_graph_dist import \
+        optimize_pose_graph_sharded
+    from tpu_slam_torch.distributed.schur import optimize_pose_graph_schur
+
+    solvers = dict(pcg=optimize_pose_graph_sharded,
+                   schur=optimize_pose_graph_schur)
+    out = {}
+    for name, solver, params, dtype in job["solves"]:
+        graph = _graph_torch(job["graph"], mesh.device, dtype)
+        _sync()
+        mesh.stats.reset()
+        t0 = time.perf_counter()
+        g, chi2 = solvers[solver](mesh, graph, params)
+        _sync()
+        out[name] = dict(seconds=time.perf_counter() - t0,
+                         collectives=mesh.stats.as_dict(),
+                         poses=g.poses.cpu().numpy(), chi2=float(chi2))
+        if dtype == "float32":
+            one = dataclasses.replace(params, gn_iterations=1)
+            out[name]["per_gn_iteration"] = _rank_launches(
+                mesh, lambda: solvers[solver](mesh, graph, one))
+    return out
+
+
+def dist_health_rank(mesh, job):
+    from tpu_slam_torch.distributed.multihost import heartbeat
+
+    t0 = time.perf_counter()
+    healthy = heartbeat(mesh, timeout_s=30.0)
+    healthy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hung = heartbeat(mesh, timeout_s=job["timeout_s"],
+                     _probe_fn=lambda x: time.sleep(30))
+    return dict(healthy=healthy, healthy_s=healthy_s, hung=hung,
+                hung_s=time.perf_counter() - t0)
+
+
+def dist_rank_body(mesh, jobs):
+    """A rank's whole distributed phase: each job in order, with the
+    rank's device and its CUDA libraries loaded once."""
+    import torch
+
+    from tpu_slam_torch.kernels import _build
+
+    for name in sorted(p.stem for p in _build.CSRC.glob("*.cu")):
+        _build.load(name)
+    run = dict(map=dist_map_rank, dense=dist_dense_rank, icp=dist_icp_rank,
+               graph=dist_graph_rank, health=dist_health_rank)
+    out = dict(device=str(mesh.device), backend=mesh.backend)
+    for name, job in jobs:
+        torch.cuda.reset_peak_memory_stats()
+        out[name] = run[name](mesh, job)
+        out[name]["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def nccl_pair_probe(mesh):
+    """Two NCCL ranks on one card: one all-reduce."""
+    import torch
+
+    from tpu_slam_torch.distributed import mesh as M
+
+    return M.all_reduce(mesh, torch.ones(4, device=mesh.device))
+
+
+def dist_map_job(w, tmpdir):
+    """Config 5 at config 3's scale: the map split by slab_owner into
+    DIST_RANKS stacked shards on disk (each rank loads its own), the street
+    scan in the world frame, the bench's perturbed source; and the single
+    device's insert and registration on the same inputs."""
+    import torch
+
+    from tpu_slam_torch.core import se3
+    from tpu_slam_torch.distributed import map_shard as ms
+    from tpu_slam_torch.mapping.voxel_map import insert_cloud
+    from tpu_slam_torch.registration.ndt import ndt_field, ndt_register
+
+    vmap, spec, Tw = w["vmap"], w["map_spec"], w["Tw"]
+    dev = Tw.device
+    params = dist_map_params()
+    world = w["cloud"].transform(Tw)
+    owner = ms.slab_owner(vmap.keys, spec, DIST_RANKS)
+    n_slab = [int((owner == d).sum()) for d in range(DIST_RANKS)]
+    cap = -(-(max(n_slab) + w["cloud"].capacity) // 4096) * 4096
+    # the shards of the 4-way split, and the whole map as one shard (world
+    # size 1), each as (D, C, ...) arrays under tmpdir/<D>/
+    for n in (DIST_RANKS, 1):
+        os.makedirs(f"{tmpdir}/{n}")
+    for f in ms.MAP_FIELDS:
+        full = getattr(vmap, f)
+        np.save(f"{tmpdir}/1/{f}.npy", full.cpu().numpy()[None])
+        rows = []
+        for d in range(DIST_RANKS):
+            fill = (np.iinfo(np.int32).max if f == "keys"
+                    else -np.inf if f == "stamp" else 0.0)
+            a = np.full((cap,) + tuple(full.shape[1:]), fill,
+                        full.cpu().numpy().dtype)
+            part = full[owner == d].cpu().numpy()
+            a[:len(part)] = part
+            rows.append(a)
+        np.save(f"{tmpdir}/{DIST_RANKS}/{f}.npy", np.stack(rows))
+    E = se3.exp(torch.tensor(C3_XI, dtype=torch.float32, device=dev))
+    src = w["scan"].transform(se3.inverse(E))
+    center = Tw[:3, 3]
+    job = dict(dir=tmpdir, spec=spec, params=params, stamp=1.0,
+               world=(world.points.cpu().numpy(), world.mask.cpu().numpy()),
+               src=(src.points.cpu().numpy(), src.mask.cpu().numpy()),
+               init=Tw.cpu().numpy(), center=center.cpu().numpy(),
+               regs=DIST_MAP_REGS)
+
+    single = insert_cloud(vmap, world, spec, 1.0, incremental=False)
+
+    def register():
+        # the field is part of a registration, as in ndt_register_sharded
+        field = ndt_field(single, spec, params, center=center)
+        return ndt_register(src, field, spec, init_T=Tw, params=params)
+
+    res = register()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(DIST_MAP_REGS):
+        register()
+    _sync()
+    regs_per_s = DIST_MAP_REGS / (time.perf_counter() - t0)
+    T_true = Tw @ E
+    err = se3.log(se3.inverse(T_true) @ res.T)
+    sowner = ms.slab_owner(single.keys, spec, DIST_RANKS)
+    ref = dict(T=res.T.cpu().numpy(), score=float(res.score),
+               matched=float(res.matched_fraction),
+               iterations=int(res.iterations), regs_per_s=regs_per_s,
+               err_mm=float(torch.linalg.vector_norm(err[:3])) * 1e3,
+               T_true=T_true.cpu().numpy(),
+               slab_keys=[single.keys[sowner == d].cpu().numpy()
+                          for d in range(DIST_RANKS)],
+               slab_count=[single.count[sowner == d].cpu().numpy()
+                           for d in range(DIST_RANKS)],
+               map_voxels=int(single.n_occupied()), slab_voxels=n_slab,
+               shard_capacity=cap)
+    return job, ref
+
+
+def dist_dense_job(clouds, gt, tmpdir):
+    """dist_config2's engine on ``clouds`` (config 2's scans through the
+    turn: on the straight street the fine window alone slides along it
+    without the coarse pyramid, in the single engine as in the sharded
+    step): its first window (on disk, for the ranks' chunks), the
+    downsampled and range-gated scans it registers, and its poses and
+    metrics."""
+    import dataclasses
+
+    import torch
+
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.pipeline.odometry_dense import DenseLidarOdometry
+
+    cfg = dist_config2()
+    od = DenseLidarOdometry(cfg, device=clouds[0].points.device)
+    state = od.init_state(clouds[0], gt[0])
+    # the route's first motion as the constant-velocity seed: without the
+    # coarse pyramid a 1.6 m step from a standing start is out of the fine
+    # window's capture range
+    delta0 = (np.linalg.inv(np.asarray(gt[0], np.float64))
+              @ np.asarray(gt[1], np.float64)).astype(np.float32)
+    state = dataclasses.replace(state, last_delta=torch.as_tensor(
+        delta0, device=state.pose.device))
+    np.save(f"{tmpdir}/dense_rows.npy", state.grid.rows.cpu().numpy())
+    job = dict(rows=f"{tmpdir}/dense_rows.npy", delta=delta0,
+               origin_cell=state.grid.origin_cell.cpu().numpy(),
+               pose=np.asarray(gt[0], np.float32), dims=cfg.ndt.window_dims,
+               spec=cfg.map_spec(), params=cfg.ndt, scans=[],
+               gates=dict(min_accept_fraction=cfg.min_accept_fraction,
+                          min_insert_fraction=cfg.min_insert_fraction,
+                          max_pred_translation=cfg.max_pred_translation,
+                          max_pred_rotation=cfg.max_pred_rotation))
+    poses, metrics = [], []
+    t0 = time.perf_counter()
+    for c in clouds[1:DIST_DENSE_STEPS + 1]:
+        # the scan the engine registers (DenseLidarOdometry.step)
+        scan = od.downsample(c)
+        rng2 = torch.sum(scan.points[:, :2] ** 2, dim=1)
+        scan = PointCloud(points=scan.points,
+                          mask=scan.mask & (rng2 < cfg.scan_max_range ** 2),
+                          attrs=scan.attrs).sanitize()
+        job["scans"].append((scan.points.cpu().numpy(),
+                             scan.mask.cpu().numpy()))
+        state = od.step(state, c)
+        poses.append(state.pose.cpu().numpy())
+        metrics.append(state.last_metrics.cpu().numpy())
+    _sync()
+    poses = np.stack(poses)
+    gt_t = np.asarray(gt[1:DIST_DENSE_STEPS + 1])[:, :3, 3]
+    return job, dict(poses=poses, metrics=np.stack(metrics),
+                     seconds=time.perf_counter() - t0, gt_t=gt_t,
+                     ate_m=float(np.sqrt(np.mean(np.sum(
+                         (poses[:, :3, 3] - gt_t) ** 2, axis=1)))))
+
+
+def dist_icp_job(run):
+    """The slam run's verification batch (its first DIST_ICP_PAIRS loop
+    pairs: source keyframe j, target i, init T_i^-1 T_j) and the port's
+    batched icp on it."""
+    import torch
+
+    from tpu_slam_torch.core import se3
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.registration.icp import icp
+
+    state = run["state"]
+    pairs = sorted(state.loop_pairs)[:DIST_ICP_PAIRS]
+    dev = state.kf_points.device
+    ci = torch.as_tensor([p[0] for p in pairs], device=dev)
+    cj = torch.as_tensor([p[1] for p in pairs], device=dev)
+    init = se3.inverse(state.graph.poses[ci]) @ state.graph.poses[cj]
+    params = config4().loop.icp
+    args = dict(src=state.kf_points[cj], src_mask=state.kf_mask[cj],
+                tgt=state.kf_points[ci], tgt_mask=state.kf_mask[ci],
+                init=init)
+    _sync()
+    t0 = time.perf_counter()
+    res = icp(PointCloud(points=args["src"], mask=args["src_mask"]),
+              PointCloud(points=args["tgt"], mask=args["tgt_mask"]),
+              init_T=init, params=params)
+    _sync()
+    job = {k: v.cpu().numpy() for k, v in args.items()}
+    job["params"] = params
+    return job, dict(T=res.T.cpu().numpy(),
+                     iterations=res.iterations.cpu().numpy(),
+                     converged=res.converged.cpu().numpy(),
+                     seconds=time.perf_counter() - t0, pairs=pairs)
+
+
+def dist_graph_job(run):
+    """The slam run's final graph and the single-device solves of it: the
+    PCG, and the dense solve in float32 and float64."""
+    from tpu_slam_torch.graph.pose_graph import optimize_pose_graph
+
+    graph = run["state"].graph
+    gnp = _graph_numpy(graph)
+    ref = {}
+    for name, _, p, dtype in dist_graph_solves():
+        # the PCG against the single-device PCG, the Schur solves against
+        # the dense solve (their params say solver="dense")
+        g_in = _graph_torch(gnp, graph.poses.device, dtype)
+        _sync()
+        t0 = time.perf_counter()
+        g, chi2 = optimize_pose_graph(g_in, p)
+        _sync()
+        ref[name] = dict(poses=g.poses.cpu().numpy(), chi2=float(chi2),
+                         seconds=time.perf_counter() - t0, solver=p.solver)
+    return dict(graph=gnp, solves=dist_graph_solves()), dict(
+        ref, n_nodes=int(graph.n_nodes),
+        node_capacity=graph.node_capacity,
+        edge_capacity=graph.edge_capacity,
+        edges=int(graph.edge_mask.sum()))
+
+
+def _dist_check_map(got, ref, label, n):
+    """Every rank's insert against the single map's slab rows (ranks of a
+    4-way split; world size 1 holds the whole map), the registration
+    against the single device."""
+    for r, out in enumerate(got):
+        if n == DIST_RANKS:
+            want_k, want_c = ref["slab_keys"][r], ref["slab_count"][r]
+        else:
+            want_k = np.concatenate(ref["slab_keys"])
+            want_c = np.concatenate(ref["slab_count"])
+        m = out["map"]
+        if not (np.array_equal(m["keys"], want_k)
+                and np.array_equal(m["count"], want_c)):
+            raise AssertionError(f"{label}: rank {r}'s keys or counts differ "
+                                 "from the single map's slab")
+        if m["plain_launches"] or m["launches"] <= 0:
+            raise AssertionError(f"{label}: rank {r} ran the plain terms or "
+                                 "no ndt_terms kernel")
+    m = got[0]["map"]
+    d_pose = float(np.abs(m["T"] - ref["T"]).max())
+    if not d_pose <= DIST_MAP_POSE_TOL:
+        raise AssertionError(f"{label}: pose {d_pose} from the single "
+                             "device's")
+    if not abs(m["score"] - ref["score"]) <= DIST_MAP_SCORE_TOL:
+        raise AssertionError(f"{label}: score {m['score']} vs {ref['score']}")
+    if m["matched"] != ref["matched"]:
+        raise AssertionError(f"{label}: matched {m['matched']} != single "
+                             f"{ref['matched']}")
+    return d_pose
+
+
+def _dist_check_icp(got, ref, label):
+    for r, out in enumerate(got):
+        if out["icp"]["plain_launches"] or out["icp"]["launches"] <= 0:
+            raise AssertionError(f"{label}: rank {r} ran the plain NN or "
+                                 "no nn_search kernel")
+    i = got[0]["icp"]
+    d_T = float(np.abs(i["T"] - ref["T"]).max())
+    if not d_T <= DIST_ICP_T_TOL:
+        raise AssertionError(f"{label}: T {d_T} from the batched icp's")
+    if not np.array_equal(i["converged"], ref["converged"]):
+        raise AssertionError(f"{label}: converged flags differ")
+    return d_T
+
+
+def _dist_check_graph(got, ref, label):
+    """PCG against the single-device PCG, the float64 Schur solve against
+    the float64 dense solve, and the float32 Schur solve against both the
+    float32 and the float64 dense solve, each at the reference tests'
+    bars. Returns (errors, failures)."""
+    out, failed = {}, []
+    n = ref["n_nodes"]
+    schur = (DIST_SCHUR_POSE_TOL, DIST_SCHUR_CHI2_RTOL)
+    for key, name, want, (ptol, ctol) in (
+            ("pcg", "pcg", "pcg", (DIST_PCG_POSE_TOL, DIST_PCG_CHI2_RTOL)),
+            ("schur64", "schur64", "schur64", schur),
+            ("schur", "schur", "schur", schur),
+            ("schur_vs_dense_f64", "schur", "schur64", schur)):
+        g, w = got[0]["graph"][name], ref[want]
+        d_pose = float(np.abs(g["poses"][:n] - w["poses"][:n]).max())
+        d_chi = abs(g["chi2"] - w["chi2"]) / max(w["chi2"], 1.0)
+        if not (d_pose <= ptol and d_chi <= ctol):
+            failed.append(f"{label} {key}: poses {d_pose} (bar {ptol}), "
+                          f"chi2 {d_chi} (bar {ctol})")
+        out[key] = dict(pose_err=d_pose, pose_bar=ptol, chi2_rel_err=d_chi)
+    return out, failed
+
+
+def _bit_identical(got, key, fields):
+    from tpu_slam_torch.distributed.mesh import rank_results_equal
+
+    return rank_results_equal([{f: out[key][f] for f in fields}
+                               for out in got])
+
+
+def phase_distributed(run, w3, dense_job, dense_ref):
+    """The distributed layer at full width: DIST_RANKS gloo ranks on this
+    card (time-sharing it), then world size 1 on NCCL; every result against
+    the single device's on the same inputs. Returns (ndt_terms launches by
+    path, nn_search launches by path, ndt_terms cases, nn_search cases)."""
+    import torch
+
+    from tpu_slam_torch.distributed.mesh import run_ranks
+    from tpu_slam_torch.kernels.ndt_terms import TermsSlots
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        t0 = time.perf_counter()
+        map_job, map_ref = dist_map_job(w3, tmpdir)
+        icp_job, icp_ref = dist_icp_job(run)
+        graph_job, graph_ref = dist_graph_job(run)
+        prep_s = time.perf_counter() - t0
+        health = dict(timeout_s=DIST_HEARTBEAT_TIMEOUT_S)
+        jobs = [("map", map_job), ("dense", dense_job), ("icp", icp_job),
+                ("graph", graph_job), ("health", health)]
+        t0 = time.perf_counter()
+        got = run_ranks(dist_rank_body, DIST_RANKS, jobs, backend="gloo",
+                        device="cuda", threads=2, timeout_s=600)
+        gloo_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nccl = run_ranks(dist_rank_body, 1,
+                         [("map", map_job), ("icp", icp_job),
+                          ("graph", graph_job)],
+                         backend="nccl", device="cuda", threads=2,
+                         timeout_s=600)
+        nccl_s = time.perf_counter() - t0
+    # NCCL and two ranks on one card: what it says
+    t0 = time.perf_counter()
+    try:
+        run_ranks(nccl_pair_probe, 2, backend="nccl", device="cuda",
+                  timeout_s=90)
+        nccl_two = "ran"
+    except (RuntimeError, TimeoutError) as e:
+        nccl_two = str(e).strip().splitlines()[-1][:300]
+    nccl_two_s = time.perf_counter() - t0
+
+    # dist_map
+    d_map = _dist_check_map(got, map_ref, "dist_map", DIST_RANKS)
+    if not _bit_identical(got, "map", ("T", "score", "matched")):
+        raise AssertionError("dist_map: ranks disagree")
+    m = got[0]["map"]
+    map_launches = sum(out["map"]["launches"] for out in got)
+    emit("distributed", case="dist_map", ranks=DIST_RANKS, backend="gloo",
+         map_voxels=map_ref["map_voxels"], slab_voxels=map_ref["slab_voxels"],
+         shard_capacity=map_ref["shard_capacity"],
+         window=list(C3_FINE), planes_per_rank=C3_FINE[0] // DIST_RANKS,
+         pose_err_vs_single=d_map,
+         score=m["score"], single_score=map_ref["score"],
+         matched=m["matched"], single_matched=map_ref["matched"],
+         iterations=m["iterations"], single_iterations=map_ref["iterations"],
+         err_mm_vs_truth=float(np.linalg.norm(
+             (np.linalg.inv(map_ref["T_true"]) @ m["T"])[:3, 3])) * 1e3,
+         single_err_mm_vs_truth=map_ref["err_mm"],
+         registration_s=m["seconds"], regs_per_s=m["regs_per_s"],
+         single_regs_per_s=map_ref["regs_per_s"],
+         rate_caveat=("4 ranks time-share one card and stage every "
+                      "collective through host memory (gloo): this rate "
+                      "measures the sharding overhead, not scaling"),
+         collectives_a_registration=m["collectives"],
+         ndt_terms_launches_by_rank=[o["map"]["launches"] for o in got],
+         profile_rank0=m["profile"],
+         peak_memory_bytes_by_rank=[o["map"]["peak_memory_bytes"]
+                                    for o in got])
+    # dist_dense
+    dd = [out["dense"] for out in got]
+    if not _bit_identical(got, "dense", ("poses", "metrics")):
+        raise AssertionError("dist_dense: ranks disagree")
+    if any(d["plain_launches"] or d["launches"] <= 0 for d in dd):
+        raise AssertionError("dist_dense: a rank ran the plain terms")
+    step_err = np.abs(dd[0]["poses"] - dense_ref["poses"]).max(axis=(1, 2))
+    emit("distributed", case="dist_dense", ranks=DIST_RANKS, backend="gloo",
+         window=list(dense_job["dims"]), steps=DIST_DENSE_STEPS,
+         pose_err_by_step=step_err.tolist(),
+         iterations=dd[0]["metrics"][:, 0].tolist(),
+         single_iterations=dense_ref["metrics"][:, 0].tolist(),
+         matched=dd[0]["metrics"][:, 1].tolist(),
+         single_matched=dense_ref["metrics"][:, 1].tolist(),
+         inserted=dd[0]["metrics"][:, 3].tolist(),
+         ate_m=float(np.sqrt(np.mean(np.sum(
+             (dd[0]["poses"][:, :3, 3] - dense_ref["gt_t"]) ** 2, axis=1)))),
+         single_ate_m=dense_ref["ate_m"],
+         step_s=dd[0]["step_s"], single_seconds=dense_ref["seconds"],
+         rate_caveat="4 ranks time-share one card: overhead, not scaling",
+         collectives=dd[0]["collectives"],
+         ndt_terms_launches_by_rank=[d["launches"] for d in dd])
+    if not step_err.max() <= DIST_DENSE_POSE_TOL:
+        raise AssertionError(f"dist_dense: pose error by step {step_err}")
+    # dist_icp
+    d_icp = _dist_check_icp(got, icp_ref, "dist_icp")
+    if not _bit_identical(got, "icp", ("T", "iterations", "converged")):
+        raise AssertionError("dist_icp: ranks disagree")
+    emit("distributed", case="dist_icp", ranks=DIST_RANKS, backend="gloo",
+         pairs=len(icp_ref["pairs"]), padded_to=-(-len(icp_ref["pairs"])
+                                                  // DIST_RANKS) * DIST_RANKS,
+         points=int(icp_job["src"].shape[1]), T_err_vs_batched=d_icp,
+         converged=got[0]["icp"]["converged"].tolist(),
+         iterations=got[0]["icp"]["iterations"].tolist(),
+         seconds=got[0]["icp"]["seconds"],
+         single_seconds=icp_ref["seconds"],
+         nn_search_launches_by_rank=[o["icp"]["launches"] for o in got],
+         collectives=got[0]["icp"]["collectives"])
+    # dist_graph
+    g_err, g_failed = _dist_check_graph(got, graph_ref, "dist_graph")
+    if not all(np.array_equal(o["graph"][k]["poses"],
+                              got[0]["graph"][k]["poses"])
+               for o in got for k in ("pcg", "schur", "schur64")):
+        raise AssertionError("dist_graph: ranks disagree")
+    emit("distributed", case="dist_graph", ranks=DIST_RANKS, backend="gloo",
+         n_nodes=graph_ref["n_nodes"],
+         node_capacity=graph_ref["node_capacity"],
+         edge_capacity=graph_ref["edge_capacity"], edges=graph_ref["edges"],
+         errors=g_err,
+         solve_ms={k: got[0]["graph"][k]["seconds"] * 1e3
+                   for k in ("pcg", "schur", "schur64")},
+         single_solve_ms={k: graph_ref[k]["seconds"] * 1e3
+                          for k in ("pcg", "schur", "schur64")},
+         launches_a_gn_iteration_rank0={
+             k: got[0]["graph"][k]["per_gn_iteration"]
+             for k in ("pcg", "schur")},
+         collectives={k: got[0]["graph"][k]["collectives"]
+                      for k in ("pcg", "schur")})
+    if g_failed:
+        raise AssertionError("; ".join(g_failed))
+    # dist_health
+    hh = [out["health"] for out in got]
+    emit("distributed", case="dist_health", ranks=DIST_RANKS,
+         healthy=[h["healthy"] for h in hh],
+         healthy_s=[h["healthy_s"] for h in hh],
+         hung=[h["hung"] for h in hh], hung_s=[h["hung_s"] for h in hh],
+         timeout_s=DIST_HEARTBEAT_TIMEOUT_S)
+    if not all(h["healthy"] is True and h["hung"] is False
+               and h["hung_s"] < DIST_HEARTBEAT_TIMEOUT_S + 5.0 for h in hh):
+        raise AssertionError("dist_health: heartbeat failed")
+    # world size 1 on NCCL
+    n_map = _dist_check_map(nccl, map_ref, "nccl_map", 1)
+    n_icp = _dist_check_icp(nccl, icp_ref, "nccl_icp")
+    n_graph, n_failed = _dist_check_graph(nccl, graph_ref, "nccl_graph")
+    c = nccl[0]
+    emit("distributed", case="nccl_world_1", backend=c["backend"],
+         device=c["device"],
+         nccl=".".join(map(str, torch.cuda.nccl.version())),
+         map_pose_err=n_map, map_bit_equal=bool(
+             np.array_equal(c["map"]["T"], map_ref["T"])
+             and c["map"]["score"] == map_ref["score"]),
+         map_regs_per_s=c["map"]["regs_per_s"],
+         map_collectives=c["map"]["collectives"],
+         icp_T_err=n_icp, icp_bit_equal=bool(
+             np.array_equal(c["icp"]["T"], icp_ref["T"])),
+         graph_errors=n_graph, graph_solve_ms={
+             k: c["graph"][k]["seconds"] * 1e3 for k in ("pcg", "schur")},
+         staged_bytes=c["map"]["collectives"]["staged_bytes"],
+         two_ranks_one_card=nccl_two, two_ranks_probe_s=nccl_two_s)
+    if n_failed:
+        raise AssertionError("; ".join(n_failed))
+    if c["backend"] != "nccl" or c["map"]["collectives"]["staged_copies"]:
+        raise AssertionError("nccl_world_1: not on NCCL or staged")
+    terms_launches = dict(dist_map=map_launches,
+                          dist_dense=sum(d["launches"] for d in dd),
+                          nccl_map=c["map"]["launches"])
+    nn_launches = dict(dist_icp=sum(o["icp"]["launches"] for o in got),
+                       nccl_icp=c["icp"]["launches"])
+
+    # the kernels at the distributed path's shapes: rank 0's share of the
+    # terms pass, and nn_search on rank 0's verification shard
+    dev = torch.device("cuda")
+    k = got[0]["map"]["case"]
+    slots = TermsSlots(points=torch.as_tensor(k["points"], device=dev),
+                       cell=torch.as_tensor(k["cell"], device=dev),
+                       valid=torch.as_tensor(k["valid"], device=dev),
+                       inside=torch.as_tensor(k["valid"], device=dev))
+    terms_cases = [check_terms_case("dist_map_rank0_share", (
+        slots, torch.as_tensor(k["rows"], device=dev),
+        torch.as_tensor(k["T"], device=dev), k["gamma"], k["max_corr"],
+        tuple(k["dims"])))]
+    per = -(-len(icp_ref["pairs"]) // DIST_RANKS)
+    q = torch.as_tensor(icp_job["src"][:per], device=dev)
+    init = torch.as_tensor(icp_job["init"][:per], device=dev)
+    qm = torch.as_tensor(icp_job["src_mask"][:per], device=dev)
+    tm = torch.as_tensor(icp_job["tgt_mask"][:per], device=dev)
+    from tpu_slam_torch.core import se3
+    q = torch.where(qm[..., None], se3.apply(init, q), 1e8).contiguous()
+    t = torch.where(tm[..., None], torch.as_tensor(
+        icp_job["tgt"][:per], device=dev), 1e8).contiguous()
+    nn_cases = [check_nn_case("dist_icp_rank0_shard", q, t, qm, tm)]
+    emit("kernels", kernels=["ndt_terms", "nn_search"],
+         cases=terms_cases + nn_cases, rtol_of_max=RTOL_OF_MAX)
+    emit("distributed_total", seconds=time.perf_counter() - t_phase,
+         prepare_s=prep_s, gloo_ranks_s=gloo_s, nccl_rank_s=nccl_s)
+    return terms_launches, nn_launches, terms_cases, nn_cases
+
+
 def kernel_entry(name, source, replaces, launches, cases, main):
     """One kernel's object of the final JSON line; ``main`` is the case
     whose times stand for the kernel."""
@@ -3821,6 +4657,13 @@ def main() -> int:
     # this slice's paths: the engine's options on config 2's scans, then
     # configs 3 and 6
     options_launches = phase_options(clouds, gt)
+    # the distributed phase's dense step: config 2's scans through the
+    # turn in the single-device engine at pyramid_factor 1 (its reference)
+    dist_dir = tempfile.TemporaryDirectory()
+    first = DIST_DENSE_FIRST
+    dense_job, dense_ref = dist_dense_job(
+        clouds[first:first + DIST_DENSE_STEPS + 1],
+        gt[first:first + DIST_DENSE_STEPS + 1], dist_dir.name)
     # the host engine (sparse voxel map): config 2's route, the reference's
     # own cases, SLAM on it, then its kernel cases
     t_host = time.perf_counter()
@@ -3834,9 +4677,17 @@ def main() -> int:
     del host_fine_args, cube_args, nn_args
     emit("host_phases_total", seconds=time.perf_counter() - t_host)
 
-    c3_launches, c3_cases = phase_config3(config3_workload("cuda"))
+    w3 = config3_workload("cuda")
+    c3_launches, c3_cases = phase_config3(w3)
     with tempfile.TemporaryDirectory() as tmpdir:
         c6_launches = phase_config6(tmpdir)
+
+    # the distributed layer: config 5 on config 3's map, the sharded dense
+    # step, ICP batch, pose-graph solvers and heartbeat
+    (dist_terms_launches, dist_nn_launches, dist_terms_cases,
+     dist_nn_cases) = phase_distributed(run, w3, dense_job, dense_ref)
+    del w3, dense_job, dense_ref
+    dist_dir.cleanup()
 
     # the rotating unit's live chain and the extrinsic calibration
     t_live = time.perf_counter()
@@ -3855,12 +4706,14 @@ def main() -> int:
                           host_engine_cases=case_launches["ndt_terms"],
                           slam_host=slam_host_launches["ndt_terms"],
                           live=live_launches["ndt_terms"],
-                          live_cli=cli_launches["ndt_terms"])
+                          live_cli=cli_launches["ndt_terms"],
+                          **dist_terms_launches)
     nn_launches = dict(config4=run["nn_launches"], config1=nn_c1_launches,
                        host_engine_cases=case_launches["nn_search"],
                        slam_host=slam_host_launches["nn_search"],
                        live=live_launches["nn_search"],
-                       live_cli=cli_launches["nn_search"])
+                       live_cli=cli_launches["nn_search"],
+                       **dist_nn_launches)
 
     emit("total", seconds=time.perf_counter() - t_start)
     by_case = {c["case"]: c for c in gather_cases}
@@ -3872,16 +4725,16 @@ def main() -> int:
                           "tpu_slam/kernels/ndt_terms.py:199",
                           sum(terms_launches.values()),
                           cases + c3_cases + host_terms_cases
-                          + live_terms_cases,
+                          + live_terms_cases + dist_terms_cases,
                           cases[0]), launches_by_path=terms_launches),
         # launches on all of its paths: config 4's verification, config
         # 1's brute tier, the host engine's ICP and SLAM verification, the
-        # live survey's verification
+        # live survey's verification, the sharded verification batch
         dict(kernel_entry("nn_search", src + "nn_search.cu",
                           "tpu_slam/kernels/nn_search.py:57",
                           sum(nn_launches.values()),
                           nn_cases + nn_c1_cases + host_nn_cases
-                          + live_nn_cases,
+                          + live_nn_cases + dist_nn_cases,
                           nn_cases[0]), launches_by_path=nn_launches),
         # icp_terms: no single PyTorch call computes it
         kernel_entry("icp_terms", src + "icp_terms.cu",

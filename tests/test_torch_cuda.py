@@ -507,3 +507,23 @@ def test_overlap_cost_on_the_card(cuda):
     ref = int(overlap_cost(cpu, true, cfg))
     assert abs(got - ref) <= 0.005 * ref
     assert got < int(overlap_cost(data, np.zeros(5, np.float32), cfg))
+
+
+def test_collectives_on_the_card_through_nccl(cuda):
+    """World size 1 on NCCL through distributed.mesh: the collectives run
+    on device memory (no host staging), a shift with no peer gives zeros."""
+    import numpy as np
+
+    # tests/ is on the path (pytest's rootdir insertion); a site package
+    # may own the name "tests" on the machine with the card
+    import test_torch_dist_ranks as R
+    from tpu_slam_torch.distributed import mesh as M
+
+    (got,) = M.run_ranks(R.nccl_body, 1, backend="nccl", device="cuda")
+    x = np.arange(12, dtype=np.float32)
+    for name in ("all_reduce", "reduce_scatter", "all_gather"):
+        np.testing.assert_array_equal(got[name], x)
+    np.testing.assert_array_equal(got["shift"], np.zeros(12, np.float32))
+    np.testing.assert_array_equal(got["halo_left"], np.zeros(2, np.float32))
+    assert got["device"].startswith("cuda") and got["backend"] == "nccl"
+    assert got["stats"]["staged_copies"] == 0

@@ -135,3 +135,40 @@ def test_grid_ndt_field_rows_match_reference_planes():
     assert np.all(np.abs(got[:, 3:9] - ref[:, 3:9]) <= 1e-4 * info_scale
                   + 1e-6)
     assert float(tf.rows[:, 9].sum()) > 20
+
+
+@pytest.mark.parametrize("max_out", [None, 300])
+def test_grid_to_sparse_aggregates_matches_reference(max_out):
+    """The same window rows (the reference's) on both sides: keys and
+    counts exact, sums and outer products bit-equal (a permutation)."""
+    jc, _ = _cloud()
+    jg = jdm.grid_insert(jdm.empty_grid(DIMS, jnp.asarray(ORIGIN_CELL)), jc,
+                         JSPEC)
+    tg = dm.DenseMomentGrid(rows=torch.as_tensor(np.array(jg.rows)),
+                            origin_cell=torch.tensor(ORIGIN_CELL,
+                                                     dtype=torch.int32),
+                            dims=DIMS)
+    got = dm.grid_to_sparse_aggregates(tg, SPEC, max_out=max_out)
+    ref = jdm.grid_to_sparse_aggregates(jg, JSPEC, max_out=max_out)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert got[0].dtype == torch.int32
+    n_occ = int((tg.rows[:, 0] > 0).sum())
+    assert 0 < n_occ < DIMS[0] * DIMS[1] * DIMS[2]
+    assert (got[0][:n_occ] != 2 ** 31 - 1).all()
+
+
+@pytest.mark.parametrize("n_chunks", [2, 4])
+def test_chunk_inserts_tile_the_window_bit_for_bit(n_chunks):
+    """insert_rows on x-chunks (the sharded dense step's insert) gives the
+    whole window's rows, plane for plane."""
+    _, tc = _cloud(seed=3)
+    whole = dm.grid_insert(dm.empty_grid(DIMS, ORIGIN_CELL), tc, SPEC,
+                           weight=torch.tensor(1.0))
+    s = DIMS[0] // n_chunks
+    per = s * DIMS[1] * DIMS[2]
+    oc = torch.tensor(ORIGIN_CELL, dtype=torch.int32)
+    chunks = [dm.insert_rows(torch.zeros(per, 10), oc, DIMS, tc, SPEC,
+                             torch.tensor(1.0), x_range=(d * s, (d + 1) * s))
+              for d in range(n_chunks)]
+    assert torch.equal(torch.cat(chunks), whole.rows)

@@ -29,7 +29,7 @@ print(" ".join(names))
 
 # modules whose absence would leave a slice's path unchecked: the CLIs,
 # the replay, deskew and live-chain ingest, the sparse voxel map, the live
-# pipeline, the calibration
+# pipeline, the calibration, the distributed layer, logging and tracing
 NEW_MODULES = ("tpu_slam_torch.cli.run_odometry", "tpu_slam_torch.cli.common",
                "tpu_slam_torch.ingest.deskew", "tpu_slam_torch.ingest.velodyne",
                "tpu_slam_torch.ingest.rosbag", "tpu_slam_torch.ingest.dataset",
@@ -42,7 +42,17 @@ NEW_MODULES = ("tpu_slam_torch.cli.run_odometry", "tpu_slam_torch.cli.common",
                "tpu_slam_torch.cli.run_live", "tpu_slam_torch.cli.run_slam",
                "tpu_slam_torch.cli.run_calibration",
                "tpu_slam_torch.cli.make_dataset",
-               "tpu_slam_torch.cli.pcap_convert")
+               "tpu_slam_torch.cli.pcap_convert",
+               "tpu_slam_torch.distributed",
+               "tpu_slam_torch.distributed.mesh",
+               "tpu_slam_torch.distributed.multihost",
+               "tpu_slam_torch.distributed.registration_dist",
+               "tpu_slam_torch.distributed.pose_graph_dist",
+               "tpu_slam_torch.distributed.schur",
+               "tpu_slam_torch.distributed.map_shard",
+               "tpu_slam_torch.distributed.dense_shard",
+               "tpu_slam_torch.utils.logging",
+               "tpu_slam_torch.utils.tracing")
 
 
 def test_port_and_chip_smoke_import_neither_jax_nor_tpu_slam():

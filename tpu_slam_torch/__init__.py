@@ -5,12 +5,15 @@ paths and public names follow ``tpu_slam`` so each function's counterpart is
 easy to find; the JAX package stays the reference and this package imports
 nothing of it (nor of JAX).
 
-Layer map of what is ported so far (full SLAM on both odometry engines:
-the host engine on the sparse voxel map and the dense-window engine with
-its occupancy and deskew options; scan-to-map NDT on the sparse voxel map,
-bag replay through the CLI, pair ICP on both tiers, the gather probes; the
-rotating unit's live chain and the extrinsic calibration):
+Layer map (every module of ``tpu_slam`` has its counterpart here, but
+``utils/tpu_env``, which sets libtpu's compile environment):
 
+    distributed/   one rank per device on torch.distributed: the
+                   collectives (mesh), bring-up and heartbeat (multihost),
+                   the x-slab sharded voxel map and NDT against it
+                   (map_shard, config 5), the sharded dense-window step
+                   (dense_shard), sharded pair ICP, the edge-sharded PCG
+                   and the range-sharded Schur pose-graph solves
     cli/           run_odometry (--bag/--dataset, --engine sparse|dense),
                    run_slam (checkpoint/resume), run_live, run_calibration,
                    make_dataset, pcap_convert; --device, config overrides
@@ -48,8 +51,8 @@ rotating unit's live chain and the extrinsic calibration):
     core/          SE(3) and quaternions (batched), symmetric 3x3 closed
                    forms, padded point clouds, the deterministic
                    scatter-add
-    utils/         timing on the card (slope_time, call_ms), the PLY
-                   writer
+    utils/         timing on the card (slope_time, call_ms), tracing
+                   (torch.profiler), structured logging, the PLY writer
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; a
 missing GPU raises instead of silently falling back.

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -75,7 +75,8 @@ class TermsSlots:
 
 def build_terms_raster(points: torch.Tensor, mask: torch.Tensor,
                        T0: torch.Tensor, origin_world: torch.Tensor,
-                       leaf: float, dims: Tuple[int, int, int], q_cap: int
+                       leaf: float, dims: Tuple[int, int, int], q_cap: int,
+                       own_x: Optional[Tuple[int, int]] = None
                        ) -> Tuple[TermsSlots, torch.Tensor]:
     """Bin the scan at pose T0 into the window's slot list.
 
@@ -83,9 +84,17 @@ def build_terms_raster(points: torch.Tensor, mask: torch.Tensor,
     of window cell (0, 0, 0). Returns (slots, n_dropped) where n_dropped
     counts the valid points outside the window at T0 plus those beyond the
     first ``q_cap`` of their cell; neither enters the objective.
+
+    ``own_x`` = (x0, x1) keeps only the points whose cell lies in the
+    window's x-planes x0 .. x1-1, and numbers the cells in the local
+    window of dims (x1 - x0 + 2, Wy, Wz) whose plane 0 is plane x0 - 1 (one
+    halo plane a side): a rank's share of the slot list, which the ranks'
+    shares partition (the per-cell cap counts within a cell, and a cell
+    lies in one share). ``inside`` is then "in the owned planes".
     """
     wx, wy, wz = dims
-    g = wx * wy * wz
+    x0, x1 = (0, wx) if own_x is None else own_x
+    g = wx * wy * wz if own_x is None else (x1 - x0 + 2) * wy * wz
     n = points.shape[0]
     dev = points.device
     hi = torch.tensor([wx, wy, wz], dtype=torch.float32, device=dev)
@@ -94,7 +103,11 @@ def build_terms_raster(points: torch.Tensor, mask: torch.Tensor,
     rel = torch.clamp((se3.apply(T0, points) - origin_world) / leaf, min=-1.0)
     cc = torch.floor(torch.minimum(rel, hi)).to(torch.int32)
     inside = mask & ((cc >= 0) & (cc < hi.to(torch.int32))).all(dim=1)
-    cell = torch.where(inside, (cc[:, 0] * wy + cc[:, 1]) * wz + cc[:, 2], g)
+    lx = cc[:, 0]
+    if own_x is not None:
+        inside = inside & (lx >= x0) & (lx < x1)
+        lx = lx - (x0 - 1)
+    cell = torch.where(inside, (lx * wy + cc[:, 1]) * wz + cc[:, 2], g)
 
     order = torch.argsort(cell, stable=True)
     sc = cell[order]

@@ -14,7 +14,7 @@ of cells a moving object has left.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -84,23 +84,44 @@ def grid_insert(grid: DenseMomentGrid, cloud: PointCloud,
     Accumulation is ``core.scatter.accumulate_rows``: a stable sort of the
     cell indices, then each cell's points summed in input order.
     """
-    wx, wy, wz = grid.dims
+    rows = insert_rows(grid.rows.clone(), grid.origin_cell, grid.dims, cloud,
+                       spec, weight)
+    return DenseMomentGrid(rows=rows, origin_cell=grid.origin_cell,
+                           dims=grid.dims)
+
+
+def insert_rows(rows: torch.Tensor, origin_cell: torch.Tensor,
+                dims: Tuple[int, int, int], cloud: PointCloud,
+                spec: VoxelGridSpec,
+                weight: Union[torch.Tensor, float] = 1.0,
+                x_range: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """``grid_insert``'s accumulate into ``rows``, in place.
+
+    ``origin_cell`` and ``dims`` are the whole window's. With ``x_range``
+    = (x0, x1), ``rows`` holds only the window's x-planes x0 .. x1-1 (an
+    x-chunk), and only points binned there are added; each point's cell and
+    corner-local moments are computed in the whole window's frame, so a
+    chunk's rows are bit-identical to those planes of the whole window's.
+    """
+    wx, wy, wz = dims
+    x0, x1 = (0, wx) if x_range is None else x_range
     pts = cloud.points
     dev = pts.device
     origin_w = (spec.origin_tensor(dev)
-                + grid.origin_cell.to(torch.float32) * spec.leaf)
+                + origin_cell.to(torch.float32) * spec.leaf)
     hi = torch.tensor([wx, wy, wz], dtype=torch.float32, device=dev)
     # clip BEFORE the int conversion: padded points sit at 1e8
     rel = torch.minimum(torch.clamp((pts - origin_w) / spec.leaf, min=-1.0),
                         hi)
     cc = torch.floor(rel).to(torch.int32)
-    ok = cloud.mask & ((cc >= 0) & (cc < hi.to(torch.int32))).all(dim=1)
-    cell = (cc[:, 0] * wy + cc[:, 1]) * wz + cc[:, 2]
+    ok = (cloud.mask & ((cc >= 0) & (cc < hi.to(torch.int32))).all(dim=1)
+          & (cc[:, 0] >= x0) & (cc[:, 0] < x1))
+    cell = ((cc[:, 0] - x0) * wy + cc[:, 1]) * wz + cc[:, 2]
     # dropped points add zeros to a cell of their own row index, so no one
     # index gathers the whole padded tail (a long serial run in the sort-
     # based accumulate)
     spread = torch.remainder(torch.arange(pts.shape[0], device=dev),
-                             grid.g)
+                             rows.shape[0])
     cell = torch.where(ok, cell.long(), spread)
 
     corner = origin_w + cc.to(torch.float32) * spec.leaf
@@ -113,9 +134,7 @@ def grid_insert(grid: DenseMomentGrid, cloud: PointCloud,
         local[:, 0:1] * lw[:, 0:3],            # oxx oxy oxz
         local[:, 1:2] * lw[:, 1:3],            # oyy oyz
         local[:, 2:3] * lw[:, 2:3]], dim=1)    # ozz
-    rows = accumulate_rows(grid.rows.clone(), cell, contrib)
-    return DenseMomentGrid(rows=rows, origin_cell=grid.origin_cell,
-                           dims=grid.dims)
+    return accumulate_rows(rows, cell, contrib)
 
 
 def grid_scroll(grid: DenseMomentGrid, shift: torch.Tensor
@@ -350,3 +369,36 @@ def grid_ndt_field(grid: DenseMomentGrid, spec: VoxelGridSpec,
                         count_floor=1e-6)
     return NDTField(rows=rows16, origin_cell=grid.origin_cell,
                     window_dims=grid.dims)
+
+
+def grid_to_sparse_aggregates(grid: DenseMomentGrid, spec: VoxelGridSpec,
+                              max_out: Optional[int] = None):
+    """Window contents as sparse per-voxel aggregates under global keys.
+
+    For spilling into a ``mapping.voxel_map.VoxelMap`` (checkpoint,
+    loop-closure map, global export): (keys, count, sum_pts, sum_outer) in
+    ``insert_scan_stats``'s convention, occupied cells first in key order
+    (INVALID_KEY tail), cut to the first ``max_out`` rows (default: all G).
+    """
+    from tpu_slam_torch.kernels.voxel_hash import INVALID_KEY
+
+    wx, wy, wz = grid.dims
+    g = wx * wy * wz
+    b = spec.dim_bits
+    ci = torch.arange(g, dtype=torch.int32, device=grid.rows.device)
+    cell = torch.stack([ci // (wy * wz), (ci // wz) % wy, ci % wz], dim=1)
+    cell = cell + grid.origin_cell[None, :]
+    keys = (cell[:, 0] << (2 * b)) | (cell[:, 1] << b) | cell[:, 2]
+    occ = grid.rows[:, 0] > 0.0
+    keys = torch.where(occ, keys, INVALID_KEY).to(torch.int32)
+    order = torch.argsort(keys, stable=True)
+    if max_out is not None:
+        order = order[:max_out]
+    k = keys[order]
+    r = grid.rows[order]
+    tri = r[:, 4:10]
+    outer = torch.stack([
+        torch.stack([tri[:, 0], tri[:, 1], tri[:, 2]], -1),
+        torch.stack([tri[:, 1], tri[:, 3], tri[:, 4]], -1),
+        torch.stack([tri[:, 2], tri[:, 4], tri[:, 5]], -1)], -2)
+    return k, r[:, 0], r[:, 1:4], outer

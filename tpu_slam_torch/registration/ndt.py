@@ -317,16 +317,17 @@ def _ndt_correspond(pts: torch.Tensor, field: NDTField,
             best_d2)
 
 
-def _ndt_terms(src: PointCloud, T: torch.Tensor, field: NDTField,
-               spec: VoxelGridSpec, params: NDTParams,
-               gamma: Optional[float] = None, isotropic: bool = False):
+def _ndt_point_terms(src: PointCloud, T: torch.Tensor, field: NDTField,
+                     spec: VoxelGridSpec, params: NDTParams,
+                     gamma: Optional[float] = None, isotropic: bool = False):
     """Smooth NDT objective and its Gauss-Newton terms at pose T over the
     sparse views, summed over every valid Gaussian of each point's
     27-neighbourhood: cost = -sum s, s = exp(-0.5 min(d2 / gamma, 30))
     gated by |Tp - mu| < max_corr_dist; H = sum s J^T Lambda J,
     b = sum s J^T Lambda r. ``isotropic`` scores the Euclidean distance
     with Lambda = I / sigma^2, sigma = max_corr_dist / 2 (the point-to-mean
-    stage). Returns (H, b, cost, matched fraction)."""
+    stage). Returns (H, b, cost, (N,) bool: the point matched a
+    Gaussian)."""
     _require_sparse_views(field, "_ndt_terms")
     pts = se3.apply(T, src.points)
     n = pts.shape[0]
@@ -352,10 +353,20 @@ def _ndt_terms(src: PointCloud, T: torch.Tensor, field: NDTField,
     J = torch.cat([eye, -se3.hat(pts)], dim=2)               # (N, 3, 6)
     H = torch.einsum("nia,nij,njb->ab", J, L, J)
     b = torch.einsum("nia,ni->a", J, y)
-    matched = gate.any(dim=1)
-    frac = matched.sum(dtype=pts.dtype) / torch.clamp(
-        src.mask.sum(dtype=pts.dtype), min=1.0)
-    return H, b, -torch.sum(s), frac
+    return H, b, -torch.sum(s), gate.any(dim=1)
+
+
+def _ndt_terms(src: PointCloud, T: torch.Tensor, field: NDTField,
+               spec: VoxelGridSpec, params: NDTParams,
+               gamma: Optional[float] = None, isotropic: bool = False):
+    """``_ndt_point_terms`` with the matched points as a fraction of the
+    valid ones: (H, b, cost, matched fraction)."""
+    H, b, cost, matched = _ndt_point_terms(src, T, field, spec, params,
+                                           gamma, isotropic)
+    dt = H.dtype
+    frac = matched.sum(dtype=dt) / torch.clamp(src.mask.sum(dtype=dt),
+                                               min=1.0)
+    return H, b, cost, frac
 
 
 def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
@@ -427,15 +438,42 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
     def sparse_terms(T, gamma, isotropic):
         return _ndt_terms(src, T, field, spec, params, gamma, isotropic)
 
+    def yaw_cost(Ty, gamma_y):
+        fine, _ = bin_raster(Ty, with_far=False)
+        return ndt_terms(fine, field.rows, Ty, gamma_y, params.max_corr_dist,
+                         dims)[2]
+
+    T, iters, frac, cost, dx = lm_schedule(
+        init_T, params, use_kernel,
+        kernel_terms if use_kernel else sparse_terms, bin_raster, yaw_cost)
+    return NDTResult(T=T, iterations=iters, score=-cost / n_src_pts,
+                     matched_fraction=frac,
+                     converged=dx <= params.tolerance)
+
+
+def lm_schedule(init_T: torch.Tensor, params: NDTParams, use_kernel: bool,
+                raw_terms, bin_raster, yaw_cost):
+    """The solve schedule of ``ndt_register``, over callables.
+
+    ``raw_terms(T, gamma, ctx)`` gives (H, b, cost, matched fraction) at T
+    (ctx: the stage's raster on the kernel path, the isotropic flag on the
+    sparse one); ``bin_raster(T)`` bins the scan at a stage-entry pose;
+    ``yaw_cost(T, gamma)`` scores a yaw candidate. Runs the yaw search and
+    the coarse stage (kernel path), the isotropic stage (sparse path) and
+    the fine stage, with the motion prior added to every evaluation.
+    Returns (T, iterations, frac, cost, dx); the loops exit on host reads of
+    values the callables returned, so callables that return the same bits
+    on several ranks keep those ranks in lockstep.
+    """
+    dev = init_T.device
+    f32 = torch.float32
     eye6 = torch.eye(6, dtype=f32, device=dev)
     w_prior = _f32(params.motion_prior_weight)
     init_T_inv = se3.inverse(init_T)
 
     def terms(T, gamma, ctx):
-        """The path's terms at T (ctx: the stage's raster on the kernel
-        path, the isotropic flag on the sparse one), plus the prior."""
-        H, b, cost, frac = (kernel_terms if use_kernel
-                            else sparse_terms)(T, gamma, ctx)
+        """The path's terms at T, plus the prior."""
+        H, b, cost, frac = raw_terms(T, gamma, ctx)
         if w_prior > 0.0:
             xi_e = se3.log(se3.compose(T, init_T_inv))
             H = H + w_prior * eye6
@@ -499,10 +537,7 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
                               torch.stack([zero, zero, one, zero]),
                               torch.stack([zero, zero, zero, one])])
             Ty = T_c @ Rz                   # rotate heading, keep position
-            fine, _ = bin_raster(Ty, with_far=False)
-            _, _, cost, _ = ndt_terms(fine, field.rows, Ty, gamma_y,
-                                      params.max_corr_dist, dims)
-            costs.append(cost)
+            costs.append(yaw_cost(Ty, gamma_y))
             Tys.append(Ty)
         T_c = torch.stack(Tys)[torch.argmin(torch.stack(costs))]
     if params.isotropic_iterations > 0:
@@ -532,6 +567,4 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
         T, cost, frac, iters, dx = lm_solve(T_c, gamma_f,
                                             params.max_iterations,
                                             params.tolerance, False)
-    return NDTResult(T=T, iterations=iters + it_c, score=-cost / n_src_pts,
-                     matched_fraction=frac,
-                     converged=dx <= params.tolerance)
+    return T, iters + it_c, frac, cost, dx
