@@ -24,9 +24,12 @@ Phases, each printing one JSON line:
                and finalizer; CUDA-event times, the device time by kernel,
                the time a call takes in a replayed CUDA graph, the bound
   slice        DenseLidarOdometry on config 2 at full width over the
-               24-scan city route (65,536 rays a scan): scans/s synced and
+               24-scan city route (65,536 rays a scan), on its captured
+               step (the default; every later phase runs the captured step
+               and the captured graph solves too): scans/s synced and
                unsynced, ATE, matched fraction, iterations, kernel launches
-               per scan, peak memory
+               per scan (a wrapper's eager calls plus the calls its graphs'
+               replays made), peak memory
   profile      a 6-scan run on the host clock, then under torch.profiler:
                device busy time by kernel, idle share, host syncs and
                kernel launches per step
@@ -40,6 +43,18 @@ Phases, each printing one JSON line:
                loop, resumed in a fresh SLAMSystem to the end: poses and
                graph bit-identical to the slam run; host syncs and
                launches of a sweep, under torch.profiler
+  compiled     the reference's compiled programs against their eager
+               forms (compiled=False): config 2's 24 scans on the captured
+               step and on the host-exit step from fresh engines (poses,
+               iterations and matched fractions bit-equal; scans/s synced
+               and with sync_every=0, p50/p95, the capture's seconds and
+               memory; 6 steps profiled: kernel and graph launches, the
+               device's kernels, host reads and synchronisations (none in
+               a captured step), idle share), config 4 eager through its
+               first accepting sweep against the slam run there (poses and
+               state bit-equal, stage seconds), and the sweep's and the
+               final refinement's graph solves on the run's final graph
+               (seconds, launches a GN iteration, bit-equal)
   kernels      nn_search against its plain version: a verification batch
                of the slam run's own keyframes (6 pairs x 4,096 points), a
                seeded edge case (ties, padding, ragged sizes, one pair) and
@@ -275,6 +290,22 @@ C6_SETS = ["scan_capacity=32768", "downsample_leaf=0.3", "map_leaf=0.5",
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def reset_launches(*wrappers) -> None:
+    """Set the launch counts of kernel wrappers to 0, with the CUDA graphs'
+    tallies of them (utils.capture)."""
+    from tpu_slam_torch.utils.capture import reset_kernel_launches
+    reset_kernel_launches(*wrappers)
+
+
+def launches_of(wrapper) -> int:
+    """A kernel wrapper's launches since its reset: its eager calls plus
+    the calls its captured graphs' replays made (a captured path calls the
+    wrapper once, at the capture; a replay launches the recorded kernel
+    without calling it)."""
+    from tpu_slam_torch.utils.capture import kernel_launches
+    return kernel_launches(wrapper)
 
 
 def nvidia_smi_line(query: str = "name,power.limit") -> str:
@@ -797,11 +828,11 @@ def phase_slice(engine, clouds, gt):
     plain_before = ndt_terms_plain.launches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ndt_terms.launches = 0
+    reset_launches(ndt_terms)
     t0 = time.perf_counter()
     poses, log = engine.run(clouds, init_pose=gt[0])
     dt = time.perf_counter() - t0
-    launches = ndt_terms.launches
+    launches = launches_of(ndt_terms)
     peak = torch.cuda.max_memory_allocated()
     if launches <= 0:
         raise AssertionError("the main path launched no ndt_terms kernel")
@@ -843,6 +874,23 @@ def phase_slice(engine, clouds, gt):
     return launches
 
 
+KERNEL_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+                   "cudaLaunchKernelExC")
+GRAPH_LAUNCHES = ("cudaGraphLaunch", "cuGraphLaunch")
+
+
+def device_kernel_count(ka) -> int:
+    """Kernels the device ran in a profile (a captured graph's included:
+    the profiler sees each kernel of a replay, not its launch), without
+    the copies and fills."""
+    from torch.autograd import DeviceType
+
+    return sum(e.count for e in ka
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation
+               and not e.key.startswith(("Memcpy", "Memset")))
+
+
 def phase_profile(engine, clouds, gt, n=6, label="profile"):
     """Where a step's time goes: an n-scan run (sync_every=0) timed on the
     host clock, then the same run under torch.profiler for the device's
@@ -872,6 +920,7 @@ def phase_profile(engine, clouds, gt, n=6, label="profile"):
                      key=lambda r: -r[1])[:10]
     syncs = sum(e.count for e in ka if e.key == "aten::_local_scalar_dense")
     launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
+    graph_launches = sum(e.count for e in ka if e.key in GRAPH_LAUNCHES)
     emit(label, scans=n, steps=steps,
          wall_ms_per_step=wall_us / 1e3 / steps,
          device_busy_ms_per_step=busy_us / 1e3 / steps,
@@ -879,6 +928,8 @@ def phase_profile(engine, clouds, gt, n=6, label="profile"):
          device_idle_share=1.0 - busy_us / wall_us,
          host_syncs_per_step=syncs / steps,
          kernel_launches_per_step=launches / steps,
+         graph_launches_per_step=graph_launches / steps,
+         device_kernels_per_step=device_kernel_count(ka) / steps,
          top_device_us_per_step=[(k[:80], v / steps) for k, v in top_dev],
          top_cpu_us_per_step=[(k[:80], t / steps, c / steps)
                               for k, t, c in top_cpu])
@@ -955,13 +1006,16 @@ def config4():
 
 # bench.py:722-727: keyframes appended after the last accepted loop have
 # never been optimized (loosely coupled), so one final batch refinement
-def final_refine(graph):
+FINAL_REFINE = dict(gn_iterations=40, cg_iterations=800, robust_delta=0.15,
+                    robust_kernel="cauchy", trust_loops=True)
+
+
+def final_refine(graph, compiled=True):
     from tpu_slam_torch.graph.pose_graph import (GraphSolveParams,
                                                  optimize_pose_graph)
 
-    return optimize_pose_graph(graph, GraphSolveParams(
-        gn_iterations=40, cg_iterations=800, robust_delta=0.15,
-        robust_kernel="cauchy", trust_loops=True))[0]
+    return optimize_pose_graph(graph, GraphSolveParams(**FINAL_REFINE),
+                               compiled=compiled)[0]
 
 
 def is_sweep(cfg, state, m) -> bool:
@@ -989,11 +1043,11 @@ def phase_slam(clouds, gt):
                     ndt_terms_plain.launches)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    nearest_neighbors.launches = 0
-    ndt_terms.launches = 0
+    reset_launches(nearest_neighbors, ndt_terms)
     t0 = time.perf_counter()
     state = slam.init_state(gt[0])
     poses, kf_scan, snap, sweeps, snap_s = [], [], None, 0, 0.0
+    snap_at = None
     for k, c in enumerate(clouds):
         loops_before = state.n_loop_closures
         state, m = slam.step(state, c)
@@ -1003,6 +1057,8 @@ def phase_slam(clouds, gt):
         sweeps += is_sweep(cfg, state, m)
         if snap is None and state.n_loop_closures > loops_before:
             ts = time.perf_counter()
+            snap_at = dict(seconds=ts - t0,
+                           stage_seconds=dict(slam.stage_seconds))
             snap = (k + 1, slam_state_to_numpy(state))
             snap_s = time.perf_counter() - ts
     torch.cuda.synchronize()
@@ -1012,8 +1068,8 @@ def phase_slam(clouds, gt):
     refine_s = time.perf_counter() - t_refine
     # the snapshot for slam_resume is not part of the workload
     dt = time.perf_counter() - t0 - snap_s
-    nn_launches = nearest_neighbors.launches
-    terms_launches = ndt_terms.launches
+    nn_launches = launches_of(nearest_neighbors)
+    terms_launches = launches_of(ndt_terms)
     peak = torch.cuda.max_memory_allocated()
     plain_after = (nearest_neighbors_plain.launches,
                    ndt_terms_plain.launches)
@@ -1051,7 +1107,7 @@ def phase_slam(clouds, gt):
     if snap is None:
         raise AssertionError("no sweep accepted a loop")
     return dict(poses=poses, state=state, graph=graph, snap=snap,
-                nn_launches=nn_launches, fields=fields)
+                snap_at=snap_at, nn_launches=nn_launches, fields=fields)
 
 
 def profile_step(slam, state, cloud):
@@ -1077,9 +1133,9 @@ def profile_step(slam, state, cloud):
     return state, m, dict(
         dtoh_copies=count(lambda k: "Memcpy DtoH" in k),
         device_synchronize=count(lambda k: k == "cudaDeviceSynchronize"),
-        kernel_launches=count(lambda k: k in ("cudaLaunchKernel",
-                                              "cuLaunchKernel",
-                                              "cuLaunchKernelEx")),
+        kernel_launches=count(lambda k: k in KERNEL_LAUNCHES),
+        graph_launches=count(lambda k: k in GRAPH_LAUNCHES),
+        device_kernels=device_kernel_count(ka),
         nn_search_device_us=nn_us)
 
 
@@ -1138,6 +1194,249 @@ def phase_slam_resume(run, clouds, tmpdir):
          checkpoint_bytes=os.path.getsize(path), manifest=manifest,
          bit_identical=True, sweep_step_profile=sweep,
          keyframe_step_profile=prev, sweep_minus_keyframe_step=sweep_cost)
+
+
+# ---------------------------------------------------------------------------
+# The compiled programs: the captured step and solve against the eager ones
+# ---------------------------------------------------------------------------
+
+COMPILED_WARM = 3              # steps before the profiled ones
+COMPILED_PROFILED = 6          # steps profiled, and timed unprofiled
+
+
+def steps_profile(engine, state, clouds):
+    """``engine.step`` over ``clouds`` from ``state`` (left intact), first
+    timed on the host clock, then again under torch.profiler: per step the
+    runtime's kernel and graph launches, the kernels the device ran,
+    ``ndt_terms`` kernels among them, host syncs (``item`` reads, as the
+    ``profile`` phase counts them), copies to the host, explicit
+    synchronisations, device busy ms and the idle share (1 - busy / the
+    unprofiled wall)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        s = state
+        for c in clouds:
+            s = engine.step(s, c)
+        return s
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    syncs = ("cudaStreamSynchronize", "cudaEventSynchronize",
+             "cudaDeviceSynchronize")
+
+    def profiled(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return prof.key_averages()
+
+    # the synchronisations of a profile of nothing are the profiler's own
+    base = sum(e.count for e in profiled(lambda: None) if e.key in syncs)
+    ka = profiled(run)
+    n = len(clouds)
+
+    def count(keys):
+        return sum(e.count for e in ka if e.key in keys)
+
+    dev = [e for e in ka if e.device_type == DeviceType.CUDA
+           and not e.is_user_annotation]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    sync_calls = count(syncs) - base
+    return dict(
+        wall_ms_per_step=wall * 1e3 / n,
+        kernel_launches_per_step=count(KERNEL_LAUNCHES) / n,
+        graph_launches_per_step=count(GRAPH_LAUNCHES) / n,
+        device_kernels_per_step=device_kernel_count(ka) / n,
+        ndt_terms_kernels_per_step=sum(
+            e.count for e in dev if "ndt_terms_kernel" in e.key) / n,
+        host_syncs_per_step=count(("aten::_local_scalar_dense",)) / n,
+        dtoh_copies_per_step=sum(e.count for e in dev
+                                 if "Memcpy DtoH" in e.key) / n,
+        synchronize_calls_per_step=sync_calls / n,
+        device_busy_ms_per_step=busy_us / 1e3 / n,
+        device_idle_share=1.0 - busy_us / 1e6 / wall)
+
+
+def compiled_config2(clouds, gt):
+    """Config 2 on the eager host-exit step and on the captured step, fresh
+    engines: poses, iterations and matched fractions bit-equal, rates
+    synced and with sync_every=0, p50/p95, the profile of a few steps, the
+    one-off capture and the memory."""
+    import torch
+
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms
+    from tpu_slam_torch.pipeline.metrics import MetricsLog, ate_rmse
+    from tpu_slam_torch.pipeline.odometry_dense import DenseLidarOdometry
+
+    out, keep = {}, {}
+    for label, compiled in (("eager", False), ("captured", True)):
+        engine = DenseLidarOdometry(config2(), compiled=compiled)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(ndt_terms)
+        t0 = time.perf_counter()
+        poses, log = engine.run(clouds, init_pose=gt[0])
+        first_s = time.perf_counter() - t0
+        first_launches = launches_of(ndt_terms)
+        engine.metrics = MetricsLog()
+        t0 = time.perf_counter()
+        poses, log = engine.run(clouds, init_pose=gt[0])
+        dt = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        poses0, _ = engine.run(clouds, init_pose=gt[0], sync_every=0)
+        dt0 = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        state = engine.init_state(clouds[0], gt[0])
+        for c in clouds[1:COMPILED_WARM]:
+            state = engine.step(state, c)
+        prof = steps_profile(
+            engine, state,
+            clouds[COMPILED_WARM:COMPILED_WARM + COMPILED_PROFILED])
+        summary = log.summary()
+        graphs = [g.graph for g in engine.graphs.values()]
+        keep[label] = dict(
+            poses=poses, poses0=poses0,
+            iterations=[m.iterations for m in log.records],
+            matched=[m.matched_fraction for m in log.records])
+        out[label] = dict(
+            first_run_s=first_s, scans_per_s=len(clouds) / dt,
+            scans_per_s_sync_every_0=len(clouds) / dt0,
+            p50_step_ms=summary["p50_wall_time_s"] * 1e3,
+            p95_step_ms=summary["p95_wall_time_s"] * 1e3,
+            ate_m=ate_rmse(poses, gt, align=False),
+            mean_iterations=summary["mean_iterations"],
+            ndt_terms_launches_first_run=first_launches,
+            peak_memory_bytes=peak, profile=prof,
+            graphs=len(graphs),
+            capture_s=[g.capture_s for g in graphs],
+            graph_held_bytes=[g.held_bytes for g in graphs],
+            calls_per_replay=[g.calls for g in graphs])
+        del engine
+    e, c = keep["eager"], keep["captured"]
+    same = dict(poses=bool(np.array_equal(e["poses"], c["poses"])),
+                poses_sync_every_0=bool(np.array_equal(e["poses0"],
+                                                       c["poses0"])),
+                iterations=e["iterations"] == c["iterations"],
+                matched_fractions=e["matched"] == c["matched"])
+    return out, same
+
+
+def compiled_config4(run, clouds, gt):
+    """Config 4 on the eager paths (compiled=False: the host-exit step and
+    the eager graph solves) up to and including the first sweep that
+    accepts a loop, against the captured run's poses and state there."""
+    import torch
+
+    from tpu_slam_torch.pipeline.slam import SLAMSystem
+    from tpu_slam_torch.pipeline.state import slam_state_to_numpy
+
+    k0, snap = run["snap"]
+    slam = SLAMSystem(config4(), compiled=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = slam.init_state(gt[0])
+    poses = []
+    for k in range(k0):
+        state, _ = slam.step(state, clouds[k])
+        poses.append(state.odom.pose.cpu().numpy())
+    seconds = time.perf_counter() - t0
+    got = slam_state_to_numpy(state)
+    differ = sorted(k for k in snap
+                    if not np.array_equal(np.asarray(snap[k]),
+                                          np.asarray(got.get(k))))
+    return dict(
+        scans=k0, loops=state.n_loop_closures,
+        keyframes=state.n_keyframes,
+        poses_bit_equal=bool(np.array_equal(np.stack(poses),
+                                            run["poses"][:k0])),
+        state_keys_differing=differ,
+        eager=dict(seconds=seconds, stage_seconds=dict(slam.stage_seconds)),
+        captured=run["snap_at"])
+
+
+def compiled_graph_solves(graph):
+    """The config-4 sweep's solve and the final refinement on the run's
+    final graph, eager and captured (both captured in the slam phase):
+    seconds, the result bit-equal; the launches of one GN iteration from
+    the profiler (the runtime's kernel and graph launches, the device's
+    kernels)."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_slam_torch.graph.pose_graph import (GraphSolveParams,
+                                                 optimize_pose_graph)
+
+    out = {}
+    for name, params in (("sweep", config4().graph),
+                         ("final_refine", GraphSolveParams(**FINAL_REFINE))):
+        res, row = {}, {}
+        for label, compiled in (("eager", False), ("captured", True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[label] = optimize_pose_graph(graph, params,
+                                             compiled=compiled)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            one = dataclasses.replace(params, gn_iterations=1)
+            optimize_pose_graph(graph, one, compiled=compiled)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                optimize_pose_graph(graph, one, compiled=compiled)
+                torch.cuda.synchronize()
+            ka = prof.key_averages()
+            row[label] = dict(
+                seconds=secs,
+                seconds_per_gn_iteration=secs / params.gn_iterations,
+                gn_iteration=dict(
+                    kernel_launches=sum(e.count for e in ka
+                                        if e.key in KERNEL_LAUNCHES),
+                    graph_launches=sum(e.count for e in ka
+                                       if e.key in GRAPH_LAUNCHES),
+                    device_kernels=device_kernel_count(ka)))
+        row["bit_equal"] = bool(
+            torch.equal(res["eager"][0].poses, res["captured"][0].poses)
+            and torch.equal(res["eager"][1], res["captured"][1]))
+        out[name] = row
+    return out
+
+
+def phase_compiled(clouds, gt, run, c4_clouds, c4_gt):
+    """The reference's two compiled programs on the card against their
+    eager forms: config 2 on the captured step, config 4 through its first
+    accepting sweep, the graph solves. Any difference in the bits, or a
+    read back inside a captured step, fails."""
+    t0 = time.perf_counter()
+    c2, c2_same = compiled_config2(clouds, gt)
+    c4 = compiled_config4(run, c4_clouds, c4_gt)
+    solves = compiled_graph_solves(run["state"].graph)
+    emit("compiled", config2=c2, config2_bit_equal=c2_same, config4=c4,
+         graph_solves=solves, seconds=time.perf_counter() - t0)
+    if not all(c2_same.values()):
+        raise AssertionError(f"config 2: captured and eager differ: "
+                             f"{c2_same}")
+    prof = c2["captured"]["profile"]
+    if (prof["host_syncs_per_step"] or prof["dtoh_copies_per_step"]
+            or prof["synchronize_calls_per_step"]):
+        raise AssertionError(f"a captured config-2 step read back or "
+                             f"synchronised: {prof}")
+    if not (c4["poses_bit_equal"] and not c4["state_keys_differing"]):
+        raise AssertionError(f"config 4: captured and eager differ: "
+                             f"poses {c4['poses_bit_equal']}, state "
+                             f"{c4['state_keys_differing']}")
+    if not all(s["bit_equal"] for s in solves.values()):
+        raise AssertionError("a captured graph solve differs from the "
+                             "eager one")
 
 
 def nn_work(q, t, q_mask, t_mask):
@@ -2079,12 +2378,12 @@ def phase_options(clouds, gt):
     for _ in range(2):
         engine = DenseLidarOdometry(cfg)
         torch.cuda.synchronize()
-        ndt_terms.launches = 0
+        reset_launches(ndt_terms)
         t0 = time.perf_counter()
         poses, log = engine.run(clouds, init_pose=gt[0])
         runs.append(dict(poses=poses, summary=log.summary(),
                          seconds=time.perf_counter() - t0,
-                         launches=ndt_terms.launches,
+                         launches=launches_of(ndt_terms),
                          evicted=int(engine.n_evicted)))
     if ndt_terms_plain.launches != plain_before:
         raise AssertionError("the options path ran the plain terms version")
@@ -2479,12 +2778,12 @@ def phase_config6(tmpdir):
     plain_before = ndt_terms_plain.launches
     buf = io.StringIO()
     torch.cuda.synchronize()
-    ndt_terms.launches = 0
+    reset_launches(ndt_terms)
     t2 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         run_odometry(argv)
     wall = time.perf_counter() - t2
-    launches = ndt_terms.launches
+    launches = launches_of(ndt_terms)
     rec = json.loads(buf.getvalue().strip().splitlines()[-1])
     n = rec["n_scans"]
     out = dict(
@@ -4648,6 +4947,8 @@ def main() -> int:
     run = phase_slam(c4_clouds, c4_gt)
     with tempfile.TemporaryDirectory() as tmpdir:
         phase_slam_resume(run, c4_clouds, tmpdir)
+    # the captured step and solve against the eager ones
+    phase_compiled(clouds, gt, run, c4_clouds, c4_gt)
     nn_cases = phase_nn_kernels(run)
 
     icp_launches, nn_c1_launches, pairs = phase_pair_icp()

@@ -527,3 +527,119 @@ def test_collectives_on_the_card_through_nccl(cuda):
     np.testing.assert_array_equal(got["halo_left"], np.zeros(2, np.float32))
     assert got["device"].startswith("cuda") and got["backend"] == "nccl"
     assert got["stats"]["staged_copies"] == 0
+
+
+def _office_case(device, n=5):
+    """A small dense-engine config and the office's first n scans."""
+    import numpy as np
+
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.ingest import synthetic as syn
+    from tpu_slam_torch.pipeline.config import OdometryConfig
+    from tpu_slam_torch.registration.ndt import NDTParams
+
+    def cfg(**kw):
+        return OdometryConfig(
+            scan_capacity=4096, downsample_leaf=0.2, map_leaf=0.4,
+            map_half_extent=16.0, scan_max_range=12.0,
+            insert_downsampled=True,
+            ndt=NDTParams(max_iterations=10, coarse_iterations=2,
+                          tolerance=3e-4, min_voxel_count=3.0,
+                          window_dims=(32, 32, 16)),
+            pyramid_factor=2, rebase_fraction=0.05, **kw)
+
+    world = syn.default_office()
+    rng = np.random.default_rng(0)
+    clouds, gt = [], []
+    for k in range(n):
+        T = syn.se2_pose(0.3 * k - 0.6, 0.12 * k - 0.3, 0.07 * k, z=1.2)
+        pts, valid = syn.simulate_vlp16_revolution(
+            world, T, n_azimuth=600, noise_std=0.005, rng=rng)
+        clouds.append(PointCloud.from_points_host(pts[valid], capacity=12288,
+                                                  device=device))
+        gt.append(T)
+    return cfg, clouds, np.stack(gt)
+
+
+@pytest.mark.parametrize("options", [False, True])
+def test_captured_step_matches_eager_step(cuda, options):
+    """DenseLidarOdometry's captured step against compiled=False on the
+    card: every state bit for bit; the sync-free body warms up with
+    synchronising calls made errors."""
+    from tpu_slam_torch.pipeline.odometry_dense import DenseLidarOdometry
+    from tpu_slam_torch.utils.capture import Captured
+
+    cfg, clouds, gt = _office_case(cuda)
+    kw = dict(deskew=True, use_occupancy=True) if options else {}
+    warm = DenseLidarOdometry(cfg(**kw))
+    state = warm.init_state(clouds[0], gt[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        warm._step_impl(state, clouds[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    runs = []
+    for compiled in (False, True):
+        eng = DenseLidarOdometry(cfg(**kw), compiled=compiled)
+        state = eng.init_state(clouds[0], gt[0])
+        states = []
+        for c in clouds[1:]:
+            state = eng.step(state, c)
+            states.append(state)
+        runs.append((states, eng))
+    (eager, _), (captured, eng) = runs
+    assert len(eng.graphs) == 1
+    cap = next(iter(eng.graphs.values())).graph
+    assert isinstance(cap, Captured) and cap.replays == len(clouds) - 1
+    assert cap.calls["ndt_terms"] > 0
+    for a, b in zip(eager, captured):
+        for f in ("pose", "last_delta", "scan_index", "last_metrics"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+        for g in ("grid", "wide", "occ"):
+            ga, gb = getattr(a, g), getattr(b, g)
+            if ga is not None:
+                assert torch.equal(ga.rows, gb.rows), g
+                assert torch.equal(ga.origin_cell, gb.origin_cell), g
+    assert not torch.equal(eager[0].grid.origin_cell,
+                           eager[-1].grid.origin_cell)
+    if options:
+        assert int(runs[0][1].n_evicted) == int(eng.n_evicted)
+
+
+def test_captured_pose_graph_solve_matches_eager(cuda):
+    """optimize_pose_graph's captured PCG solve against the eager one on a
+    noisy chain with loops: poses and chi^2 bit for bit, under annealing
+    (one fixed-work graph a robust width) and a short last CG chunk."""
+    import numpy as np
+
+    from tpu_slam_torch.core import se3
+    from tpu_slam_torch.graph import pose_graph as pg
+
+    rng = np.random.default_rng(1)
+    n = 40
+    g = pg.empty_graph(48, 96, device=cuda)
+    T = torch.eye(4, device=cuda)
+    for _ in range(n):
+        step = torch.tensor(rng.normal(0, [0.3, 0.05, 0.01, 0.005, 0.005,
+                                           0.05]), dtype=torch.float32,
+                            device=cuda)
+        T = se3.exp(step) @ T
+        g, _ = pg.add_node(g, T)
+    for i in range(1, n):
+        noise = torch.tensor(rng.normal(0, 0.01, 6), dtype=torch.float32,
+                             device=cuda)
+        g = pg.add_edge(g, i - 1, i, se3.exp(noise) @ se3.inverse(
+            g.poses[i - 1]) @ g.poses[i])
+    for i, j in ((0, 30), (5, 38), (12, 25)):
+        g = pg.add_edge(g, i, j, se3.inverse(g.poses[i]) @ g.poses[j],
+                        info=400.0 * torch.eye(6, device=cuda))
+    for params in (pg.GraphSolveParams(gn_iterations=6, cg_iterations=50,
+                                       robust_delta=0.3, robust_anneal=4.0),
+                   pg.GraphSolveParams(gn_iterations=4, cg_iterations=200,
+                                       robust_delta=0.3, trust_loops=True)):
+        eager, chi_e = pg.optimize_pose_graph(g, params, compiled=False)
+        for _ in range(2):
+            got, chi = pg.optimize_pose_graph(g, params)
+            assert torch.equal(got.poses, eager.poses)
+            assert torch.equal(chi, chi_e)

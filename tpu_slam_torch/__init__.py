@@ -50,9 +50,11 @@ Layer map (every module of ``tpu_slam`` has its counterpart here, but
                    and pcap, rosbag, npz datasets
     core/          SE(3) and quaternions (batched), symmetric 3x3 closed
                    forms, padded point clouds, the deterministic
-                   scatter-add
+                   scatter-add, constant tensors made once per device
     utils/         timing on the card (slope_time, call_ms), tracing
-                   (torch.profiler), structured logging, the PLY writer
+                   (torch.profiler), structured logging, the PLY writer,
+                   the CUDA-graph capture of the compiled programs (the
+                   dense engine's step, the pose-graph solve)
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; a
 missing GPU raises instead of silently falling back.

@@ -117,7 +117,9 @@ def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., 4, 4) from rotations (..., 3, 3) and translations (..., 3)."""
     top = torch.cat([R, t[..., None]], dim=-1)
     T = torch.nn.functional.pad(top, (0, 0, 0, 1))
-    T[..., 3, 3] = 1.0
+    # a fill, not an item assignment: assigning a number to a one-element
+    # view of a CUDA tensor goes through a copy from host memory
+    T[..., 3, 3].fill_(1.0)
     return T
 
 

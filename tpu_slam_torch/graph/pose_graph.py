@@ -19,12 +19,21 @@ the reference's ``while_loop`` condition dot(r, r) > cg_tolerance holds,
 and the host reads that flag once every ``CG_CHECK_EVERY`` iterations to
 stop early. The result is the reference loop's, with one host sync per
 CG_CHECK_EVERY iterations instead of one per iteration.
+
+On a CUDA device ``optimize_pose_graph`` (``compiled``, the default, as
+the reference jits it) runs the PCG solve as CUDA graphs, captured once
+for each (node capacity, edge capacity, params): a GN iteration replays
+its fixed work (the rhs and the preconditioner, the CG start) and then
+one chunk of CG_CHECK_EVERY masked CG iterations until the flag read
+after a chunk says the solve has stopped, then the retract; the live
+nodes come from a device count. The work and its order are the eager
+solve's, so the bits are too.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -175,39 +184,62 @@ def _hv(graph: PoseGraph, params: GraphSolveParams, edge_terms,
     return out + params.damping * v
 
 
-def _solve_pcg(graph, params, b, diag, edge_terms):
-    """Block-Jacobi preconditioned CG for H x = b (masked iterations)."""
+def _dot(a, c):
+    return torch.sum(a * c)
+
+
+def _cg_active(r, params: GraphSolveParams) -> torch.Tensor:
+    """The reference loop's condition: dot(r, r) > cg_tolerance."""
+    return _dot(r, r) > params.cg_tolerance
+
+
+def _pcg_start(graph, params, b, diag, edge_terms):
+    """The block-Jacobi preconditioner and the CG start at x = 0:
+    (Minv, x, r, p, rz)."""
     # inv_ex: no error check, so no host sync (the damped diagonal blocks
     # are positive definite)
     Minv = torch.linalg.inv_ex(diag)[0]                # (N, 6, 6)
-
-    def precond(x):
-        return torch.einsum("nab,nb->na", Minv, x)
-
-    def dot(a, c):
-        return torch.sum(a * c)
-
     x = torch.zeros_like(b)
     r = b - _hv(graph, params, edge_terms, x)
-    z = precond(r)
-    p = z
-    rz = dot(r, z)
-    for it in range(params.cg_iterations):
-        active = dot(r, r) > params.cg_tolerance
-        if it % CG_CHECK_EVERY == 0 and not bool(active):
-            break
+    z = torch.einsum("nab,nb->na", Minv, r)
+    return Minv, x, r, z, _dot(r, z)
+
+
+def _pcg_iterations(graph, params, edge_terms, Minv, x, r, p, rz, n: int):
+    """``n`` masked CG iterations: each updates (x, r, p, rz) only while
+    the loop's condition holds."""
+    for _ in range(n):
+        active = _cg_active(r, params)
         Hp = _hv(graph, params, edge_terms, p)
-        alpha = rz / torch.clamp(dot(p, Hp), min=1e-30)
+        alpha = rz / torch.clamp(_dot(p, Hp), min=1e-30)
         x_new = x + alpha * p
         r_new = r - alpha * Hp
-        z = precond(r_new)
-        rz_new = dot(r_new, z)
+        z = torch.einsum("nab,nb->na", Minv, r_new)
+        rz_new = _dot(r_new, z)
         beta = rz_new / torch.clamp(rz, min=1e-30)
         p_new = z + beta * p
         x = torch.where(active, x_new, x)
         r = torch.where(active, r_new, r)
         p = torch.where(active, p_new, p)
         rz = torch.where(active, rz_new, rz)
+    return x, r, p, rz
+
+
+def _chunks(params: GraphSolveParams):
+    """The CG iterations in chunks of CG_CHECK_EVERY (the last one
+    shorter); the host reads the flag before each."""
+    n = params.cg_iterations
+    return [min(CG_CHECK_EVERY, n - s) for s in range(0, n, CG_CHECK_EVERY)]
+
+
+def _solve_pcg(graph, params, b, diag, edge_terms):
+    """Block-Jacobi preconditioned CG for H x = b (masked iterations)."""
+    Minv, x, r, p, rz = _pcg_start(graph, params, b, diag, edge_terms)
+    for n in _chunks(params):
+        if not bool(_cg_active(r, params)):
+            break
+        x, r, p, rz = _pcg_iterations(graph, params, edge_terms, Minv, x, r,
+                                      p, rz, n)
     return x
 
 
@@ -257,13 +289,19 @@ def _robust_deltas(params: GraphSolveParams):
 
 
 def optimize_pose_graph(graph: PoseGraph,
-                        params: GraphSolveParams = GraphSolveParams()
+                        params: GraphSolveParams = GraphSolveParams(),
+                        compiled: bool = True
                         ) -> Tuple[PoseGraph, torch.Tensor]:
     """Run GN iterations; returns (optimized graph, final chi^2).
 
     With a robust kernel active, its width is annealed from
     robust_anneal x the target down to the target over the iterations.
+    ``compiled`` with the PCG solver on a CUDA device: the captured solve
+    (module docstring); the dense solver and the CPU run eagerly.
     """
+    if (compiled and params.solver != "dense"
+            and graph.poses.device.type == "cuda"):
+        return captured_solve(graph, params).run(graph)
     solve = _solve_dense if params.solver == "dense" else _solve_pcg
     live = (torch.arange(graph.node_capacity, device=graph.poses.device)
             < graph.n_nodes)[:, None]
@@ -274,6 +312,107 @@ def optimize_pose_graph(graph: PoseGraph,
         graph = dataclasses.replace(graph,
                                     poses=se3.retract(graph.poses, xi))
     return graph, graph_error(graph)
+
+
+_GRAPH_TENSORS = ("poses", "edge_i", "edge_j", "edge_T", "edge_info",
+                  "edge_mask")
+
+
+class CapturedSolve:
+    """``optimize_pose_graph``'s PCG solve as CUDA graphs for one (node
+    capacity, edge capacity, params) on one device.
+
+    Static buffers hold the graph (poses, edges, the live node count) and
+    what crosses between the graphs (the edge Jacobians and weights, the
+    preconditioner, the CG iterate and its flag). ``fixed[delta]`` builds
+    a GN iteration's rhs and preconditioner and starts the CG (one graph
+    for each robust width), ``chunk[n]`` runs n masked CG iterations in
+    place, ``retract`` applies the step to the live nodes.
+    """
+
+    def __init__(self, graph: PoseGraph, params: GraphSolveParams):
+        from tpu_slam_torch.utils.capture import Captured
+
+        dev = graph.poses.device
+        self.params = params
+        self.graph = dataclasses.replace(
+            graph, **{f: getattr(graph, f).clone() for f in _GRAPH_TENSORS})
+        self.n_nodes = torch.zeros((), dtype=torch.long, device=dev)
+        # the buffers between the graphs, made at the first warm-up with
+        # the strides the eager solve's tensors have (a product's kernel,
+        # and so its bits, may follow the strides)
+        self.bufs: Dict[str, torch.Tensor] = {}
+        self.fixed = {d: Captured(lambda d=d: self._fixed(d), dev)
+                      for d in sorted(set(_robust_deltas(params)))}
+        self.chunk = {k: Captured(lambda k=k: self._chunk(k), dev)
+                      for k in sorted(set(_chunks(params)))}
+        self.retract = Captured(self._retract, dev)
+
+    def _keep(self, **values):
+        """Copy each value into its buffer (made at the first call)."""
+        for name, v in values.items():
+            if name not in self.bufs:
+                self.bufs[name] = torch.empty_like(v)
+            self.bufs[name].copy_(v)
+
+    def _set_cg(self, x, r, p, rz):
+        self._keep(x=x, r=r, p=p, rz=rz, active=_cg_active(r, self.params))
+
+    def _fixed(self, delta: float):
+        b, diag, (_, Jj, info) = _build_rhs_and_diag(self.graph, self.params,
+                                                     delta)
+        self._keep(Jj=Jj, info=info)
+        terms = (None, self.bufs["Jj"], self.bufs["info"])
+        Minv, x, r, p, rz = _pcg_start(self.graph, self.params, b, diag,
+                                       terms)
+        self._keep(Minv=Minv)
+        self._set_cg(x, r, p, rz)
+
+    def _chunk(self, k: int):
+        s = self.bufs
+        self._set_cg(*_pcg_iterations(
+            self.graph, self.params, (None, s["Jj"], s["info"]), s["Minv"],
+            s["x"], s["r"], s["p"], s["rz"], k))
+
+    def _retract(self):
+        g = self.graph
+        live = (torch.arange(g.node_capacity, device=g.poses.device)
+                < self.n_nodes)[:, None]
+        xi = torch.where(live, self.bufs["x"], 0.0)
+        g.poses.copy_(se3.retract(g.poses, xi))
+
+    def run(self, graph: PoseGraph) -> Tuple[PoseGraph, torch.Tensor]:
+        g = self.graph
+        for f in _GRAPH_TENSORS:
+            getattr(g, f).copy_(getattr(graph, f))
+        self.n_nodes.fill_(graph.n_nodes)
+        for delta in _robust_deltas(self.params):
+            self.fixed[delta].replay()
+            for k in _chunks(self.params):
+                if not bool(self.bufs["active"]):
+                    break
+                self.chunk[k].replay()
+            self.retract.replay()
+        out = dataclasses.replace(graph, poses=g.poses.clone())
+        return out, graph_error(out)
+
+
+_solves: Dict[Tuple, CapturedSolve] = {}
+
+
+def captured_solve(graph: PoseGraph, params: GraphSolveParams
+                   ) -> CapturedSolve:
+    """The cached captured solve for ``graph``'s capacities, device and
+    ``params``, captured at its first request."""
+    # the strides too: a product's kernel, and so its bits, may follow them
+    key = (graph.node_capacity, graph.edge_capacity, params,
+           graph.poses.device, graph.poses.dtype,
+           tuple(getattr(graph, f).stride() for f in _GRAPH_TENSORS))
+    solve = _solves.get(key)
+    if solve is None:
+        solve = CapturedSolve(graph, params)
+        _solves[key] = solve
+    return solve
 
 
 # ---------------------------------------------------------------------------

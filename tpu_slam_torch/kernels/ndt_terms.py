@@ -38,6 +38,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 
 from tpu_slam_torch.core import se3
+from tpu_slam_torch.core.consts import const
 from tpu_slam_torch.kernels import _build
 
 OUT_CHANNELS = 29         # H upper triangle (21), b (6), sum s, matched
@@ -97,7 +98,7 @@ def build_terms_raster(points: torch.Tensor, mask: torch.Tensor,
     g = wx * wy * wz if own_x is None else (x1 - x0 + 2) * wy * wz
     n = points.shape[0]
     dev = points.device
-    hi = torch.tensor([wx, wy, wz], dtype=torch.float32, device=dev)
+    hi = const((wx, wy, wz), torch.float32, dev)
     # clamp BEFORE the int conversion (padding sits at 1e8); the clamp keeps
     # every out-of-window point out of the window
     rel = torch.clamp((se3.apply(T0, points) - origin_world) / leaf, min=-1.0)

@@ -13,6 +13,7 @@ from typing import Tuple
 
 import torch
 
+from tpu_slam_torch.core.consts import const
 from tpu_slam_torch.core.pointcloud import PointCloud
 
 # Invalid/padding points get the maximum key so they sort to the end.
@@ -40,7 +41,7 @@ class VoxelGridSpec:
         return self.leaf * self.cells_per_axis
 
     def origin_tensor(self, device) -> torch.Tensor:
-        return torch.tensor(self.origin, dtype=torch.float32, device=device)
+        return const(self.origin, torch.float32, device)
 
     @staticmethod
     def centered(leaf: float, half_extent: float,
@@ -115,7 +116,7 @@ def neighbor_offsets_keys(key: torch.Tensor, spec: VoxelGridSpec
     """
     b = spec.dim_bits
     n = spec.cells_per_axis
-    d = torch.tensor([-1, 0, 1], dtype=torch.int32, device=key.device)
+    d = const((-1, 0, 1), torch.int32, key.device)
     dx, dy, dz = torch.meshgrid(d, d, d, indexing="ij")
     cx = (key >> (2 * b))[..., None] + dx.reshape(-1)
     cy = ((key >> b) & (n - 1))[..., None] + dy.reshape(-1)

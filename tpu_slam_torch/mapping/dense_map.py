@@ -18,6 +18,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from tpu_slam_torch.core.consts import const
 from tpu_slam_torch.core.pointcloud import PointCloud
 from tpu_slam_torch.core.scatter import accumulate_rows
 from tpu_slam_torch.kernels.voxel_hash import VoxelGridSpec
@@ -47,6 +48,15 @@ def empty_grid(dims: Tuple[int, int, int], origin_cell,
         origin_cell=oc.clone(), dims=tuple(dims))
 
 
+def weight_tensor(weight: Union[torch.Tensor, float], device
+                  ) -> torch.Tensor:
+    """An insert's ``weight`` as a float32 scalar on ``device``: a tensor
+    as it is, a number by a fill (no copy from host memory)."""
+    if isinstance(weight, torch.Tensor):
+        return weight.to(device=device, dtype=torch.float32)
+    return torch.full((), float(weight), dtype=torch.float32, device=device)
+
+
 def _floor_div(a: torch.Tensor, b: int) -> torch.Tensor:
     return torch.div(a, b, rounding_mode="floor")
 
@@ -66,9 +76,8 @@ def centered_origin_cell(center_world: torch.Tensor, spec: VoxelGridSpec,
     origin = spec.origin_tensor(dev)
     cc = torch.floor((center_world.to(torch.float32) - origin)
                      / spec.leaf).to(torch.int32)
-    half = torch.tensor([wx // 2, wy // 2, wz // 2], dtype=torch.int32,
-                        device=dev)
-    hi = torch.tensor([n - wx, n - wy, n - wz], dtype=torch.int32, device=dev)
+    half = const((wx // 2, wy // 2, wz // 2), torch.int32, dev)
+    hi = const((n - wx, n - wy, n - wz), torch.int32, dev)
     c0 = _floor_div(cc - half + align // 2, align) * align
     upper = _floor_div(hi, align) * align
     return torch.minimum(torch.clamp(c0, min=0), upper).to(torch.int32)
@@ -109,7 +118,7 @@ def insert_rows(rows: torch.Tensor, origin_cell: torch.Tensor,
     dev = pts.device
     origin_w = (spec.origin_tensor(dev)
                 + origin_cell.to(torch.float32) * spec.leaf)
-    hi = torch.tensor([wx, wy, wz], dtype=torch.float32, device=dev)
+    hi = const((wx, wy, wz), torch.float32, dev)
     # clip BEFORE the int conversion: padded points sit at 1e8
     rel = torch.minimum(torch.clamp((pts - origin_w) / spec.leaf, min=-1.0),
                         hi)
@@ -126,8 +135,7 @@ def insert_rows(rows: torch.Tensor, origin_cell: torch.Tensor,
 
     corner = origin_w + cc.to(torch.float32) * spec.leaf
     local = torch.where(ok[:, None], pts - corner, 0.0)
-    w = ok.to(torch.float32) * torch.as_tensor(weight, dtype=torch.float32,
-                                               device=dev)
+    w = ok.to(torch.float32) * weight_tensor(weight, dev)
     lw = local * w[:, None]
     contrib = torch.cat([
         w[:, None], lw,
@@ -139,27 +147,32 @@ def insert_rows(rows: torch.Tensor, origin_cell: torch.Tensor,
 
 def grid_scroll(grid: DenseMomentGrid, shift: torch.Tensor
                 ) -> DenseMomentGrid:
-    """Move the window by ``shift`` whole cells; vacated slabs are zeroed.
+    """Move the window by ``shift`` whole cells (a (3,) device tensor,
+    never read back); vacated slabs are zeroed, and a zero shift gives
+    the same bits.
 
-    The shift is read back to the host once (one synchronisation) so the
-    roll runs with static sizes; a zero shift returns the grid unchanged.
+    As the reference's: each axis wraps by its shift (out[i] = in[(i + s)
+    mod n]), then the slabs the shift vacated are zeroed; a shift of n or
+    more on an axis empties the window. The three wraps are one gather of
+    whole rows.
     """
-    s = [int(v) for v in shift.tolist()]
-    if not any(s):
-        return grid
-    wx, wy, wz = grid.dims
-    ch = grid.rows.shape[-1]
-    a = torch.roll(grid.rows.reshape(wx, wy, wz, ch),
-                   shifts=[-v for v in s], dims=[0, 1, 2]).clone()
-    for ax, v in enumerate(s):
-        n_ax = grid.dims[ax]
-        if v > 0:
-            a.narrow(ax, max(n_ax - v, 0), min(v, n_ax)).zero_()
-        elif v < 0:
-            a.narrow(ax, 0, min(-v, n_ax)).zero_()
-    return DenseMomentGrid(rows=a.reshape(-1, ch),
+    dims = grid.dims
+    dev = grid.rows.device
+    s = shift.to(torch.int64)
+    src, keep = None, None
+    for ax, n in enumerate(dims):
+        pos = torch.arange(n, dtype=torch.int64, device=dev)
+        idx = torch.remainder(pos + s[ax], n)
+        ok = ((pos < n - torch.clamp(s[ax], min=0))
+              & (pos >= torch.clamp(-s[ax], min=0)))
+        src = idx if src is None else src[:, None] * n + idx
+        keep = ok if keep is None else keep[:, None] & ok
+        src, keep = src.reshape(-1), keep.reshape(-1)
+    rows = torch.where(keep[:, None],
+                       torch.index_select(grid.rows, 0, src), 0.0)
+    return DenseMomentGrid(rows=rows,
                            origin_cell=grid.origin_cell + shift.to(torch.int32),
-                           dims=grid.dims)
+                           dims=dims)
 
 
 def grid_recenter_shift(grid: DenseMomentGrid, center_world: torch.Tensor,
@@ -170,8 +183,7 @@ def grid_recenter_shift(grid: DenseMomentGrid, center_world: torch.Tensor,
     target = centered_origin_cell(center_world, spec, grid.dims, align)
     err = target - grid.origin_cell
     dev = err.device
-    half = torch.tensor([d // 2 for d in grid.dims], dtype=torch.int32,
-                        device=dev)
+    half = const(tuple(d // 2 for d in grid.dims), torch.int32, dev)
     limit = torch.clamp((half.to(torch.float32) * deadband_fraction)
                         .to(torch.int32), min=align)
     need = (err.abs() >= limit).any()
@@ -194,7 +206,7 @@ def _window_cell(p: torch.Tensor, origin_w: torch.Tensor, leaf: float,
     """x-major window cell of world points and whether it is inside; the
     clip comes before the int conversion (padded points sit at 1e8)."""
     wx, wy, wz = dims
-    hi = torch.tensor([wx, wy, wz], dtype=torch.float32, device=p.device)
+    hi = const((wx, wy, wz), torch.float32, p.device)
     rel = torch.minimum(torch.clamp((p - origin_w) / leaf, min=-1.0), hi)
     cc = torch.floor(rel).to(torch.int32)
     inside = ((cc >= 0) & (cc < hi.to(torch.int32))).all(dim=1)
@@ -231,7 +243,7 @@ def grid_occupancy_update(grid: DenseMomentGrid, occ: DenseMomentGrid,
                      + d[:, 2] * d[:, 2])
     rng_c = torch.clamp(rng, max=max_range)
     valid = cloud.mask & (rng > 1e-6)
-    w = torch.as_tensor(weight, dtype=torch.float32, device=dev)
+    w = weight_tensor(weight, dev)
     origin_w = (spec.origin_tensor(dev)
                 + occ.origin_cell.to(torch.float32) * spec.leaf)
 

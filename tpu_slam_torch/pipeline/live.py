@@ -159,8 +159,9 @@ class LivePipeline:
 
     def warm_up(self) -> None:
         """Everything built or initialised at first use, done now: one
-        aggregator step on the device (its context and kernels), and the
-        CUDA libraries of the SLAM path built and loaded."""
+        aggregator step on the device (its context and kernels), the
+        CUDA libraries of the SLAM path built and loaded, and its captured
+        graph solve (graph.pose_graph) captured."""
         L = self.config.line_capacity
         dev = self.device
         warm = self.aggregator.add_line(
@@ -174,6 +175,14 @@ class LivePipeline:
             from tpu_slam_torch.kernels import _build
             for name in SLAM_KERNELS:
                 _build.load(name)
+            if (self.slam.compiled
+                    and self.slam.config.graph.solver != "dense"):
+                from tpu_slam_torch.graph.pose_graph import (captured_solve,
+                                                             empty_graph)
+                cfg = self.slam.config
+                captured_solve(empty_graph(cfg.keyframe_capacity,
+                                           cfg.edge_capacity, device=dev),
+                               cfg.graph)
 
     def run(self, lms: NativeLms,
             angle_source: Callable[[], float],

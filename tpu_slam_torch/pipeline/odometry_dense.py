@@ -12,12 +12,22 @@ clears the moments of cells a moving object has left.
 
 The state lives on the engine's device; ``run`` reads pose and metrics
 back every ``sync_every`` scans.
+
+The step is the reference's compiled program: ``_step_impl`` is its
+sync-free body (the scroll shift, the LM loops' exits and the iteration
+count stay on the device). With ``compiled=True`` (the default, as the
+reference always jits) ``step`` replays it as one CUDA graph on a CUDA
+device, captured at the first step for the state's and the cloud's
+shapes and strides (``utils.capture``), and runs it eagerly on the CPU.
+``compiled=False`` runs the host-exit step, whose LM loops read their
+exit conditions back (the counterpart of ``jax.disable_jit``); both give
+the same bits.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +50,7 @@ from tpu_slam_torch.mapping.voxel_map import coarse_spec_of
 from tpu_slam_torch.pipeline.config import OdometryConfig
 from tpu_slam_torch.pipeline.metrics import MetricsLog, ScanMetrics, Stopwatch
 from tpu_slam_torch.registration.ndt import ndt_register
+from tpu_slam_torch.utils.capture import Captured
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,13 +75,16 @@ class DenseLidarOdometry:
     """Dense-window odometry engine on one device (CUDA by default)."""
 
     def __init__(self, config: OdometryConfig = OdometryConfig(),
-                 device=None):
+                 device=None, compiled: bool = True):
         if config.method != "ndt":
             raise ValueError("DenseLidarOdometry supports method='ndt'")
         if config.ndt.window_dims is None:
             raise ValueError("config.ndt.window_dims must be set (the dense "
                              "window shape)")
         self.device = default_device(device)
+        self.compiled = compiled
+        # captured steps by the shapes of (state, cloud) (``_shapes``)
+        self.graphs = {}
         self.config = config
         self.map_spec = config.map_spec()
         self.scan_spec = config.scan_spec()
@@ -154,7 +168,38 @@ class DenseLidarOdometry:
 
     def step(self, state: DenseOdomState, cloud: PointCloud
              ) -> DenseOdomState:
-        """One scan: returns the next state (the old one is left intact)."""
+        """One scan: returns the next state (the old one is left intact).
+
+        ``compiled`` on a CUDA device: the captured step (see the module
+        docstring); the state and the cloud are copied into the graph's
+        inputs and the returned state's tensors are copies of its outputs.
+        """
+        if not self.compiled:
+            nxt, n_ev = self._step_body(state, cloud, sync_free=False)
+        elif self.device.type != "cuda":
+            nxt, n_ev = self._step_impl(state, cloud)
+        else:
+            nxt, n_ev = self._replay(state, cloud)
+        if n_ev is not None:
+            self.n_evicted = self.n_evicted + n_ev
+        return nxt
+
+    def _step_impl(self, state: DenseOdomState, cloud: PointCloud
+                   ) -> Tuple[DenseOdomState, Optional[torch.Tensor]]:
+        """The compiled step's body: reads nothing back to the host.
+        Returns (next state, cells evicted or None)."""
+        return self._step_body(state, cloud, sync_free=True)
+
+    def _replay(self, state: DenseOdomState, cloud: PointCloud):
+        key = _shapes(state, cloud)
+        cap = self.graphs.get(key)
+        if cap is None:
+            cap = _CapturedStep(self, state, cloud)
+            self.graphs[key] = cap
+        return cap(state, cloud)
+
+    def _step_body(self, state: DenseOdomState, cloud: PointCloud,
+                   sync_free: bool):
         cfg = self.config
         pred = self._clamped_delta(state.last_delta)
         if cfg.deskew:
@@ -198,7 +243,7 @@ class DenseLidarOdometry:
             cscan = voxel_downsample(cloud, self.coarse_scan_spec,
                                      capacity=self.coarse_scan_capacity)
             rc = ndt_register(cscan, cfield, self.coarse_spec, init_T=init_T,
-                              params=self.coarse_params)
+                              params=self.coarse_params, sync_free=sync_free)
             T1, coarse_frac = rc.T, rc.matched_fraction
             # far tier: scan points beyond the fine window register against
             # the wide field
@@ -207,7 +252,7 @@ class DenseLidarOdometry:
                                min_voxel_count=cfg.ndt.min_voxel_count,
                                evec_floor_ratio=cfg.ndt.evec_floor_ratio)
         res = ndt_register(scan, field, self.map_spec, init_T=T1,
-                           params=cfg.ndt, **far_kw)
+                           params=cfg.ndt, sync_free=sync_free, **far_kw)
 
         accepted = res.matched_fraction >= cfg.min_accept_fraction
         # one polar-Newton step per scan keeps the rotation orthonormal
@@ -222,21 +267,24 @@ class DenseLidarOdometry:
         if wide is not None:
             wide = grid_insert(wide, world_scan, self.coarse_spec,
                                weight=weight)
+        n_ev = None
         if occ is not None:
             grid, occ, n_ev = grid_occupancy_update(
                 grid, occ, T[:3, 3], world_scan, self.map_spec,
                 n_steps=cfg.occupancy_steps,
                 max_range=cfg.occupancy_max_range,
                 evict_below=cfg.occupancy_evict_below, weight=weight)
-            self.n_evicted = self.n_evicted + n_ev
 
+        iterations = (res.iterations.to(torch.float32) if sync_free else
+                      torch.full((), float(res.iterations),
+                                 device=self.device))
         metrics = torch.stack([
-            torch.full((), float(res.iterations), device=self.device),
-            res.matched_fraction, accepted.to(torch.float32), weight,
-            coarse_frac])
+            iterations, res.matched_fraction, accepted.to(torch.float32),
+            weight, coarse_frac])
         return DenseOdomState(pose=T, last_delta=delta, grid=grid,
                               scan_index=state.scan_index + 1,
-                              last_metrics=metrics, wide=wide, occ=occ)
+                              last_metrics=metrics, wide=wide,
+                              occ=occ), n_ev
 
     # -- host conveniences ------------------------------------------------
 
@@ -262,3 +310,76 @@ class DenseLidarOdometry:
                     scan_index=k, iterations=int(m[0]), residual=0.0,
                     matched_fraction=float(m[1]), wall_time_s=sw.elapsed))
         return torch.stack(poses).cpu().numpy(), self.metrics
+
+
+def _state_tensors(state: DenseOdomState) -> List[torch.Tensor]:
+    out = [state.pose, state.last_delta, state.grid.rows,
+           state.grid.origin_cell, state.scan_index, state.last_metrics]
+    for g in (state.wide, state.occ):
+        if g is not None:
+            out += [g.rows, g.origin_cell]
+    return out
+
+
+def _with_tensors(template: DenseOdomState, ts: Sequence[torch.Tensor]
+                  ) -> DenseOdomState:
+    """``template``'s structure over the tensors ``_state_tensors`` lists."""
+    pose, last_delta, rows, oc, scan_index, last_metrics = ts[:6]
+    rest = list(ts[6:])
+
+    def grid_from(g):
+        if g is None:
+            return None
+        r, o = rest.pop(0), rest.pop(0)
+        return DenseMomentGrid(rows=r, origin_cell=o, dims=g.dims)
+
+    wide = grid_from(template.wide)
+    occ = grid_from(template.occ)
+    return DenseOdomState(
+        pose=pose, last_delta=last_delta,
+        grid=DenseMomentGrid(rows=rows, origin_cell=oc,
+                             dims=template.grid.dims),
+        scan_index=scan_index, last_metrics=last_metrics, wide=wide, occ=occ)
+
+
+def _cloud_tensors(cloud: PointCloud) -> List[torch.Tensor]:
+    return [cloud.points, cloud.mask] + (
+        [] if cloud.attrs is None else [cloud.attrs])
+
+
+def _shapes(state: DenseOdomState, cloud: PointCloud) -> Tuple:
+    """A captured step's key: its inputs' structure, shapes, dtypes and
+    strides (a kernel's choice, and so its bits, may follow the strides)."""
+    return (state.wide is None, state.occ is None, cloud.attrs is None,
+            tuple((tuple(t.shape), t.stride(), t.dtype) for t in
+                  _state_tensors(state) + _cloud_tensors(cloud)))
+
+
+class _CapturedStep:
+    """An engine's ``_step_impl`` as one CUDA graph for one set of state
+    and cloud shapes: static copies of the state and the cloud are its
+    inputs, the next state (and the evicted count) its outputs."""
+
+    def __init__(self, engine: DenseLidarOdometry, state: DenseOdomState,
+                 cloud: PointCloud):
+        from tpu_slam_torch.kernels.ndt_terms import ndt_terms
+
+        self.state_in = [t.clone() for t in _state_tensors(state)]
+        self.cloud_in = [t.clone() for t in _cloud_tensors(cloud)]
+        # the static inputs as a state and a cloud
+        self.template = _with_tensors(state, self.state_in)
+        st, cl = self.template, PointCloud(*self.cloud_in)
+
+        def body():
+            nxt, n_ev = engine._step_impl(st, cl)
+            return _state_tensors(nxt), n_ev
+
+        self.graph = Captured(body, engine.device, counters=(ndt_terms,))
+
+    def __call__(self, state: DenseOdomState, cloud: PointCloud):
+        for dst, src in zip(self.state_in + self.cloud_in,
+                            _state_tensors(state) + _cloud_tensors(cloud)):
+            dst.copy_(src)
+        out, n_ev = self.graph.replay()
+        # the caller adds n_ev to its count before the next replay
+        return _with_tensors(self.template, [t.clone() for t in out]), n_ev

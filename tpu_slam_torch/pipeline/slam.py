@@ -16,6 +16,11 @@ and their outcomes to ``loop_debug``.
 ``stage_seconds`` accumulates the wall time of each stage of ``step``
 (odometry, keyframe store, loop verification, graph solve), each closed by
 a device synchronisation so the time lands in the stage that spent it.
+
+With ``compiled`` (the default) the dense engine steps through its
+captured step and the graph solves run captured on a CUDA device (see
+``pipeline.odometry_dense`` and ``graph.pose_graph``); ``compiled=False``
+runs both eagerly, with the same bits.
 """
 
 from __future__ import annotations
@@ -121,7 +126,8 @@ class SLAMSystem:
     Runs on ``device`` (CUDA unless the caller asks for the CPU).
     """
 
-    def __init__(self, config: SLAMConfig = SLAMConfig(), device=None):
+    def __init__(self, config: SLAMConfig = SLAMConfig(), device=None,
+                 compiled: bool = True):
         if config.odometry.scrolling_window:
             raise ValueError(
                 "SLAMSystem needs a world-fixed map (keyframe clouds are "
@@ -132,8 +138,11 @@ class SLAMSystem:
             raise ValueError(f"odometry_engine={config.odometry_engine!r}: "
                              "'host' or 'dense'")
         self.config = config
-        engine = (DenseLidarOdometry if self._dense else LidarOdometry)
-        self.odometry = engine(config.odometry, device=device)
+        self.compiled = compiled
+        self.odometry = (DenseLidarOdometry(config.odometry, device=device,
+                                            compiled=compiled)
+                         if self._dense
+                         else LidarOdometry(config.odometry, device=device))
         self.device = self.odometry.device
         self.metrics = MetricsLog()
         self.stage_seconds: Dict[str, float] = dict.fromkeys(STAGES, 0.0)
@@ -369,7 +378,8 @@ class SLAMSystem:
                                  info=info)
             loop_pairs = state.loop_pairs | {(int(ci[k]), int(cj[k]))
                                              for k in accepted}
-            graph, _ = optimize_pose_graph(graph, cfg.graph)
+            graph, _ = optimize_pose_graph(graph, cfg.graph,
+                                           compiled=self.compiled)
             state = dataclasses.replace(
                 state, graph=graph, loop_pairs=loop_pairs,
                 n_loop_closures=state.n_loop_closures + len(accepted))

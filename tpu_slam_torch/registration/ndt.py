@@ -24,9 +24,13 @@ reference's dense-lookup, packed-row and neighbour-packed tiers of the
 sparse path exist for the TPU's gather cost and are not ported: the
 binary search finds the same slots.
 
-The reference's ``lax.while_loop``s exit on data; here they are host loops
-that read the exit condition with one ``.item()`` per iteration, so
-``iterations`` counts exactly the iterations the reference counts.
+The reference's ``lax.while_loop``s exit on data. ``lm_schedule`` has two
+forms of them. The host-exit form reads the exit condition with one
+``.item()`` an iteration. The sync-free form (``sync_free=True``, the
+dense engine's compiled step) runs every loop for its full trip count and
+freezes the solve on the device once the condition fails, reading nothing
+back; both count exactly the iterations the reference counts and give the
+same bits.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from tpu_slam_torch.core import se3
+from tpu_slam_torch.core.consts import const
 from tpu_slam_torch.core.pointcloud import PointCloud
 from tpu_slam_torch.core.sym3 import floored_info_sym3
 from tpu_slam_torch.kernels.voxel_hash import (INVALID_KEY, VoxelGridSpec,
@@ -102,7 +107,7 @@ class NDTField:
 @dataclasses.dataclass(frozen=True)
 class NDTResult:
     T: torch.Tensor
-    iterations: int
+    iterations: "int | torch.Tensor"   # a () int32 tensor when sync-free
     score: torch.Tensor               # -cost / valid source points
     matched_fraction: torch.Tensor
     converged: torch.Tensor
@@ -239,10 +244,8 @@ def _ndt_field_dense(vmap, spec: VoxelGridSpec, params: NDTParams,
         cc = torch.floor((torch.as_tensor(center, dtype=f32, device=dev)
                           - spec.origin_tensor(dev)) / spec.leaf
                          ).to(torch.int32)
-        half = torch.tensor([wx // 2, wy // 2, wz // 2], dtype=torch.int32,
-                            device=dev)
-        hi = torch.tensor([n - wx, n - wy, n - wz], dtype=torch.int32,
-                          device=dev)
+        half = const((wx // 2, wy // 2, wz // 2), torch.int32, dev)
+        hi = const((n - wx, n - wy, n - wz), torch.int32, dev)
         c0 = torch.minimum(torch.clamp(cc - half, min=0), hi)
     lx, ly, lz = gx - c0[0], gy - c0[1], gz - c0[2]
     inside = (occ & (lx >= 0) & (lx < wx) & (ly >= 0) & (ly < wy)
@@ -373,7 +376,8 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
                  init_T: Optional[torch.Tensor] = None,
                  params: NDTParams = NDTParams(),
                  far_field: Optional[NDTField] = None,
-                 far_spec: Optional[VoxelGridSpec] = None) -> NDTResult:
+                 far_spec: Optional[VoxelGridSpec] = None,
+                 sync_free: bool = False) -> NDTResult:
     """Register a source cloud against an NDT field (scan-to-map).
 
     Levenberg-Marquardt with accept/reject on the NDT objective. A dense
@@ -382,7 +386,8 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
     outside the window are binned into the far field's window and their
     terms added to the same H and b. A sparse field takes the sparse path
     (``far_field`` and ``yaw_candidates`` are kernel-path options and are
-    not used there).
+    not used there). ``sync_free`` runs ``lm_schedule``'s sync-free form
+    (``iterations`` is then a device tensor).
     """
     from tpu_slam_torch.kernels.ndt_terms import build_terms_raster, ndt_terms
 
@@ -445,14 +450,15 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
 
     T, iters, frac, cost, dx = lm_schedule(
         init_T, params, use_kernel,
-        kernel_terms if use_kernel else sparse_terms, bin_raster, yaw_cost)
+        kernel_terms if use_kernel else sparse_terms, bin_raster, yaw_cost,
+        sync_free=sync_free)
     return NDTResult(T=T, iterations=iters, score=-cost / n_src_pts,
                      matched_fraction=frac,
                      converged=dx <= params.tolerance)
 
 
 def lm_schedule(init_T: torch.Tensor, params: NDTParams, use_kernel: bool,
-                raw_terms, bin_raster, yaw_cost):
+                raw_terms, bin_raster, yaw_cost, sync_free: bool = False):
     """The solve schedule of ``ndt_register``, over callables.
 
     ``raw_terms(T, gamma, ctx)`` gives (H, b, cost, matched fraction) at T
@@ -461,9 +467,17 @@ def lm_schedule(init_T: torch.Tensor, params: NDTParams, use_kernel: bool,
     ``yaw_cost(T, gamma)`` scores a yaw candidate. Runs the yaw search and
     the coarse stage (kernel path), the isotropic stage (sparse path) and
     the fine stage, with the motion prior added to every evaluation.
-    Returns (T, iterations, frac, cost, dx); the loops exit on host reads of
+    Returns (T, iterations, frac, cost, dx).
+
+    Host-exit form (``sync_free=False``): the loops exit on host reads of
     values the callables returned, so callables that return the same bits
-    on several ranks keep those ranks in lockstep.
+    on several ranks keep those ranks in lockstep; ``iterations`` is an
+    int. Sync-free form: an LM solve runs exactly ``max_iters`` trips and a
+    staged solve exactly its stage count, each trip updating the solve
+    only while the reference's ``while_loop`` condition holds (computed on
+    the device; a frozen trip's values, NaN included, are masked away), so
+    nothing is read back; ``iterations`` is a () int32 tensor. Both forms
+    give the same T, cost, frac, dx and iterations, bit for bit.
     """
     dev = init_T.device
     f32 = torch.float32
@@ -481,45 +495,64 @@ def lm_schedule(init_T: torch.Tensor, params: NDTParams, use_kernel: bool,
             cost = cost + 0.5 * w_prior * torch.sum(xi_e * xi_e)
         return H, b, cost, frac
 
-    def lm_solve(T0, gamma, max_iters, tol, ctx):
+    def lm_solve(T0, gamma, max_iters, tol, ctx, live=None):
+        """``live`` (sync-free form): a () bool; False freezes the solve."""
         H, b, cost, frac = terms(T0, gamma, ctx)
         T = T0
-        lam = torch.tensor(1e-4, dtype=f32, device=dev)
-        dx = torch.tensor(math.inf, dtype=f32, device=dev)
-        it = 0
-        while it < max_iters and bool(((dx > tol) & (lam < 1e6)).item()):
+        lam = torch.full((), 1e-4, dtype=f32, device=dev)
+        dx = torch.full((), math.inf, dtype=f32, device=dev)
+        it = (torch.zeros((), dtype=torch.int32, device=dev) if sync_free
+              else 0)
+        for _ in range(max_iters):
+            active = (dx > tol) & (lam < 1e6)
+            if not sync_free and not bool(active.item()):
+                break
+            if live is not None:
+                active = active & live
             damp = lam * torch.clamp(torch.trace(H) / 6.0, min=1e-6)
             xi, info = torch.linalg.solve_ex(H + damp * eye6, b)
             xi = -xi
             xi = torch.where(torch.isfinite(xi) & (info == 0), xi, 0.0)
             T_try = se3.retract(T, xi)
             H_t, b_t, cost_t, frac_t = terms(T_try, gamma, ctx)
-            accept = cost_t < cost
+            better = cost_t < cost
+            accept = better & active if sync_free else better
             T = torch.where(accept, T_try, T)
-            lam = torch.where(accept, torch.clamp(lam / 3.0, min=1e-7),
-                              lam * 5.0)
+            lam_n = torch.where(better, torch.clamp(lam / 3.0, min=1e-7),
+                                lam * 5.0)
+            lam = torch.where(active, lam_n, lam) if sync_free else lam_n
             cost = torch.where(accept, cost_t, cost)
             H = torch.where(accept, H_t, H)
             b = torch.where(accept, b_t, b)
             frac = torch.where(accept, frac_t, frac)
             dx = torch.where(accept, torch.linalg.vector_norm(xi), dx)
-            it += 1
+            it = it + (active.to(torch.int32) if sync_free else 1)
         return T, cost, frac, it, dx
 
     def staged_solve(T0, gamma, n_iters, iters_per_stage, tol):
         """Kernel path: re-binned LM, binning at the current pose at every
         stage entry; convergence (dx <= tol) skips the remaining stages."""
         n_stages = -(-n_iters // iters_per_stage)
-        T, it = T0, 0
+        T = T0
+        it = (torch.zeros((), dtype=torch.int32, device=dev) if sync_free
+              else 0)
         frac = torch.zeros((), dtype=f32, device=dev)
-        cost = torch.tensor(math.inf, dtype=f32, device=dev)
-        dx = torch.tensor(math.inf, dtype=f32, device=dev)
-        s = 0
-        while s < n_stages and bool((dx > tol).item()):
-            T, cost, frac, it2, dx = lm_solve(T, gamma, iters_per_stage, tol,
-                                              bin_raster(T))
-            it += it2
-            s += 1
+        cost = torch.full((), math.inf, dtype=f32, device=dev)
+        dx = torch.full((), math.inf, dtype=f32, device=dev)
+        for _ in range(n_stages):
+            live = dx > tol
+            if not sync_free and not bool(live.item()):
+                break
+            T2, cost2, frac2, it2, dx2 = lm_solve(
+                T, gamma, iters_per_stage, tol, bin_raster(T),
+                live if sync_free else None)
+            if sync_free:
+                T2 = torch.where(live, T2, T)
+                cost2 = torch.where(live, cost2, cost)
+                frac2 = torch.where(live, frac2, frac)
+                dx2 = torch.where(live, dx2, dx)
+            T, cost, frac, dx = T2, cost2, frac2, dx2
+            it = it + it2
         return T, it, frac, cost, dx
 
     gamma_f = _f32(params.score_temperature)
@@ -539,14 +572,16 @@ def lm_schedule(init_T: torch.Tensor, params: NDTParams, use_kernel: bool,
             Ty = T_c @ Rz                   # rotate heading, keep position
             costs.append(yaw_cost(Ty, gamma_y))
             Tys.append(Ty)
-        T_c = torch.stack(Tys)[torch.argmin(torch.stack(costs))]
+        # a gather, not an index by a () tensor (that reads it back)
+        best = torch.argmin(torch.stack(costs)).reshape(1)
+        T_c = torch.index_select(torch.stack(Tys), 0, best)[0]
     if params.isotropic_iterations > 0:
         # stage 0 (sparse path): point-to-mean pull, a basin independent of
         # the Gaussians' shapes
         T_c, _, _, it0, _ = lm_solve(T_c, gamma_f,
                                      params.isotropic_iterations,
                                      10.0 * params.tolerance, True)
-        it_c += it0
+        it_c = it_c + it0
     if params.coarse_iterations > 0 and params.coarse_temperature_scale > 1.0:
         gamma_c = _f32(gamma_f * params.coarse_temperature_scale)
         if use_kernel:
@@ -557,7 +592,7 @@ def lm_schedule(init_T: torch.Tensor, params: NDTParams, use_kernel: bool,
             T_c, _, _, it1, _ = lm_solve(T_c, gamma_c,
                                          params.coarse_iterations,
                                          10.0 * params.tolerance, False)
-        it_c += it1
+        it_c = it_c + it1
 
     if use_kernel:
         T, iters, frac, cost, dx = staged_solve(
