@@ -4,7 +4,8 @@ full SLAM on the dense engine (bench config 4), pair ICP on both tiers
 (bench config 1), the gather probes, the dense engine's options, the host
 engine on the sparse voxel map (LidarOdometry, JitLidarOdometry and
 SLAMSystem on it), scan-to-map NDT on the sparse voxel map (bench config
-3), bag replay through the CLI (bench config 6), the distributed layer
+3), the registration layer's compiled programs against their eager forms,
+bag replay through the CLI (bench config 6), the distributed layer
 (bench config 5: the sharded map and NDT; the sharded dense step, ICP
 batch and pose-graph solvers; the heartbeat), the rotating unit's live
 chain (CoLa-A stream -> native poller -> aggregator -> SLAM, and run_live)
@@ -63,8 +64,8 @@ Phases, each printing one JSON line:
                squared distances bit-equal, times, the split plan, bound
                and 8-instruction floor
   pair_icp     config 1 at 8k, 16k, 32k, 64k, 128k and 256k points: the
-               raster tier (icp_raster, coarse then fine call) and the
-               brute tier (icp)
+               raster tier (icp_raster, coarse then fine call, each the
+               captured program) and the brute tier (icp)
                timed as registrations/s by slope_time, recovery errors,
                matched fractions, the tier icp_auto picks, launches, host
                syncs and device idle share a registration
@@ -92,7 +93,8 @@ Phases, each printing one JSON line:
                then its 6-scan profile (profile_occupancy)
   host_odometry  LidarOdometry, the sparse voxel-map engine, on config 2's
                route at full width on the kernel path (terms_impl
-               "auto"): ATE and matched fraction against the reference's
+               "auto"; its registrations the captured programs, as in
+               every later phase of the host engine and the live chain): ATE and matched fraction against the reference's
                own run on a CPU (HOST_REF), mean iterations, scans/s
                synced, field builds, incremental inserts and fallbacks,
                voxels at the end, ndt_terms launches a scan, a rerun from a
@@ -127,6 +129,18 @@ Phases, each printing one JSON line:
                chiprun_out/config3.json
   kernels      ndt_terms against its plain version on config 3's coarse,
                fine and far rasters
+  compiled_registration  the registration layer's compiled programs
+               against their eager forms (compiled=False) in this call:
+               config 3's coarse-then-fine registration, LidarOdometry on
+               config 2's route, JitLidarOdometry's jit_arc and
+               jit_config2, config 1's raster tier at 8k-256k, and the
+               dense SLAM's default re-anchor over the office circle; all
+               bit-equal, every captured call run under sync-debug "error"
+               (0 reads or syncs); p50 ms, scans/s and registrations/s,
+               terms calls, launches, reads, H2D copies and idle share on
+               both forms; the input copies' us, the captures' seconds
+               and memory; the crossover of pair_icp's rates (the raster
+               tier captured against the brute tier)
   config6      bench_bag_replay: VLP-16 packets along config 2's route ->
                pcap -> revolutions -> rosbag with TF ground truth -> the
                port's run_odometry CLI (--engine dense, the bench's --set
@@ -197,6 +211,7 @@ It needs one CUDA device and nvcc; it imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -204,6 +219,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -1318,6 +1334,7 @@ def compiled_config2(clouds, gt):
             graphs=len(graphs),
             capture_s=[g.capture_s for g in graphs],
             graph_held_bytes=[g.held_bytes for g in graphs],
+            graph_pool_bytes=[g.pool_bytes for g in graphs],
             calls_per_replay=[g.calls for g in graphs])
         del engine
     e, c = keep["eager"], keep["captured"]
@@ -1647,10 +1664,11 @@ def config1_params():
             dataclasses.replace(params, max_iterations=8, tolerance=5e-4))
 
 
-def raster_register(src, tgt, init_T=None):
+def raster_register(src, tgt, init_T=None, compiled=True):
     """The raster tier of config 1: a coarse call (leaf 1.0), then a fine
-    call (leaf 0.5) from its result, both with world z on window x.
-    Returns (coarse result, fine result)."""
+    call (leaf 0.5) from its result, both with world z on window x, each
+    the captured program (``compiled``, the default) or the host-exit
+    form. Returns (coarse result, fine result)."""
     import torch
 
     from tpu_slam_torch.registration.icp import icp_raster
@@ -1658,9 +1676,11 @@ def raster_register(src, tgt, init_T=None):
     _, coarse, fine = config1_params()
     origin = torch.tensor(C1_ORIGIN, device=src.points.device)
     r0 = icp_raster(src, tgt, init_T=init_T, params=coarse,
-                    origin_world=origin, axis_perm=C1_PERM, **C1_COARSE)
+                    origin_world=origin, axis_perm=C1_PERM,
+                    compiled=compiled, **C1_COARSE)
     return r0, icp_raster(src, tgt, init_T=r0.T, params=fine,
-                          origin_world=origin, axis_perm=C1_PERM, **C1_FINE)
+                          origin_world=origin, axis_perm=C1_PERM,
+                          compiled=compiled, **C1_FINE)
 
 
 def brute_register(src, tgt, init_T=None):
@@ -1752,11 +1772,11 @@ def phase_pair_icp():
     pairs = {label: config1_pair(dev, n_az) for n_az, label in C1_SIZES}
     plain_before = (icp_terms_plain.launches, nearest_neighbors_plain.launches)
     torch.cuda.synchronize()
-    icp_terms_raster.launches = 0
-    nearest_neighbors.launches = 0
+    reset_launches(icp_terms_raster, nearest_neighbors)
     out, rate = {}, {}
     for label, (src, tgt, xi) in pairs.items():
-        at_start = (icp_terms_raster.launches, nearest_neighbors.launches)
+        at_start = (launches_of(icp_terms_raster),
+                    launches_of(nearest_neighbors))
         r0, rr = raster_register(src, tgt)
         rb = brute_register(src, tgt)
         torch.cuda.synchronize()
@@ -1769,9 +1789,9 @@ def phase_pair_icp():
             rate[(tier, label)] = 1.0 / dt
         n_valid = int(src.mask.sum())
         prof_r = registration_profile(lambda: raster_register(src, tgt),
-                                      lambda: icp_terms_raster.launches)
+                                      lambda: launches_of(icp_terms_raster))
         prof_b = registration_profile(lambda: brute_register(src, tgt),
-                                      lambda: nearest_neighbors.launches)
+                                      lambda: launches_of(nearest_neighbors))
         iters_r = int(r0.iterations) + int(rr.iterations)
         out[label] = dict(
             points=int(src.capacity), valid_points=n_valid,
@@ -1789,21 +1809,22 @@ def phase_pair_icp():
             # start each one from the last result, so take fewer steps)
             raster_profile=prof_r, brute_profile=prof_b,
             # this size's share of the phase's launches
-            icp_terms_launches=icp_terms_raster.launches - at_start[0],
-            nn_search_launches=nearest_neighbors.launches - at_start[1])
+            icp_terms_launches=launches_of(icp_terms_raster) - at_start[0],
+            nn_search_launches=launches_of(nearest_neighbors) - at_start[1])
 
     # the tier icp_auto routes each size to, seen from the kernel counters
     auto = {}
     _, _, fine = config1_params()
     origin = torch.tensor(C1_ORIGIN, device=dev)
     for label, (src, tgt, _) in pairs.items():
-        nn0 = nearest_neighbors.launches
+        nn0 = launches_of(nearest_neighbors)
         icp_auto(src, tgt, params=fine, origin_world=origin,
                  axis_perm=C1_PERM, **C1_FINE)
-        auto[label] = "brute" if nearest_neighbors.launches > nn0 else "raster"
+        auto[label] = ("brute" if launches_of(nearest_neighbors) > nn0
+                       else "raster")
     torch.cuda.synchronize()
-    launches = icp_terms_raster.launches
-    nn_launches = nearest_neighbors.launches
+    launches = launches_of(icp_terms_raster)
+    nn_launches = launches_of(nearest_neighbors)
     faster = [label for _, label in C1_SIZES
               if rate[("raster", label)] > rate[("brute", label)]]
     e8 = out["8k"]
@@ -1838,7 +1859,7 @@ def phase_pair_icp():
             if not err <= bar:
                 raise AssertionError(f"config 1 {label} {tier}: recovery "
                                      f"error {err} mm above {bar} mm")
-    return launches, nn_launches, pairs
+    return launches, nn_launches, pairs, rate
 
 
 def icp_work(slots, table, T, dims, qt):
@@ -2455,6 +2476,17 @@ def config3_workload(device):
                                    device=device))
 
 
+def config3_params():
+    """bench_ndt_register's (coarse, fine) NDTParams."""
+    from tpu_slam_torch.registration.ndt import NDTParams
+
+    return (NDTParams(max_iterations=3, coarse_iterations=2,
+                      max_corr_dist=4.0, window_dims=C3_COARSE),
+            NDTParams(max_iterations=5, coarse_iterations=0, tolerance=1e-3,
+                      min_voxel_count=3.0, rebin_iters=5,
+                      window_dims=C3_FINE))
+
+
 def phase_config3(w):
     """The production two-level solve on config 3 at full size, the stage
     times, then ndt_terms against its plain version on the solve's own
@@ -2473,19 +2505,14 @@ def phase_config3(w):
                                                   empty_grid, grid_insert,
                                                   grid_ndt_field)
     from tpu_slam_torch.mapping.voxel_map import coarse_spec_of, coarsen_map
-    from tpu_slam_torch.registration.ndt import (NDTParams, ndt_field,
-                                                 ndt_register)
+    from tpu_slam_torch.registration.ndt import ndt_field, ndt_register
 
     vmap, map_spec, scan, cscan, Tw = (w["vmap"], w["map_spec"], w["scan"],
                                        w["cscan"], w["Tw"])
     dev = Tw.device
     n_vox = int(vmap.n_occupied())
     n_scan = int(scan.count())
-    fparams = NDTParams(max_iterations=5, coarse_iterations=0,
-                        tolerance=1e-3, min_voxel_count=3.0, rebin_iters=5,
-                        window_dims=C3_FINE)
-    cparams = NDTParams(max_iterations=3, coarse_iterations=2,
-                        max_corr_dist=4.0, window_dims=C3_COARSE)
+    cparams, fparams = config3_params()
     cspec = coarse_spec_of(map_spec, 4)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2507,9 +2534,9 @@ def phase_config3(w):
     T_true = Tw @ E
     plain_before = ndt_terms_plain.launches
     torch.cuda.synchronize()
-    ndt_terms.launches = 0
+    reset_launches(ndt_terms)
     r0, res = register(src, csrc, Tw)
-    launches = ndt_terms.launches
+    launches = launches_of(ndt_terms)
     if ndt_terms_plain.launches != plain_before:
         raise AssertionError("config 3 ran the plain terms version")
     if launches <= 0:
@@ -2541,7 +2568,7 @@ def phase_config3(w):
         return Tc
 
     reg_loop(3)
-    ndt_terms.launches = 0
+    reset_launches(ndt_terms)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -2550,7 +2577,7 @@ def phase_config3(w):
     end.record()
     torch.cuda.synchronize()
     reg_ms = start.elapsed_time(end) / C3_REGISTRATIONS
-    loop_launches = ndt_terms.launches
+    loop_launches = launches_of(ndt_terms)
 
     # where one registration's time goes: its wall on the host clock, then
     # the same call under the profiler (device busy time by kernel)
@@ -2698,6 +2725,442 @@ def phase_config3(w):
 
 
 # ---------------------------------------------------------------------------
+# The registration layer's compiled programs: the captured ndt_register
+# (config 3, the host engine), JitLidarOdometry's captured step and the
+# captured icp_raster (config 1) against their eager forms; the dense
+# SLAM's default re-anchor on both forms
+# ---------------------------------------------------------------------------
+
+C3_TIMED = 10                  # registrations timed for the p50, each form
+C1_TIMED = 5                   # config 1 registrations timed, each form
+REANCHOR_SCANS = 40            # the office circle of slam_host
+
+
+@contextlib.contextmanager
+def replays_sync_checked():
+    """A context in which every ``CapturedCall`` (its input copies, its
+    replay and its output copies) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a read back to the host
+    or a synchronisation there raises. Yields a namespace whose ``calls``
+    counts the calls checked."""
+    import torch
+
+    from tpu_slam_torch.utils.capture import CapturedCall
+
+    seen = types.SimpleNamespace(calls=0)
+    orig = CapturedCall.__call__
+
+    def checked(cap, *args):
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig(cap, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+            seen.calls += 1
+
+    CapturedCall.__call__ = checked
+    try:
+        yield seen
+    finally:
+        CapturedCall.__call__ = orig
+
+
+def host_ms(fn, n):
+    """p50 of ``n`` calls of ``fn`` on the host clock, each synchronised."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(out, 50))
+
+
+def same_tensors(a, b) -> bool:
+    """Every tensor of two results or states equal (and equal ints)."""
+    import torch
+
+    from tpu_slam_torch.utils.capture import tensors_of
+
+    ta, tb = tensors_of(a), tensors_of(b)
+    return len(ta) == len(tb) and all(
+        x.shape == y.shape and torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+def ndt_results_equal(a, b) -> bool:
+    """Two NDTResults bit-equal (iterations an int or a () tensor)."""
+    import torch
+
+    return (int(a.iterations) == int(b.iterations) and all(
+        torch.equal(getattr(a, f), getattr(b, f))
+        for f in ("T", "score", "matched_fraction", "converged")))
+
+
+def terms_us_in_graph(fn, kernel, calls):
+    """Device us a call of a terms kernel (kernel + finalizer) inside the
+    graphs ``fn`` replays, which make ``calls`` calls (the profiler)."""
+    per_kernel, _ = device_time_us(fn, 1)
+    return sum(t for k, t in per_kernel.items() if kernel in k) / calls
+
+
+def compiled_config3(w):
+    """Config 3's coarse-then-fine registration on the captured program
+    and on the host-exit form: results bit-equal, p50 ms, ndt_terms calls
+    and the profiler's launches, reads and H2D copies a registration, the
+    input copies' device us, the captures' seconds and memory."""
+    import torch
+
+    from tpu_slam_torch.core import se3
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms
+    from tpu_slam_torch.mapping.voxel_map import coarse_spec_of, coarsen_map
+    from tpu_slam_torch.registration import ndt
+    from tpu_slam_torch.utils.capture import tensors_of
+
+    vmap, map_spec, scan, cscan, Tw = (w["vmap"], w["map_spec"], w["scan"],
+                                       w["cscan"], w["Tw"])
+    dev = Tw.device
+    cparams, fparams = config3_params()
+    cspec = coarse_spec_of(map_spec, 4)
+    cfield = ndt.ndt_field(coarsen_map(vmap, map_spec, 4), cspec, cparams,
+                           center=Tw[:3, 3])
+    field = ndt.ndt_field(vmap, map_spec, fparams, center=Tw[:3, 3])
+    E = se3.exp(torch.tensor(C3_XI, dtype=torch.float32, device=dev))
+    src = scan.transform(se3.inverse(E))
+    csrc = cscan.transform(se3.inverse(E))
+    T_true = Tw @ E
+
+    def register(compiled):
+        r0 = ndt.compiled_register(csrc, cfield, cspec, init_T=Tw,
+                                   params=cparams, compiled=compiled)
+        return r0, ndt.compiled_register(
+            src, field, map_spec, init_T=r0.T, params=fparams,
+            far_field=cfield, far_spec=cspec, compiled=compiled)
+
+    n0 = len(ndt._registers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    register(True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    caps = list(ndt._registers.values())[n0:]
+    out, res = {}, {}
+    for label, compiled in (("eager", False), ("captured", True)):
+        with replays_sync_checked() as chk:
+            res[label] = register(compiled)
+        n1 = launches_of(ndt_terms)
+        register(compiled)
+        torch.cuda.synchronize()
+        calls = launches_of(ndt_terms) - n1
+        out[label] = dict(
+            ms_p50=host_ms(lambda c=compiled: register(c), C3_TIMED),
+            ndt_terms_calls=calls,
+            iterations=[int(r.iterations) for r in res[label]],
+            profile=registration_profile(
+                lambda c=compiled: register(c),
+                lambda: launches_of(ndt_terms)),
+            replays_checked=chk.calls)
+    # what a call copies into the graphs' inputs: the scans, the poses
+    # and the fields (the coarse field twice: the coarse solve's field and
+    # the fine solve's far tier)
+    copies = [(caps[0], (PointCloud(csrc.points, csrc.mask), cfield, Tw,
+                         None)),
+              (caps[1], (PointCloud(src.points, src.mask), field,
+                         res["captured"][0].T, cfield))]
+
+    def copy_in():
+        for cap, args in copies:
+            for dst, t in zip(cap.inputs, tensors_of(args)):
+                dst.copy_(t)
+
+    per_kernel, _ = device_time_us(copy_in, 20)
+    r0, r1 = res["captured"]
+    err = se3.log(se3.inverse(T_true) @ r1.T)
+    return dict(
+        bit_equal=all(ndt_results_equal(a, b) for a, b in
+                      zip(res["eager"], res["captured"])),
+        eager=out["eager"], captured=out["captured"],
+        first_call_with_captures_s=first_s,
+        graphs=len(caps), capture_s=[c.graph.capture_s for c in caps],
+        graph_held_bytes=[c.graph.held_bytes for c in caps],
+        graph_pool_bytes=[c.graph.pool_bytes for c in caps],
+        calls_per_replay=[c.graph.calls for c in caps],
+        ndt_terms_us_per_call_in_graph=terms_us_in_graph(
+            lambda: register(True), "ndt_terms", 21),
+        input_copy_device_us=sum(per_kernel.values()),
+        input_copy_event_ms=time_ms(copy_in, 20),
+        input_copy_bytes=sum(t.numel() * t.element_size()
+                             for _, args in copies
+                             for t in tensors_of(args)),
+        register_err_mm=float(torch.linalg.vector_norm(err[:3])) * 1e3,
+        matched_fraction=float(r1.matched_fraction))
+
+
+def compiled_host_odometry(clouds, gt):
+    """Config 2's route through LidarOdometry on both forms from fresh
+    engines: poses, iterations and matched fractions bit-equal, ATE,
+    scans/s, step p50/p95, launches, then six steps replayed under the
+    profiler (reads, launches, idle share) each."""
+    import torch
+
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms
+    from tpu_slam_torch.pipeline.metrics import ate_rmse
+    from tpu_slam_torch.pipeline.odometry import LidarOdometry
+    from tpu_slam_torch.registration import ndt
+
+    cfg = config2()
+    out, keep = {}, {}
+    for label, compiled in (("eager", False), ("captured", True)):
+        eng = LidarOdometry(cfg, compiled=compiled)
+        n_graphs = len(ndt._registers)
+        n0 = launches_of(ndt_terms)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with replays_sync_checked() as chk:
+            poses, _, kept = run_host(eng, clouds, gt[0],
+                                      keep=(HOST_PROFILE[0] - 1,))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = launches_of(ndt_terms) - n0
+        recs = eng.metrics.records
+        wall = np.array([r.wall_time_s for r in recs[1:]]) * 1e3
+        keep[label] = (poses, [r.iterations for r in recs],
+                       [r.matched_fraction for r in recs])
+        out[label] = dict(
+            scans_per_s=len(clouds) / dt,
+            step_ms_p50=float(np.percentile(wall, 50)),
+            step_ms_p95=float(np.percentile(wall, 95)),
+            ate_m=ate_rmse(poses, gt, align=False),
+            mean_matched=float(np.mean(keep[label][2])),
+            ndt_terms_launches_per_scan=launches / (len(clouds) - 1),
+            graphs_captured_in_run=len(ndt._registers) - n_graphs,
+            replays_checked=chk.calls,
+            profile=host_step_profile(
+                eng, kept[HOST_PROFILE[0] - 1],
+                clouds[HOST_PROFILE[0]:HOST_PROFILE[1]]))
+    e, c = keep["eager"], keep["captured"]
+    return dict(eager=out["eager"], captured=out["captured"],
+                bit_equal=dict(poses=bool(np.array_equal(e[0], c[0])),
+                               iterations=e[1] == c[1],
+                               matched_fractions=e[2] == c[2]))
+
+
+def compiled_jit_cases(c2_clouds, c2_gt):
+    """JitLidarOdometry on host_engine_cases' jit_arc and jit_config2 on
+    both forms: every step's state bit-equal, scans/s of a second pass
+    (the first one captures), reads inside a captured step (none)."""
+    from tpu_slam_torch.pipeline.odometry_jit import JitLidarOdometry
+
+    arc, arc_gt = office_arc(8)
+    out = {}
+    for case, cfg, clouds, gt in (("jit_arc", odom_cfg(), arc, arc_gt),
+                                  ("jit_config2", config2(), c2_clouds,
+                                   c2_gt)):
+        runs, row = {}, {}
+        for label, compiled in (("eager", False), ("captured", True)):
+            eng = JitLidarOdometry(cfg, compiled=compiled)
+            s0 = eng.init_state(clouds[0], gt[0])
+            steps = []
+            with replays_sync_checked() as chk:
+                s = s0
+                for c in clouds[1:]:
+                    s = eng.step(s, c)
+                    steps.append((s.pose, s.last_delta, s.last_metrics,
+                                  s.scan_index))
+            runs[label] = (steps, s)
+
+            def again(e=eng, s0=s0, clouds=clouds):
+                s = s0
+                for c in clouds[1:]:
+                    s = e.step(s, c)
+            row[label] = dict(scans_per_s=len(clouds) / host_ms(again, 1)
+                              * 1e3, replays_checked=chk.calls,
+                              graphs=len(eng.graphs))
+            del eng, s0
+        (es, ef), (cs, cf) = runs["eager"], runs["captured"]
+        row["bit_equal"] = bool(
+            all(same_tensors(a, b) for a, b in zip(es, cs))
+            and same_tensors(ef, cf))
+        out[case] = row
+    return out
+
+
+def compiled_config1(pairs):
+    """Config 1's raster tier (coarse then fine icp_raster) at each size on
+    both forms: results bit-equal, recovery errors, registrations/s (p50
+    of C1_TIMED), launches, host syncs and H2D copies a registration."""
+    import torch
+
+    from tpu_slam_torch.kernels.icp_terms import icp_terms_raster
+
+    out = {}
+    for label, (src, tgt, xi) in pairs.items():
+        res, row = {}, {}
+        for form, compiled in (("eager", False), ("captured", True)):
+            with replays_sync_checked() as chk:
+                res[form] = raster_register(src, tgt, compiled=compiled)
+            prof = registration_profile(
+                lambda c=compiled: raster_register(src, tgt, compiled=c),
+                lambda: launches_of(icp_terms_raster))
+            row[form] = dict(
+                registrations_per_s=1e3 / host_ms(
+                    lambda c=compiled: raster_register(src, tgt,
+                                                       compiled=c),
+                    C1_TIMED),
+                recovery_err_mm=recovery_err_mm(xi, res[form][1].T),
+                iterations=[int(r.iterations) for r in res[form]],
+                replays_checked=chk.calls,
+                icp_terms_calls=prof["counted_launches"],
+                icp_terms_us_per_call=terms_us_in_graph(
+                    lambda c=compiled: raster_register(src, tgt,
+                                                       compiled=c),
+                    "icp_terms", prof["counted_launches"]),
+                kernel_launches=prof["kernel_launches"],
+                host_syncs=prof["host_syncs"],
+                htod_copies=prof["htod_copies"],
+                device_idle_share=prof["device_idle_share"])
+        row["bit_equal"] = all(same_tensors(a, b) for a, b in
+                               zip(res["eager"], res["captured"]))
+        out[label] = row
+        torch.cuda.synchronize()
+    return out
+
+
+def dense_reanchor_cfg():
+    """slam_host's SLAMConfig on the dense engine, the re-anchor and the
+    map rebuild at their defaults (on)."""
+    import dataclasses
+
+    from tpu_slam_torch.registration.ndt import NDTParams
+
+    return dataclasses.replace(
+        slam_host_cfg(), odometry_engine="dense",
+        odometry=odom_cfg(ndt=NDTParams(max_iterations=10,
+                                        coarse_iterations=2,
+                                        min_voxel_count=3.0,
+                                        window_dims=(32, 32, 16)),
+                          pyramid_factor=2, insert_downsampled=True))
+
+
+def dense_reanchor_case(compiled, device="cuda"):
+    """The dense SLAM over slam_host's office circle with the default
+    re-anchor after each accepted loop sweep: poses, the final state as
+    numpy, loops, re-anchors, keyframes and the captured steps' count."""
+    from tpu_slam_torch.pipeline.metrics import ate_rmse
+    from tpu_slam_torch.pipeline.slam import SLAMSystem
+    from tpu_slam_torch.pipeline.state import slam_state_to_numpy
+
+    cfg = dense_reanchor_cfg()
+    if not (cfg.reanchor_after_loop and cfg.rebuild_map_after_loop):
+        raise AssertionError("the re-anchor case needs SLAMConfig's "
+                             "default re-anchor and map rebuild")
+    clouds, gt = office_arc(REANCHOR_SCANS, n_azimuth=240, arc_fraction=1.0,
+                            device=device)
+    slam = SLAMSystem(cfg, device=device, compiled=compiled)
+    state = slam.init_state(gt[0])
+    poses, reanchors = [], 0
+    t0 = time.perf_counter()
+    for c in clouds:
+        loops = state.n_loop_closures
+        state, _ = slam.step(state, c)
+        reanchors += state.n_loop_closures > loops
+        poses.append(state.odom.pose.cpu().numpy())
+    poses = np.stack(poses)
+    return dict(poses=poses, state=slam_state_to_numpy(state),
+                seconds=time.perf_counter() - t0,
+                loops=state.n_loop_closures, reanchors=reanchors,
+                keyframes=state.n_keyframes,
+                ate_m=ate_rmse(poses, gt, align=False),
+                captured_steps=len(slam.odometry.graphs))
+
+
+def dense_reanchor_compare(device="cuda"):
+    """dense_reanchor_case on compiled=False and on compiled=True: poses
+    and every key of the final state bit-equal."""
+    e = dense_reanchor_case(False, device)
+    c = dense_reanchor_case(True, device)
+    differ = sorted(k for k in e["state"] if not np.array_equal(
+        np.asarray(e["state"][k]), np.asarray(c["state"].get(k))))
+    row = {k: c[k] for k in ("loops", "reanchors", "keyframes", "ate_m",
+                             "captured_steps")}
+    return dict(row, eager_seconds=e["seconds"], captured_seconds=c["seconds"],
+                poses_bit_equal=bool(np.array_equal(e["poses"], c["poses"])),
+                state_keys_differing=differ)
+
+
+def phase_compiled_registration(clouds, gt, w3, c1_pairs, c1_rates):
+    """The registration layer's compiled programs against their eager
+    forms (compiled=False) in this call: config 3, the host odometry on
+    config 2's route, JitLidarOdometry's jit_arc and jit_config2, config
+    1's raster tier at 8k-256k (and the crossover of the pair_icp phase's
+    rates, the raster tier captured against the brute tier), and the
+    dense SLAM's default re-anchor. Any difference in the bits, a read or
+    a synchronisation inside a captured call, or an accuracy row out of
+    its limit fails. Returns the launches of each kernel in the phase."""
+    from tpu_slam_torch.kernels.icp_terms import icp_terms_raster
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms
+    from tpu_slam_torch.kernels.nn_search import nearest_neighbors
+
+    kernels = (ndt_terms, icp_terms_raster, nearest_neighbors)
+    reset_launches(*kernels)
+    t0 = time.perf_counter()
+    c3 = compiled_config3(w3)
+    host = compiled_host_odometry(clouds, gt)
+    jit = compiled_jit_cases(clouds, gt)
+    c1 = compiled_config1(c1_pairs)
+    labels = [label for _, label in C1_SIZES]
+    faster = [lb for lb in labels
+              if c1_rates[("raster", lb)] > c1_rates[("brute", lb)]]
+    reanchor = dense_reanchor_compare()
+    launches = {k.__name__: launches_of(k) for k in kernels}
+    emit("compiled_registration", config3=c3, host_odometry=host, jit=jit,
+         config1=c1, config1_raster_captured_faster_at=faster,
+         config1_rates={f"{t}_{lb}": c1_rates[(t, lb)]
+                        for t, lb in sorted(c1_rates)},
+         dense_reanchor=reanchor, launches=launches,
+         seconds=time.perf_counter() - t0)
+    failed = []
+    if not c3["bit_equal"]:
+        failed.append("config 3 captured and eager differ")
+    if c3["captured"]["replays_checked"] != 2:
+        failed.append("config 3 did not replay both graphs")
+    if not (c3["register_err_mm"] <= C3_ERR_BAR_MM
+            and c3["matched_fraction"] >= C3_MATCHED_BAR):
+        failed.append("config 3 captured accuracy")
+    if not all(host["bit_equal"].values()):
+        failed.append(f"host odometry differs: {host['bit_equal']}")
+    for label in ("eager", "captured"):
+        if not abs(host[label]["ate_m"] - HOST_REF["ate_m"]) \
+                <= HOST_TOL["ate_m"]:
+            failed.append(f"host odometry {label} ATE")
+    if host["captured"]["replays_checked"] <= 0:
+        failed.append("host odometry replayed no graph")
+    for case, row in jit.items():
+        if not row["bit_equal"] or row["captured"]["replays_checked"] <= 0:
+            failed.append(f"{case} differs or replayed no graph")
+    for label, row in c1.items():
+        bar = C1_RASTER_BAR_MM if label == "8k" else C1_LARGE_BAR_MM
+        if not row["bit_equal"]:
+            failed.append(f"config 1 {label} differs")
+        if not all(row[f]["recovery_err_mm"] <= bar
+                   for f in ("eager", "captured")):
+            failed.append(f"config 1 {label} recovery error")
+        if row["captured"]["replays_checked"] != 2:
+            failed.append(f"config 1 {label} did not replay both graphs")
+    if not (reanchor["poses_bit_equal"]
+            and not reanchor["state_keys_differing"]
+            and reanchor["reanchors"] > 0):
+        failed.append(f"dense re-anchor: {reanchor}")
+    if failed:
+        raise AssertionError(f"compiled_registration failed: {failed}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Config 6: bag replay through the CLI (bench.py:824-936)
 # ---------------------------------------------------------------------------
 
@@ -2707,7 +3170,6 @@ def phase_config6(tmpdir):
     --bag --engine dense with the bench's --set list. The CLI's wall time
     is the bench's (bag -> dataset conversion + replay); the conversion and
     the odometry are timed apart, as is the pcap -> bag step before it."""
-    import contextlib
     import io
     import os
 
@@ -2921,11 +3383,11 @@ def host_step_profile(engine, state, clouds):
         torch.cuda.synchronize()
 
     replay()
-    n0 = ndt_terms.launches
+    n0 = launches_of(ndt_terms)
     t0 = time.perf_counter()
     replay()
     wall_us = (time.perf_counter() - t0) * 1e6
-    terms_calls = ndt_terms.launches - n0
+    terms_calls = launches_of(ndt_terms) - n0
     per_kernel, prof = device_time_us(replay, 1)
     ka = prof.key_averages()
     steps = len(clouds)
@@ -2972,14 +3434,14 @@ def phase_host_odometry(clouds, gt):
     plain_before = ndt_terms_plain.launches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ndt_terms.launches = 0
+    reset_launches(ndt_terms)
     insert_cloud.fallbacks = insert_cloud.incremental = 0
     t0 = time.perf_counter()
     poses, state, kept = run_host(engine, clouds, gt[0],
                                   keep=(HOST_PROFILE[0] - 1,))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = ndt_terms.launches
+    launches = launches_of(ndt_terms)
     inserts = dict(incremental=insert_cloud.incremental,
                    fallbacks=insert_cloud.fallbacks)
     builds = engine.field_builds
@@ -3075,7 +3537,7 @@ def outdoor_cfg(**kw):
 
 
 def office_arc(n_poses, n_azimuth=360, radius=2.5, arc_fraction=0.25,
-               capacity=16384):
+               capacity=16384, device="cuda"):
     """tests/test_pipeline.py _sequence: the office arc."""
     from tpu_slam_torch.core.pointcloud import PointCloud
     from tpu_slam_torch.ingest import synthetic as syn
@@ -3091,7 +3553,7 @@ def office_arc(n_poses, n_azimuth=360, radius=2.5, arc_fraction=0.25,
             world, T, n_azimuth=n_azimuth, noise_std=0.01, rng=rng)
         clouds.append(PointCloud.from_points_host(pts[valid],
                                                   capacity=capacity,
-                                                  device="cuda"))
+                                                  device=device))
         gt.append(T)
     return clouds, np.stack(gt)
 
@@ -3216,7 +3678,7 @@ def phase_host_engine_cases(c2_clouds, c2_gt):
 
     plain_before = (ndt_terms_plain.launches,
                     nearest_neighbors_plain.launches)
-    ndt_terms.launches = nearest_neighbors.launches = 0
+    reset_launches(ndt_terms, nearest_neighbors)
     out = {}
     t0 = time.perf_counter()
 
@@ -3273,10 +3735,11 @@ def phase_host_engine_cases(c2_clouds, c2_gt):
                        map_capacity=defaults.map_capacity,
                        icp=ICPParams(max_iterations=25, max_corr_dist=1.0))
         eng = LidarOdometry(cfg)
-        n0 = nearest_neighbors.launches
+        n0 = launches_of(nearest_neighbors)
         poses, _, kept = run_host(eng, clouds, gt[0], keep=(1,))
         arc[method] = dict(ate_m=ate_rmse(poses, gt, align=False),
-                           nn_search_launches=nearest_neighbors.launches - n0)
+                           nn_search_launches=launches_of(nearest_neighbors)
+                           - n0)
         if method == "icp_plane":
             st = kept[1]
             scan = eng.downsample(clouds[2])
@@ -3319,8 +3782,8 @@ def phase_host_engine_cases(c2_clouds, c2_gt):
     out["jit_config2"] = dict(scans_per_s=len(c2_clouds) / dt,
                               ate_m=ate_rmse(jposes, c2_gt, align=False))
 
-    launches = dict(ndt_terms=ndt_terms.launches,
-                    nn_search=nearest_neighbors.launches)
+    launches = dict(ndt_terms=launches_of(ndt_terms),
+                    nn_search=launches_of(nearest_neighbors))
     emit("host_engine_cases", seconds=time.perf_counter() - t0,
          launches=launches, **out)
     pyr = out["pyramid_worst_m"]
@@ -3400,7 +3863,7 @@ def phase_slam_host(tmpdir):
     cfg = slam_host_cfg()
     plain_before = (ndt_terms_plain.launches,
                     nearest_neighbors_plain.launches)
-    ndt_terms.launches = nearest_neighbors.launches = 0
+    reset_launches(ndt_terms, nearest_neighbors)
     slam = SLAMSystem(cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3413,8 +3876,8 @@ def phase_slam_host(tmpdir):
             snap = state
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(ndt_terms=ndt_terms.launches,
-                    nn_search=nearest_neighbors.launches)
+    launches = dict(ndt_terms=launches_of(ndt_terms),
+                    nn_search=launches_of(nearest_neighbors))
     poses = np.stack(poses)
     ate = ate_rmse(poses, gt, align=False)
 
@@ -3834,11 +4297,11 @@ def phase_live():
     pipe = survey_pipeline()
     plain_before = (ndt_terms_plain.launches,
                     nearest_neighbors_plain.launches)
-    ndt_terms.launches = nearest_neighbors.launches = 0
+    reset_launches(ndt_terms, nearest_neighbors)
     results, clouds, poses, dt, late = stream(pipe, telegrams, angles,
                                               max_scans=SURVEY_STOPS)
-    launches = dict(ndt_terms=ndt_terms.launches,
-                    nn_search=nearest_neighbors.launches)
+    launches = dict(ndt_terms=launches_of(ndt_terms),
+                    nn_search=launches_of(nearest_neighbors))
     state = pipe.slam_state
     poses = torch.stack(poses).cpu().numpy()
     n = len(results)
@@ -3927,7 +4390,6 @@ def phase_live():
 def phase_live_cli(tmpdir):
     """run_live.main against the fake LMS100 and a fake motor controller
     for 2 scans: its JSON lines, the speed it commanded, and the stop."""
-    import contextlib
     import io
     import os
 
@@ -3956,7 +4418,7 @@ def phase_live_cli(tmpdir):
     lms = FakeLms(telegrams)
     m3d = FakeM3d(ticks=lambda k: ticks[min(k, n_lines - 1)],
                   enc_res_hw=enc_res // 4)
-    ndt_terms.launches = nearest_neighbors.launches = 0
+    reset_launches(ndt_terms, nearest_neighbors)
     out = io.StringIO()
     t0 = time.perf_counter()
     try:
@@ -3974,8 +4436,8 @@ def phase_live_cli(tmpdir):
     lines = [json.loads(x) for x in out.getvalue().splitlines()]
     for rec in lines:
         print(json.dumps(rec), flush=True)
-    launches = dict(ndt_terms=ndt_terms.launches,
-                    nn_search=nearest_neighbors.launches)
+    launches = dict(ndt_terms=launches_of(ndt_terms),
+                    nn_search=launches_of(nearest_neighbors))
     speed = [(0x3003, 0x0, 3), (0x3000, 0x10, 12), (0x3000, 0x1, 0),
              (0x3000, 0x1, 49)]
     stop = [(0x3003, 0x0, 3), (0x3000, 0x10, 0), (0x3000, 0x1, 0),
@@ -4951,7 +5413,7 @@ def main() -> int:
     phase_compiled(clouds, gt, run, c4_clouds, c4_gt)
     nn_cases = phase_nn_kernels(run)
 
-    icp_launches, nn_c1_launches, pairs = phase_pair_icp()
+    icp_launches, nn_c1_launches, pairs, c1_rates = phase_pair_icp()
     icp_cases, nn_c1_cases = phase_icp_kernels(pairs)
     gather_launches, gather_cases = phase_probes()
 
@@ -4970,7 +5432,6 @@ def main() -> int:
     t_host = time.perf_counter()
     host_launches, host_fine_args = phase_host_odometry(clouds, gt)
     case_launches, cube_args, nn_args = phase_host_engine_cases(clouds, gt)
-    del clouds
     with tempfile.TemporaryDirectory() as tmpdir:
         slam_host_launches = phase_slam_host(tmpdir)
     host_terms_cases, host_nn_cases = phase_host_kernels(
@@ -4980,6 +5441,10 @@ def main() -> int:
 
     w3 = config3_workload("cuda")
     c3_launches, c3_cases = phase_config3(w3)
+    # the registration layer's captured programs against their eager forms
+    reg_launches = phase_compiled_registration(clouds, gt, w3, pairs,
+                                               c1_rates)
+    del clouds
     with tempfile.TemporaryDirectory() as tmpdir:
         c6_launches = phase_config6(tmpdir)
 
@@ -5008,12 +5473,15 @@ def main() -> int:
                           slam_host=slam_host_launches["ndt_terms"],
                           live=live_launches["ndt_terms"],
                           live_cli=cli_launches["ndt_terms"],
+                          compiled_registration=reg_launches["ndt_terms"],
                           **dist_terms_launches)
     nn_launches = dict(config4=run["nn_launches"], config1=nn_c1_launches,
                        host_engine_cases=case_launches["nn_search"],
                        slam_host=slam_host_launches["nn_search"],
                        live=live_launches["nn_search"],
                        live_cli=cli_launches["nn_search"],
+                       compiled_registration=reg_launches[
+                           "nearest_neighbors"],
                        **dist_nn_launches)
 
     emit("total", seconds=time.perf_counter() - t_start)
@@ -5037,10 +5505,16 @@ def main() -> int:
                           nn_cases + nn_c1_cases + host_nn_cases
                           + live_nn_cases + dist_nn_cases,
                           nn_cases[0]), launches_by_path=nn_launches),
-        # icp_terms: no single PyTorch call computes it
-        kernel_entry("icp_terms", src + "icp_terms.cu",
-                     "tpu_slam/kernels/icp_terms.py:47", icp_launches,
-                     icp_cases, icp_cases[1]),
+        # icp_terms: no single PyTorch call computes it; config 1's
+        # captured and eager raster tier, then both again in
+        # compiled_registration
+        dict(kernel_entry("icp_terms", src + "icp_terms.cu",
+                          "tpu_slam/kernels/icp_terms.py:47",
+                          icp_launches + reg_launches["icp_terms_raster"],
+                          icp_cases, icp_cases[1]),
+             launches_by_path=dict(
+                 config1=icp_launches,
+                 compiled_registration=reg_launches["icp_terms_raster"])),
         kernel_entry("gather_rows", src + "gather.cu",
                      "benchmarks/_pallas_gather_probe.py:62 (k_take; and "
                      "k_taa :68, k_adv :75, k_scalar :96); "

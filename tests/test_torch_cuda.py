@@ -643,3 +643,163 @@ def test_captured_pose_graph_solve_matches_eager(cuda):
             got, chi = pg.optimize_pose_graph(g, params)
             assert torch.equal(got.poses, eager.poses)
             assert torch.equal(chi, chi_e)
+
+
+# ---------------------------------------------------------------------------
+# The registration layer's captured programs against their eager forms
+# ---------------------------------------------------------------------------
+
+def _office_scans(device, n, capacity=8192):
+    """The office's first n VLP-16 scans (300 azimuths) and their poses."""
+    import numpy as np
+
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.ingest import synthetic as syn
+
+    rng = np.random.default_rng(0)
+    clouds, gt = [], []
+    for k in range(n):
+        T = syn.se2_pose(0.3 * k - 0.6, 0.12 * k - 0.3, 0.07 * k, z=1.2)
+        pts, valid = syn.simulate_vlp16_revolution(
+            syn.default_office(), T, n_azimuth=300, noise_std=0.005, rng=rng)
+        clouds.append(PointCloud.from_points_host(pts[valid],
+                                                  capacity=capacity,
+                                                  device=device))
+        gt.append(T)
+    return clouds, np.stack(gt).astype(np.float32)
+
+
+def _host_config(path, **kw):
+    from tpu_slam_torch.pipeline.config import OdometryConfig
+    from tpu_slam_torch.registration.ndt import NDTParams
+
+    ndt = dict(max_iterations=8, coarse_iterations=2, tolerance=3e-4,
+               min_voxel_count=3.0)
+    ndt.update(dict(window_dims=(40, 40, 16)) if path == "kernel"
+               else dict(terms_impl="xla"))
+    return OdometryConfig(scan_capacity=2048, downsample_leaf=0.25,
+                          map_leaf=0.4, map_half_extent=16.0,
+                          map_capacity=16384, ndt=NDTParams(**ndt), **kw)
+
+
+@pytest.mark.parametrize("case", ["kernel", "kernel_far_yaw", "sparse"])
+def test_captured_register_matches_eager(cuda, case):
+    """compiled_register's CUDA graph against the host-exit form: the
+    result bit for bit at every replay, no read or synchronisation in a
+    call (sync-debug "error")."""
+    import dataclasses
+
+    import chip_smoke
+    from tpu_slam_torch.core import se3
+    from tpu_slam_torch.kernels.downsample import voxel_downsample
+    from tpu_slam_torch.kernels.voxel_hash import VoxelGridSpec
+    from tpu_slam_torch.mapping.voxel_map import (coarse_spec_of,
+                                                  coarsen_map, empty_map,
+                                                  insert_cloud)
+    from tpu_slam_torch.registration import ndt
+
+    clouds, gt = _office_scans(cuda, 2)
+    spec = VoxelGridSpec.centered(leaf=0.4, half_extent=16.0)
+    T0, T1 = (torch.as_tensor(g, device=cuda) for g in gt)
+    vmap = insert_cloud(empty_map(16384, device=cuda), clouds[0].transform(T0),
+                        spec)
+    scan = voxel_downsample(clouds[1], VoxelGridSpec.centered(
+        leaf=0.2, half_extent=16.0), capacity=2048)
+    params = _host_config("sparse" if case == "sparse" else "kernel").ndt
+    kw = {}
+    if case == "kernel_far_yaw":
+        params = dataclasses.replace(params, window_dims=(12, 12, 8),
+                                     yaw_candidates=5)
+        cspec = coarse_spec_of(spec, 2)
+        kw = dict(far_field=ndt.ndt_field(coarsen_map(vmap, spec, 2), cspec,
+                                          params, center=T1[:3, 3]),
+                  far_spec=cspec)
+    field = ndt.ndt_field(vmap, spec, params, center=T1[:3, 3])
+    init = se3.exp(torch.tensor([0.15, -0.1, 0.03, 0.0, 0.0, 0.06],
+                                device=cuda)) @ T1
+    eager = ndt.compiled_register(scan, field, spec, init_T=init,
+                                  params=params, compiled=False, **kw)
+    ndt.compiled_register(scan, field, spec, init_T=init, params=params,
+                          **kw)                       # captures
+    with chip_smoke.replays_sync_checked() as chk:
+        got = [ndt.compiled_register(scan, field, spec, init_T=init,
+                                     params=params, **kw) for _ in range(2)]
+    assert chk.calls == 2 and eager.iterations > 0
+    for g in got:
+        assert chip_smoke.ndt_results_equal(eager, g)
+
+
+@pytest.mark.parametrize("path", ["kernel", "sparse"])
+def test_captured_host_engine_matches_eager(cuda, path):
+    """LidarOdometry's captured registrations (the coarse, then the fine
+    one on the kernel path) against compiled=False over four scans."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_slam_torch.pipeline.odometry import LidarOdometry
+
+    clouds, gt = _office_scans(cuda, 4)
+    cfg = _host_config(path, pyramid_factor=2 if path == "kernel" else 0)
+    runs = []
+    for compiled in (False, True):
+        eng = LidarOdometry(cfg, compiled=compiled)
+        eng.warm_up()
+        with chip_smoke.replays_sync_checked() as chk:
+            poses, log = eng.run(clouds, init_pose=gt[0])
+        runs.append((poses, [(m.iterations, m.matched_fraction)
+                             for m in log.records], chk.calls))
+    (p0, m0, c0), (p1, m1, c1) = runs
+    assert np.array_equal(p0, p1) and m0 == m1
+    # the warm-up captured every graph the run replayed
+    assert c0 == 0 and c1 == (len(clouds) - 1) * (2 if path == "kernel"
+                                                  else 1)
+
+
+def test_captured_jit_step_matches_eager(cuda):
+    """JitLidarOdometry's whole step as one CUDA graph against the
+    host-exit step: every state tensor bit for bit, no read inside."""
+    import chip_smoke
+    from tpu_slam_torch.pipeline.odometry_jit import JitLidarOdometry
+
+    clouds, gt = _office_scans(cuda, 4)
+    runs = []
+    for compiled in (False, True):
+        eng = JitLidarOdometry(_host_config("kernel"), compiled=compiled)
+        state = eng.init_state(clouds[0], gt[0])
+        states = []
+        with chip_smoke.replays_sync_checked() as chk:
+            for c in clouds[1:]:
+                state = eng.step(state, c)
+                states.append(state)
+        runs.append((states, chk.calls, len(eng.graphs)))
+    (e, _, _), (c, calls, graphs) = runs
+    assert calls == len(clouds) - 1 and graphs == 1
+    assert all(chip_smoke.same_tensors(a, b) for a, b in zip(e, c))
+    assert float(e[-1].last_metrics[3]) == 1.0        # inserted
+
+
+def test_captured_icp_raster_matches_eager(cuda):
+    """Config 1's raster tier at 8k (coarse, then fine call) captured
+    against the host-exit form, bit for bit, no read inside a call."""
+    import chip_smoke
+
+    src, tgt, xi = chip_smoke.config1_pair(cuda, 512)
+    eager = chip_smoke.raster_register(src, tgt, compiled=False)
+    chip_smoke.raster_register(src, tgt)              # captures
+    with chip_smoke.replays_sync_checked() as chk:
+        got = chip_smoke.raster_register(src, tgt)
+    assert chk.calls == 2
+    assert all(chip_smoke.same_tensors(a, b) for a, b in zip(eager, got))
+    assert chip_smoke.recovery_err_mm(xi, got[1].T) <= \
+        chip_smoke.C1_RASTER_BAR_MM
+
+
+def test_dense_reanchor_compiled_matches_eager(cuda):
+    """The dense SLAM with the default re-anchor and map rebuild through
+    its loops on the captured step and on compiled=False: every pose and
+    every key of the final state bit for bit."""
+    import chip_smoke
+
+    row = chip_smoke.dense_reanchor_compare()
+    assert row["reanchors"] > 0 and row["loops"] > 0
+    assert row["poses_bit_equal"] and not row["state_keys_differing"]

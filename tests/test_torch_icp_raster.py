@@ -196,15 +196,18 @@ def test_icp_raster_matches_reference(office, perm):
                        params=JParams(**kw), dims=dims, leaf=LEAF,
                        origin_world=jnp.asarray(origin), interpret=True,
                        axis_perm=perm)
+    pair = (PointCloud(points=_t(src[0]), mask=_t(src[1], torch.bool)),
+            PointCloud(points=_t(office[0]), mask=_t(office[1], torch.bool)))
+    port_kw = dict(params=ICPParams(**kw), dims=dims, leaf=LEAF,
+                   origin_world=_t(origin), axis_perm=perm)
     before = icp_terms_plain.launches
-    res = icp_raster(PointCloud(points=_t(src[0]),
-                                mask=_t(src[1], torch.bool)),
-                     PointCloud(points=_t(office[0]),
-                                mask=_t(office[1], torch.bool)),
-                     params=ICPParams(**kw), dims=dims, leaf=LEAF,
-                     origin_world=_t(origin), axis_perm=perm)
-    # one terms pass an iteration
-    assert icp_terms_plain.launches - before == int(res.iterations)
+    host = icp_raster(*pair, compiled=False, **port_kw)
+    # one terms pass an iteration in the host-exit form
+    assert icp_terms_plain.launches - before == int(host.iterations)
+    # the default, the compiled program's sync-free form, gives its bits
+    res = icp_raster(*pair, **port_kw)
+    for f in ("T", "iterations", "error", "matched_fraction", "converged"):
+        assert torch.equal(getattr(res, f), getattr(host, f)), f
     assert int(res.iterations) == int(ref.iterations)
     # float32 sums and 6x6 solves in other orders over 7 iterations
     # (measured: T within 9e-8, the error within 2e-7 relative, the same

@@ -50,8 +50,12 @@ def _telegrams(ranges_m, step_deg, start_deg=-135.0):
             for k, r in enumerate(ranges_m)]
 
 
-def _run(pipe, telegrams, angle_source, period_s, **kw):
-    dev = cs.FakeLms(telegrams, period_s=period_s)
+def _run(pipe, telegrams, angle_source, period_s, gated=False, **kw):
+    """Stream ``telegrams`` from a fake LMS100 through ``pipe``: one every
+    ``period_s``, or (``gated``) as fast as the consumer takes them, never
+    more than 64 lines ahead of it (the feeder holds 128)."""
+    gate = (lambda k: k < pipe.lines + 64) if gated else None
+    dev = cs.FakeLms(telegrams, period_s=period_s, gate=gate)
     lms = NativeLms(cap=1024)
     try:
         lms.connect("127.0.0.1", dev.port)
@@ -122,8 +126,10 @@ def test_loopback_stream_equals_reference_aggregation():
                          angular_threshold=1.1 * math.pi))
     pipe = LivePipeline(cfg, chain=chain, slam=slam)
     assert pipe.device.type == "cpu"
+    # gated: a fake paced at 4 ms a line outran the consumer's feeder (128
+    # lines) when other processes shared the CPU, and lines were dropped
     results = _run(pipe, telegrams, cs.counter_source(cap.encoder_angles),
-                   0.004, max_scans=1)
+                   0.004, gated=True, max_scans=1)
     assert len(results) == 1 and pipe.dropped_lines == 0
     cloud, metrics = results[0]
     assert metrics is not None and pipe.slam_state.n_keyframes == 1

@@ -54,7 +54,8 @@ Layer map (every module of ``tpu_slam`` has its counterpart here, but
     utils/         timing on the card (slope_time, call_ms), tracing
                    (torch.profiler), structured logging, the PLY writer,
                    the CUDA-graph capture of the compiled programs (the
-                   dense engine's step, the pose-graph solve)
+                   dense engine's step, the pose-graph solve,
+                   ndt_register, JitLidarOdometry's step, icp_raster)
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; a
 missing GPU raises instead of silently falling back.

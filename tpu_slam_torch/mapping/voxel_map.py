@@ -142,11 +142,12 @@ def _segment_sums(seg: torch.Tensor, m: int, valid: torch.Tensor,
 def _first_keys(k: torch.Tensor, seg: torch.Tensor, is_start: torch.Tensor,
                 valid: torch.Tensor, m: int) -> torch.Tensor:
     """Each segment's key from its first (valid) row: one write a segment,
-    INT32_MIN where a segment has none."""
-    first = is_start & valid
-    mk = torch.full((m,), _INT32_MIN, dtype=torch.int32, device=k.device)
-    mk[seg[first]] = k[first]
-    return mk
+    INT32_MIN where a segment has none. Every other row writes a spare
+    slot of its own (no mask index, which would read its count back)."""
+    mk = torch.full((m + seg.shape[0],), _INT32_MIN, dtype=torch.int32,
+                    device=k.device)
+    mk[_spare_index(seg, m, is_start & valid)] = k
+    return mk[:m]
 
 
 def _stable_order(flag: torch.Tensor) -> torch.Tensor:

@@ -18,8 +18,8 @@ Per line the consumer makes three host-to-device copies (points, valid
 flags, intensities), computes the line's transform on the device and
 reads one flag back (is the 3D scan complete?), in the reference's order.
 Everything the chain builds or initialises at first use (the native
-library, the kernels of the SLAM path, the device's context) is done
-before the stream opens: the feeder holds ``feeder_slots`` lines (2.56 s
+library, the kernels of the SLAM path, its captured graphs, the device's
+context) is done before the stream opens: the feeder holds ``feeder_slots`` lines (2.56 s
 of an LMS100 at 50 Hz), and a first step that waited on a compiler would
 overflow it and drop real lines.
 """
@@ -160,8 +160,9 @@ class LivePipeline:
     def warm_up(self) -> None:
         """Everything built or initialised at first use, done now: one
         aggregator step on the device (its context and kernels), the
-        CUDA libraries of the SLAM path built and loaded, and its captured
-        graph solve (graph.pose_graph) captured."""
+        CUDA libraries of the SLAM path built and loaded, the host
+        engine's captured registrations (pipeline.odometry) and the
+        captured graph solve (graph.pose_graph) captured."""
         L = self.config.line_capacity
         dev = self.device
         warm = self.aggregator.add_line(
@@ -175,6 +176,8 @@ class LivePipeline:
             from tpu_slam_torch.kernels import _build
             for name in SLAM_KERNELS:
                 _build.load(name)
+            if not self.slam._dense:
+                self.slam.odometry.warm_up()
             if (self.slam.compiled
                     and self.slam.config.graph.solver != "dense"):
                 from tpu_slam_torch.graph.pose_graph import (captured_solve,

@@ -18,7 +18,13 @@ the engine's device; the loop and its decisions live on the host. A scan:
 
 The NDT field is cached and rebuilt only on the scan after the map
 changed (an insert, an eviction or a rebase); ``field_builds`` counts the
-builds. ``scan_max_range`` and ``insert_downsampled`` belong to the dense
+builds. Each NDT registration (the coarse one, then the fine one) is the
+reference's compiled ``ndt_register``: with ``compiled=True`` (the
+default) one CUDA graph replay on a CUDA device
+(``registration.ndt.compiled_register``) and its sync-free form on the
+CPU; ``compiled=False`` runs the host-exit form, whose LM loops read their
+exits back. Both give the same bits; the gating read of step 4 stays, as
+it does in the reference's host engine. ICP runs eagerly. ``scan_max_range`` and ``insert_downsampled`` belong to the dense
 engine: this engine registers the whole downsampled scan and inserts the
 raw cloud, as the reference does.
 """
@@ -42,7 +48,7 @@ from tpu_slam_torch.mapping.voxel_map import (VoxelMap, coarse_spec_of,
 from tpu_slam_torch.pipeline.config import OdometryConfig
 from tpu_slam_torch.pipeline.metrics import MetricsLog, ScanMetrics, Stopwatch
 from tpu_slam_torch.registration.icp import icp
-from tpu_slam_torch.registration.ndt import ndt_field, ndt_register
+from tpu_slam_torch.registration.ndt import compiled_register, ndt_field
 
 
 @dataclasses.dataclass
@@ -66,8 +72,9 @@ class LidarOdometry:
     """Frame-to-map odometry engine on the sparse voxel map."""
 
     def __init__(self, config: OdometryConfig = OdometryConfig(),
-                 device=None):
+                 device=None, compiled: bool = True):
         self.device = default_device(device)
+        self.compiled = compiled
         self.config = config
         self.map_spec = config.map_spec()
         self.scan_spec = config.scan_spec()
@@ -192,10 +199,11 @@ class LidarOdometry:
             fine, coarse = field
             if coarse is not None:
                 cspec = coarse_spec_of(self.map_spec, cfg.pyramid_factor)
-                init_T = ndt_register(scan, coarse, cspec, init_T=init_T,
-                                      params=self._coarse_params()).T
-            res = ndt_register(scan, fine, self.map_spec, init_T=init_T,
-                               params=cfg.ndt)
+                init_T = compiled_register(
+                    scan, coarse, cspec, init_T=init_T,
+                    params=self._coarse_params(), compiled=self.compiled).T
+            res = compiled_register(scan, fine, self.map_spec, init_T=init_T,
+                                    params=cfg.ndt, compiled=self.compiled)
             return res.T, res.iterations, res.score, res.matched_fraction
         # ICP flavours register against the map's voxel means
         means = voxel_means(vmap, self.map_spec)
@@ -212,6 +220,26 @@ class LidarOdometry:
         res = icp(scan, tgt, init_T=init_T, params=params,
                   target_normals=normals)
         return res.T, res.iterations, res.error, res.matched_fraction
+
+    def warm_up(self) -> None:
+        """Capture the NDT registrations' graphs for this config's shapes
+        now (a compiled NDT engine on a CUDA device; otherwise nothing):
+        one registration of an empty scan against the empty map's fields,
+        as the first tracked scan would run it."""
+        if not (self.compiled and self.device.type == "cuda"
+                and self.config.method == "ndt"):
+            return
+        state = self.init_state()
+        n = self.config.scan_capacity
+        empty = PointCloud(
+            points=torch.zeros((n, 3), dtype=torch.float32,
+                               device=self.device),
+            mask=torch.zeros(n, dtype=torch.bool, device=self.device))
+        builds = self.field_builds
+        self._register(self.downsample(empty),
+                       self._to_local(state.pose, state.map_offset),
+                       state.vmap)
+        self.field_builds = builds          # counts the scans' builds only
 
     def step(self, state: OdometryState, cloud: PointCloud
              ) -> Tuple[OdometryState, ScanMetrics]:

@@ -27,7 +27,7 @@ the same bits.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +37,7 @@ from tpu_slam_torch.core import se3
 from tpu_slam_torch.core.pointcloud import PointCloud
 from tpu_slam_torch.ingest.deskew import deskew_cloud, vlp16_time_fractions
 from tpu_slam_torch.kernels.downsample import voxel_downsample
+from tpu_slam_torch.kernels.ndt_terms import ndt_terms
 from tpu_slam_torch.kernels.voxel_hash import VoxelGridSpec
 from tpu_slam_torch.mapping.dense_map import (DenseMomentGrid,
                                               centered_origin_cell,
@@ -50,7 +51,7 @@ from tpu_slam_torch.mapping.voxel_map import coarse_spec_of
 from tpu_slam_torch.pipeline.config import OdometryConfig
 from tpu_slam_torch.pipeline.metrics import MetricsLog, ScanMetrics, Stopwatch
 from tpu_slam_torch.registration.ndt import ndt_register
-from tpu_slam_torch.utils.capture import Captured
+from tpu_slam_torch.utils.capture import replay
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +84,7 @@ class DenseLidarOdometry:
                              "window shape)")
         self.device = default_device(device)
         self.compiled = compiled
-        # captured steps by the shapes of (state, cloud) (``_shapes``)
+        # captured steps by the signature of (state, cloud)
         self.graphs = {}
         self.config = config
         self.map_spec = config.map_spec()
@@ -179,7 +180,8 @@ class DenseLidarOdometry:
         elif self.device.type != "cuda":
             nxt, n_ev = self._step_impl(state, cloud)
         else:
-            nxt, n_ev = self._replay(state, cloud)
+            nxt, n_ev = replay(self.graphs, self._step_impl, (state, cloud),
+                               counters=(ndt_terms,))
         if n_ev is not None:
             self.n_evicted = self.n_evicted + n_ev
         return nxt
@@ -189,14 +191,6 @@ class DenseLidarOdometry:
         """The compiled step's body: reads nothing back to the host.
         Returns (next state, cells evicted or None)."""
         return self._step_body(state, cloud, sync_free=True)
-
-    def _replay(self, state: DenseOdomState, cloud: PointCloud):
-        key = _shapes(state, cloud)
-        cap = self.graphs.get(key)
-        if cap is None:
-            cap = _CapturedStep(self, state, cloud)
-            self.graphs[key] = cap
-        return cap(state, cloud)
 
     def _step_body(self, state: DenseOdomState, cloud: PointCloud,
                    sync_free: bool):
@@ -310,76 +304,3 @@ class DenseLidarOdometry:
                     scan_index=k, iterations=int(m[0]), residual=0.0,
                     matched_fraction=float(m[1]), wall_time_s=sw.elapsed))
         return torch.stack(poses).cpu().numpy(), self.metrics
-
-
-def _state_tensors(state: DenseOdomState) -> List[torch.Tensor]:
-    out = [state.pose, state.last_delta, state.grid.rows,
-           state.grid.origin_cell, state.scan_index, state.last_metrics]
-    for g in (state.wide, state.occ):
-        if g is not None:
-            out += [g.rows, g.origin_cell]
-    return out
-
-
-def _with_tensors(template: DenseOdomState, ts: Sequence[torch.Tensor]
-                  ) -> DenseOdomState:
-    """``template``'s structure over the tensors ``_state_tensors`` lists."""
-    pose, last_delta, rows, oc, scan_index, last_metrics = ts[:6]
-    rest = list(ts[6:])
-
-    def grid_from(g):
-        if g is None:
-            return None
-        r, o = rest.pop(0), rest.pop(0)
-        return DenseMomentGrid(rows=r, origin_cell=o, dims=g.dims)
-
-    wide = grid_from(template.wide)
-    occ = grid_from(template.occ)
-    return DenseOdomState(
-        pose=pose, last_delta=last_delta,
-        grid=DenseMomentGrid(rows=rows, origin_cell=oc,
-                             dims=template.grid.dims),
-        scan_index=scan_index, last_metrics=last_metrics, wide=wide, occ=occ)
-
-
-def _cloud_tensors(cloud: PointCloud) -> List[torch.Tensor]:
-    return [cloud.points, cloud.mask] + (
-        [] if cloud.attrs is None else [cloud.attrs])
-
-
-def _shapes(state: DenseOdomState, cloud: PointCloud) -> Tuple:
-    """A captured step's key: its inputs' structure, shapes, dtypes and
-    strides (a kernel's choice, and so its bits, may follow the strides)."""
-    return (state.wide is None, state.occ is None, cloud.attrs is None,
-            tuple((tuple(t.shape), t.stride(), t.dtype) for t in
-                  _state_tensors(state) + _cloud_tensors(cloud)))
-
-
-class _CapturedStep:
-    """An engine's ``_step_impl`` as one CUDA graph for one set of state
-    and cloud shapes: static copies of the state and the cloud are its
-    inputs, the next state (and the evicted count) its outputs."""
-
-    def __init__(self, engine: DenseLidarOdometry, state: DenseOdomState,
-                 cloud: PointCloud):
-        from tpu_slam_torch.kernels.ndt_terms import ndt_terms
-
-        self.state_in = [t.clone() for t in _state_tensors(state)]
-        self.cloud_in = [t.clone() for t in _cloud_tensors(cloud)]
-        # the static inputs as a state and a cloud
-        self.template = _with_tensors(state, self.state_in)
-        st, cl = self.template, PointCloud(*self.cloud_in)
-
-        def body():
-            nxt, n_ev = engine._step_impl(st, cl)
-            return _state_tensors(nxt), n_ev
-
-        self.graph = Captured(body, engine.device, counters=(ndt_terms,))
-
-    def __call__(self, state: DenseOdomState, cloud: PointCloud):
-        for dst, src in zip(self.state_in + self.cloud_in,
-                            _state_tensors(state) + _cloud_tensors(cloud)):
-            dst.copy_(src)
-        out, n_ev = self.graph.replay()
-        # the caller adds n_ev to its count before the next replay
-        return _with_tensors(self.template, [t.clone() for t in out]), n_ev

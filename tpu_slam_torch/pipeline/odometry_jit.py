@@ -10,10 +10,17 @@ the device as masks:
     INVALID, every count 0), a no-op merge, so every scan runs the same
     operations;
   * the NDT field is rebuilt at the new pose every step;
-  * pose, map, field and the metrics vector stay on the device, and
-    ``step`` reads nothing back except the LM loop's exit tests (the
-    reference compiles its step into one program; here the LM loop is the
-    host loop of ``ndt_register``).
+  * pose, map, field and the metrics vector stay on the device.
+
+The step is the reference's compiled program (one ``jax.jit`` of
+``_step_impl`` with the state donated): ``_step_impl`` is its sync-free
+body (``ndt_register``'s sync-free form, the iteration count cast on the
+device). With ``compiled=True`` (the default) ``step`` replays it as one
+CUDA graph on a CUDA device, captured at the first step for the state's
+and the cloud's signature (``utils.capture``), and runs it eagerly on the
+CPU. ``compiled=False`` runs the host-exit step, whose LM loops read their
+exits back and whose iteration count is read once. Both give the same
+bits.
 """
 
 from __future__ import annotations
@@ -28,12 +35,14 @@ from tpu_slam_torch.core import se3
 from tpu_slam_torch.core.pointcloud import PointCloud
 from tpu_slam_torch.ingest.deskew import deskew_cloud, vlp16_time_fractions
 from tpu_slam_torch.kernels.downsample import voxel_downsample
+from tpu_slam_torch.kernels.ndt_terms import ndt_terms
 from tpu_slam_torch.kernels.voxel_hash import INVALID_KEY
 from tpu_slam_torch.mapping.voxel_map import (VoxelMap, empty_map,
                                               insert_scan_stats,
                                               scan_to_voxel_stats)
 from tpu_slam_torch.pipeline.config import OdometryConfig
 from tpu_slam_torch.registration.ndt import NDTField, ndt_field, ndt_register
+from tpu_slam_torch.utils.capture import replay
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,10 +61,13 @@ class JitLidarOdometry:
     """Odometry whose step keeps its decisions on the device."""
 
     def __init__(self, config: OdometryConfig = OdometryConfig(),
-                 device=None):
+                 device=None, compiled: bool = True):
         if config.method != "ndt":
             raise ValueError("JitLidarOdometry supports method='ndt'")
         self.device = default_device(device)
+        self.compiled = compiled
+        # captured steps by the signature of (state, cloud)
+        self.graphs = {}
         self.config = config
         self.map_spec = config.map_spec()
         self.scan_spec = config.scan_spec()
@@ -94,7 +106,26 @@ class JitLidarOdometry:
         return se3.exp(xi * scale)
 
     def step(self, state: JitOdomState, cloud: PointCloud) -> JitOdomState:
-        """One scan; returns the next state (the old one is left intact)."""
+        """One scan; returns the next state (the old one is left intact).
+
+        ``compiled`` on a CUDA device: the captured step; the state and the
+        cloud are copied into the graph's inputs and the returned state's
+        tensors are copies of its outputs.
+        """
+        if not self.compiled:
+            return self._step_body(state, cloud, sync_free=False)
+        if self.device.type != "cuda":
+            return self._step_impl(state, cloud)
+        return replay(self.graphs, self._step_impl, (state, cloud),
+                      counters=(ndt_terms,))
+
+    def _step_impl(self, state: JitOdomState, cloud: PointCloud
+                   ) -> JitOdomState:
+        """The compiled step's body: reads nothing back to the host."""
+        return self._step_body(state, cloud, sync_free=True)
+
+    def _step_body(self, state: JitOdomState, cloud: PointCloud,
+                   sync_free: bool) -> JitOdomState:
         cfg = self.config
         pred = self._clamped_delta(state.last_delta)
         if cfg.deskew:
@@ -106,7 +137,7 @@ class JitLidarOdometry:
                                 capacity=cfg.scan_capacity)
         init_T = state.pose @ pred
         res = ndt_register(scan, state.field, self.map_spec, init_T=init_T,
-                           params=cfg.ndt)
+                           params=cfg.ndt, sync_free=sync_free)
 
         accepted = res.matched_fraction >= cfg.min_accept_fraction
         # one polar-Newton step against f32 composition drift
@@ -126,9 +157,11 @@ class JitLidarOdometry:
         # the field is rebuilt every step, the window centred at the new
         # pose
         field = ndt_field(vmap, self.map_spec, cfg.ndt, center=T[:3, 3])
+        iterations = (res.iterations.to(torch.float32) if sync_free else
+                      torch.full((), float(res.iterations),
+                                 device=self.device))
         metrics = torch.stack([
-            torch.full((), float(res.iterations), device=self.device),
-            res.matched_fraction, accepted.to(torch.float32),
+            iterations, res.matched_fraction, accepted.to(torch.float32),
             do_insert.to(torch.float32)])
         return JitOdomState(pose=T, last_delta=delta, vmap=vmap, field=field,
                             scan_index=state.scan_index + 1,

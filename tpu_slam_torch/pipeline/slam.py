@@ -18,9 +18,11 @@ and their outcomes to ``loop_debug``.
 a device synchronisation so the time lands in the stage that spent it.
 
 With ``compiled`` (the default) the dense engine steps through its
-captured step and the graph solves run captured on a CUDA device (see
-``pipeline.odometry_dense`` and ``graph.pose_graph``); ``compiled=False``
-runs both eagerly, with the same bits.
+captured step, the host engine's NDT registrations replay their captured
+graphs, and the graph solves run captured on a CUDA device (see
+``pipeline.odometry_dense``, ``pipeline.odometry`` and
+``graph.pose_graph``); ``compiled=False`` runs them all eagerly, with the
+same bits.
 """
 
 from __future__ import annotations
@@ -142,7 +144,8 @@ class SLAMSystem:
         self.odometry = (DenseLidarOdometry(config.odometry, device=device,
                                             compiled=compiled)
                          if self._dense
-                         else LidarOdometry(config.odometry, device=device))
+                         else LidarOdometry(config.odometry, device=device,
+                                            compiled=compiled))
         self.device = self.odometry.device
         self.metrics = MetricsLog()
         self.stage_seconds: Dict[str, float] = dict.fromkeys(STAGES, 0.0)

@@ -15,22 +15,33 @@ clouds, the normals and ``init_T``), where the reference ``jax.vmap``s its
 no pair is active: a finished pair's T, iterations, error and matched
 fraction stop changing, so each pair ends exactly where its own loop would.
 The loop is host-driven: one read of the mask per iteration.
+
+``icp_raster`` is the reference's compiled program (one ``jax.jit`` with
+two ``while_loop`` stages): with ``compiled=True`` (the default) its
+sync-free form, each stage a fixed trip count that freezes the solve on
+the device once the reference's loop condition fails, replays as one CUDA
+graph on a CUDA device (cached by the inputs' signature and the static
+arguments) and runs eagerly on the CPU; ``compiled=False`` runs the
+host-exit form, which reads the step norm back each iteration. Both count
+the reference's iterations and give the same bits.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from tpu_slam_torch.core import se3
+from tpu_slam_torch.core.consts import const
 from tpu_slam_torch.core.pointcloud import PointCloud
 from tpu_slam_torch.kernels.icp_terms import icp_terms_raster
 from tpu_slam_torch.kernels.ndt_terms import (build_terms_raster,
                                               raster_to_slots)
 from tpu_slam_torch.kernels.nn_search import nearest_neighbors
 from tpu_slam_torch.registration.robust import huber_weight
+from tpu_slam_torch.utils.capture import CapturedCall, replay
 
 # icp_auto's default: the brute tier below this many points, the raster tier
 # at or above it. chip_smoke.py's pair_icp phase on an H100, with the
@@ -194,11 +205,15 @@ def raster_problem(source: PointCloud, target: PointCloud,
         # a proper rotation: the solve runs in permuted coordinates and the
         # result is conjugated back
         perm = list(axis_perm)
-        Pi = torch.zeros((4, 4), dtype=torch.float32, device=dev)
-        for row, col in enumerate(perm + [3]):
-            Pi[row, col] = 1.0
-        src = PointCloud(points=src.points[:, perm], mask=src.mask)
-        tgt = PointCloud(points=tgt.points[:, perm], mask=tgt.mask)
+        Pi = const([float(col == c) for col in perm + [3] for c in range(4)],
+                   torch.float32, dev).reshape(4, 4)
+        # the columns by a device index (a list index is copied from the
+        # host at every call)
+        cols = const(perm, torch.long, dev)
+        src = PointCloud(points=src.points.index_select(1, cols),
+                         mask=src.mask)
+        tgt = PointCloud(points=tgt.points.index_select(1, cols),
+                         mask=tgt.mask)
         init_T = Pi @ init_T @ Pi.T
     if origin_world is None:
         # centred on the target centroid, on the leaf grid; torch.round
@@ -206,8 +221,7 @@ def raster_problem(source: PointCloud, target: PointCloud,
         tw = tgt.mask.sum(dtype=torch.float32)
         cen = (torch.where(tgt.mask[:, None], tgt.points, 0.0).sum(dim=0)
                / torch.clamp(tw, min=1.0))
-        half = torch.tensor([d * leaf / 2 for d in dims], dtype=torch.float32,
-                            device=dev)
+        half = const([d * leaf / 2 for d in dims], torch.float32, dev)
         origin_world = torch.round((cen - half) / leaf) * leaf
     origin_world = origin_world.to(device=dev, dtype=torch.float32)
     eye = torch.eye(4, dtype=torch.float32, device=dev)
@@ -218,13 +232,19 @@ def raster_problem(source: PointCloud, target: PointCloud,
                          origin=origin_world, init_T=init_T, perm=Pi)
 
 
+# the captured icp_raster programs, by their inputs' signature and static
+# args
+_rasters: Dict[Tuple, CapturedCall] = {}
+
+
 def icp_raster(source: PointCloud, target: PointCloud,
                init_T: Optional[torch.Tensor] = None,
                params: ICPParams = ICPParams(),
                dims: tuple = (32, 32, 16), leaf: float = 0.5,
                qs: int = 8, qt: int = 8,
                origin_world: Optional[torch.Tensor] = None,
-               axis_perm: Optional[tuple] = None) -> ICPResult:
+               axis_perm: Optional[tuple] = None,
+               compiled: bool = True) -> ICPResult:
     """Pair ICP on the fused raster terms kernel (``kernels.icp_terms``).
 
     The target is binned once (world frame, at the identity), the source at
@@ -242,47 +262,101 @@ def icp_raster(source: PointCloud, target: PointCloud,
 
     Two stages with a re-bin between: the first (max_iterations // 2, at
     least 1) absorbs the initial error, the second re-bins the source at
-    the refined pose and runs on to max_iterations in all. The loop is
-    host-driven: one read of the step norm per iteration.
+    the refined pose and runs on to max_iterations in all. ``compiled``
+    (see the module docstring): the captured sync-free form on a CUDA
+    device, that form eagerly on the CPU; else the host-exit form.
     """
+    if not compiled:
+        return _icp_raster_body(source, target, init_T, origin_world, params,
+                                dims, leaf, qs, qt, axis_perm,
+                                sync_free=False)
+    dev = source.points.device
+    init_T = (torch.eye(4, dtype=torch.float32, device=dev) if init_T is None
+              else init_T.to(device=dev, dtype=torch.float32))
+    if origin_world is not None:
+        origin_world = origin_world.to(device=dev, dtype=torch.float32)
+    if dev.type != "cuda":
+        return _icp_raster_body(source, target, init_T, origin_world, params,
+                                dims, leaf, qs, qt, axis_perm,
+                                sync_free=True)
+
+    def body(src, tgt, T0, origin):
+        return _icp_raster_body(src, tgt, T0, origin, params, dims, leaf, qs,
+                                qt, axis_perm, sync_free=True)
+
+    return replay(_rasters, body,
+                  (PointCloud(source.points, source.mask),
+                   PointCloud(target.points, target.mask), init_T,
+                   origin_world),
+                  static=(params, dims, leaf, qs, qt, axis_perm),
+                  counters=(icp_terms_raster,))
+
+
+def _icp_raster_body(source: PointCloud, target: PointCloud,
+                     init_T: Optional[torch.Tensor],
+                     origin_world: Optional[torch.Tensor],
+                     params: ICPParams, dims: tuple, leaf: float, qs: int,
+                     qt: int, axis_perm: Optional[tuple],
+                     sync_free: bool) -> ICPResult:
+    """``icp_raster``'s solve. Host-exit form: each stage's loop reads
+    ``dx > tolerance`` back after every iteration. Sync-free form: stage
+    one runs max(1, max_iterations // 2) trips and stage two
+    max_iterations, each trip updating the solve only while the
+    reference's condition (it < the stage's bound and dx > tolerance)
+    holds, so nothing is read back and ``iterations`` counts what the
+    reference's loops count."""
     prob = raster_problem(source, target, init_T, dims, leaf, qt,
                           origin_world, axis_perm)
     src = prob.source
+    dev = src.points.device
     n_valid = torch.clamp(src.mask.sum(dtype=torch.float32), min=1.0)
-    eye6 = torch.eye(6, dtype=torch.float32, device=src.points.device)
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+
+    def gn_step(slots, T):
+        H, b, e, nmatch, wsum = icp_terms_raster(
+            slots, prob.tgt_table, T, params.max_corr_dist,
+            params.huber_delta, dims, qs, qt)
+        H = H + params.damping * torch.trace(H) / 6.0 * eye6
+        # solve_ex: no host sync; a singular system gives non-finite
+        # entries, zeroed as the reference does
+        xi = -torch.linalg.solve_ex(H, b)[0]
+        xi = torch.where(torch.isfinite(xi), xi, 0.0)
+        return (se3.retract(T, xi), torch.linalg.vector_norm(xi),
+                e / torch.clamp(wsum, min=1e-6), nmatch / n_valid)
 
     def solve_stage(T0, max_iters, it):
         slots, _ = build_terms_raster(src.points, src.mask, T0, prob.origin,
                                       leaf, dims, qs)
         T = T0
-        inf = torch.full((), float("inf"), device=T0.device)
-        dx, err, frac = inf, inf, torch.zeros((), device=T0.device)
+        inf = torch.full((), float("inf"), device=dev)
+        dx, err, frac = inf, inf, torch.zeros((), device=dev)
+        if sync_free:
+            for _ in range(max_iters):
+                active = (it < max_iters) & (dx > params.tolerance)
+                T_n, dx_n, err_n, frac_n = gn_step(slots, T)
+                T = torch.where(active, T_n, T)
+                dx = torch.where(active, dx_n, dx)
+                err = torch.where(active, err_n, err)
+                frac = torch.where(active, frac_n, frac)
+                it = it + active.to(torch.int32)
+            return T, it, dx, err, frac
         while it < max_iters:
-            H, b, e, nmatch, wsum = icp_terms_raster(
-                slots, prob.tgt_table, T, params.max_corr_dist,
-                params.huber_delta, dims, qs, qt)
-            H = H + params.damping * torch.trace(H) / 6.0 * eye6
-            # solve_ex: no host sync; a singular system gives non-finite
-            # entries, zeroed as the reference does
-            xi = -torch.linalg.solve_ex(H, b)[0]
-            xi = torch.where(torch.isfinite(xi), xi, 0.0)
-            T = se3.retract(T, xi)
+            T, dx, err, frac = gn_step(slots, T)
             it += 1
-            dx = torch.linalg.vector_norm(xi)
-            err = e / torch.clamp(wsum, min=1e-6)
-            frac = nmatch / n_valid
             if not bool(dx > params.tolerance):
                 break
         return T, it, dx, err, frac
 
+    it0 = (torch.zeros((), dtype=torch.int32, device=dev) if sync_free
+           else 0)
     T, it, _, _, _ = solve_stage(prob.init_T,
-                                 max(1, params.max_iterations // 2), 0)
+                                 max(1, params.max_iterations // 2), it0)
     T, it, dx, err, frac = solve_stage(T, params.max_iterations, it)
     if prob.perm is not None:
         T = prob.perm.T @ T @ prob.perm
-    return ICPResult(T=T, iterations=torch.full((), it, dtype=torch.int32,
-                                                device=T.device),
-                     error=err, matched_fraction=frac,
+    if not sync_free:
+        it = torch.full((), it, dtype=torch.int32, device=dev)
+    return ICPResult(T=T, iterations=it, error=err, matched_fraction=frac,
                      converged=dx <= params.tolerance)
 
 
@@ -291,7 +365,8 @@ def icp_auto(source: PointCloud, target: PointCloud,
              params: ICPParams = ICPParams(),
              crossover: int = AUTO_CROSSOVER, **raster_kwargs) -> ICPResult:
     """Size-routed pair ICP: brute-force ``icp`` under ``crossover`` points
-    (the source's capacity), ``icp_raster`` at or above it.
+    (the source's capacity), ``icp_raster`` (compiled, its default) at or
+    above it.
 
     The brute tier's NN pass is O(N^2) an iteration, the raster tier's
     pass ~O(N) plus a binning a stage. ``raster_kwargs`` (dims, leaf,

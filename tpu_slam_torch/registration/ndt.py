@@ -30,14 +30,18 @@ forms of them. The host-exit form reads the exit condition with one
 dense engine's compiled step) runs every loop for its full trip count and
 freezes the solve on the device once the condition fails, reading nothing
 back; both count exactly the iterations the reference counts and give the
-same bits.
+same bits. ``compiled_register`` is the reference's compiled
+``ndt_register`` (one ``jax.jit``): on a CUDA device it replays the
+sync-free form as one CUDA graph (cached by the inputs' signature and the
+static arguments), on the CPU it runs that form eagerly, and with
+``compiled=False`` it runs the host-exit form.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +54,7 @@ from tpu_slam_torch.kernels.voxel_hash import (INVALID_KEY, VoxelGridSpec,
                                                cell_coords,
                                                neighbor_offsets_keys,
                                                pack_key)
+from tpu_slam_torch.utils.capture import CapturedCall, replay
 
 TERMS_IMPLS = ("auto", "xla")
 
@@ -455,6 +460,52 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
     return NDTResult(T=T, iterations=iters, score=-cost / n_src_pts,
                      matched_fraction=frac,
                      converged=dx <= params.tolerance)
+
+
+# the captured registrations, by their inputs' signature and static args
+_registers: Dict[Tuple, CapturedCall] = {}
+
+
+def compiled_register(source: PointCloud, field: NDTField,
+                      spec: VoxelGridSpec,
+                      init_T: Optional[torch.Tensor] = None,
+                      params: NDTParams = NDTParams(),
+                      far_field: Optional[NDTField] = None,
+                      far_spec: Optional[VoxelGridSpec] = None,
+                      compiled: bool = True) -> NDTResult:
+    """``ndt_register`` as the reference's compiled program.
+
+    With ``compiled``: on a CUDA device, one replay of the sync-free form
+    captured as a CUDA graph at the first call for these inputs'
+    signature (the source's capacity; the field's path, window dims and
+    capacity; the far tier's; shapes, strides, dtypes, device) and the
+    static ``spec``, ``far_spec`` and ``params``; the source (points and
+    mask), the field and the pose are copied into the graph's own buffers
+    at every call. On the CPU the sync-free form runs eagerly. Either way
+    ``iterations`` is a () int32 tensor. ``compiled=False`` runs the
+    host-exit form. All three give the same bits.
+    """
+    if not compiled:
+        return ndt_register(source, field, spec, init_T=init_T,
+                            params=params, far_field=far_field,
+                            far_spec=far_spec)
+    dev = source.points.device
+    if init_T is None:
+        init_T = torch.eye(4, dtype=torch.float32, device=dev)
+    if dev.type != "cuda":
+        return ndt_register(source, field, spec, init_T=init_T,
+                            params=params, far_field=far_field,
+                            far_spec=far_spec, sync_free=True)
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms
+
+    def body(src, fld, T0, far):
+        return ndt_register(src, fld, spec, init_T=T0, params=params,
+                            far_field=far, far_spec=far_spec, sync_free=True)
+
+    return replay(_registers, body,
+                  (PointCloud(source.points, source.mask), field, init_T,
+                   far_field),
+                  static=(spec, far_spec, params), counters=(ndt_terms,))
 
 
 def lm_schedule(init_T: torch.Tensor, params: NDTParams, use_kernel: bool,
