@@ -9,6 +9,7 @@ bag replay through the CLI (bench config 6), the distributed layer
 (bench config 5: the sharded map and NDT; the sharded dense step, ICP
 batch and pose-graph solvers; the heartbeat), the rotating unit's live
 chain (CoLa-A stream -> native poller -> aggregator -> SLAM, and run_live)
+with the live SLAM path's compiled programs against their eager forms,
 and the extrinsic calibration.
 
     python3 chip_smoke.py
@@ -55,7 +56,8 @@ Phases, each printing one JSON line:
                first accepting sweep against the slam run there (poses and
                state bit-equal, stage seconds), and the sweep's and the
                final refinement's graph solves on the run's final graph
-               (seconds, launches a GN iteration, bit-equal)
+               (seconds, launches a GN iteration, bit-equal; the
+               refinement's first 10 of its 40 GN iterations)
   kernels      nn_search against its plain version: a verification batch
                of the slam run's own keyframes (6 pairs x 4,096 points), a
                seeded edge case (ties, padding, ragged sizes, one pair) and
@@ -65,8 +67,10 @@ Phases, each printing one JSON line:
                and 8-instruction floor
   pair_icp     config 1 at 8k, 16k, 32k, 64k, 128k and 256k points: the
                raster tier (icp_raster, coarse then fine call, each the
-               captured program) and the brute tier (icp)
-               timed as registrations/s by slope_time, recovery errors,
+               captured program) and the brute tier (icp, the captured
+               program) timed as registrations/s by slope_time (the brute
+               tier's loops cut to 1 + 4 registrations at 128k and 256k,
+               where each takes 0.2-0.7 s), recovery errors,
                matched fractions, the tier icp_auto picks, launches, host
                syncs and device idle share a registration
   kernels      icp_terms against its plain version: config 1's coarse and
@@ -189,6 +193,21 @@ Phases, each printing one JSON line:
                captures again unpaced (bit-identical; lines/s); launches,
                H2D copies and device-to-host reads a line and a scan; the
                device's idle share over a scan
+  compiled_slam the live SLAM path's compiled programs (the scan line, the
+               map insert, the keyframe store, the batched ICP) against
+               compiled=False, every captured call under sync-debug
+               "error": the survey's first capture's lines (the cloud bit
+               for bit; launches, graph launches, H2D copies, reads and
+               host ms a line, the line's own work alone, unpaced
+               lines/s), its first 4 captures through SLAMSystem() (clouds
+               and poses bit for bit against the paced run; a step's
+               costs), slam_host's office circle (poses and final state
+               bit for bit; a step's costs over a loop sweep), config 4's
+               verification batch (6 pairs x 4,096, also with the NN's
+               plain version in place of the kernel; ms, NN calls and its
+               us a call inside the graph), config 1's brute tier at
+               8k-256k (registrations/s, recovery errors, syncs); and where
+               the captured raster tier leads the brute tier
   live_cli     run_live.main against the fake LMS100 and a fake motor
                controller for 2 scans: its JSON lines; the speed commanded,
                then the unit stopped
@@ -266,8 +285,8 @@ C1_SLOPE_K = {("raster", "8k"): (5, 55), ("brute", "8k"): (3, 23),
               ("raster", "16k"): (3, 23), ("brute", "16k"): (2, 8),
               ("raster", "32k"): (3, 23), ("brute", "32k"): (2, 8),
               ("raster", "64k"): (3, 23), ("brute", "64k"): (2, 8),
-              ("raster", "128k"): (3, 23), ("brute", "128k"): (2, 8),
-              ("raster", "256k"): (3, 23), ("brute", "256k"): (2, 8)}
+              ("raster", "128k"): (3, 23), ("brute", "128k"): (1, 4),
+              ("raster", "256k"): (3, 23), ("brute", "256k"): (1, 4)}
 # kernel vs plain: each 3x3 block of H, each half of b, and the cost within
 # this fraction of that part's own largest magnitude (float32 sums in
 # another order); matched count exactly equal, since both round the
@@ -304,8 +323,14 @@ C6_SETS = ["scan_capacity=32768", "downsample_leaf=0.3", "map_leaf=0.5",
            "max_pred_translation=2.0"]
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line: the phase, its fields and the script's seconds so
+    far (``at_s``)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - _T0}), flush=True)
 
 
 def reset_launches(*wrappers) -> None:
@@ -1217,6 +1242,7 @@ def phase_slam_resume(run, clouds, tmpdir):
 # ---------------------------------------------------------------------------
 
 COMPILED_WARM = 3              # steps before the profiled ones
+COMPILED_REFINE_GN = 10        # the refinement's GN iterations compared
 COMPILED_PROFILED = 6          # steps profiled, and timed unprofiled
 
 
@@ -1381,10 +1407,11 @@ def compiled_config4(run, clouds, gt):
 
 def compiled_graph_solves(graph):
     """The config-4 sweep's solve and the final refinement on the run's
-    final graph, eager and captured (both captured in the slam phase):
-    seconds, the result bit-equal; the launches of one GN iteration from
-    the profiler (the runtime's kernel and graph launches, the device's
-    kernels)."""
+    final graph, eager and captured: seconds, the result bit-equal; the
+    launches of one GN iteration from the profiler (the runtime's kernel
+    and graph launches, the device's kernels). The refinement runs its
+    first COMPILED_REFINE_GN GN iterations here (the whole refinement runs
+    captured in the slam and slam_resume phases)."""
     import dataclasses
 
     import torch
@@ -1395,7 +1422,9 @@ def compiled_graph_solves(graph):
 
     out = {}
     for name, params in (("sweep", config4().graph),
-                         ("final_refine", GraphSolveParams(**FINAL_REFINE))):
+                         ("final_refine", GraphSolveParams(**dict(
+                             FINAL_REFINE,
+                             gn_iterations=COMPILED_REFINE_GN)))):
         res, row = {}, {}
         for label, compiled in (("eager", False), ("captured", True)):
             torch.cuda.synchronize()
@@ -1683,10 +1712,11 @@ def raster_register(src, tgt, init_T=None, compiled=True):
                           compiled=compiled, **C1_FINE)
 
 
-def brute_register(src, tgt, init_T=None):
+def brute_register(src, tgt, init_T=None, compiled=True):
     from tpu_slam_torch.registration.icp import icp
 
-    return icp(src, tgt, init_T=init_T, params=config1_params()[0])
+    return icp(src, tgt, init_T=init_T, params=config1_params()[0],
+               compiled=compiled)
 
 
 def registration_loop(register, device):
@@ -1749,6 +1779,7 @@ def registration_profile(fn, counter):
         counted_launches=counter() - before,
         kernel_launches=sum(e.count for e in ka if e.key in (
             "cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")),
+        graph_launches=sum(e.count for e in ka if e.key in GRAPH_LAUNCHES),
         host_syncs=sum(e.count for e in ka
                        if e.key == "aten::_local_scalar_dense"),
         htod_copies=sum(e.count for e in ka if "Memcpy HtoD" in e.key),
@@ -2738,32 +2769,36 @@ REANCHOR_SCANS = 40            # the office circle of slam_host
 
 @contextlib.contextmanager
 def replays_sync_checked():
-    """A context in which every ``CapturedCall`` (its input copies, its
-    replay and its output copies) runs under
+    """A context in which every ``CapturedCall`` and ``CapturedStep`` (its
+    input copies, its replay and its output copies) runs under
     ``torch.cuda.set_sync_debug_mode("error")``: a read back to the host
     or a synchronisation there raises. Yields a namespace whose ``calls``
     counts the calls checked."""
     import torch
 
-    from tpu_slam_torch.utils.capture import CapturedCall
+    from tpu_slam_torch.utils.capture import CapturedCall, CapturedStep
 
     seen = types.SimpleNamespace(calls=0)
-    orig = CapturedCall.__call__
+    origs = {cls: cls.__call__ for cls in (CapturedCall, CapturedStep)}
 
-    def checked(cap, *args):
-        prev = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return orig(cap, *args)
-        finally:
-            torch.cuda.set_sync_debug_mode(prev)
-            seen.calls += 1
+    def checker(orig):
+        def checked(cap, *args):
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return orig(cap, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+                seen.calls += 1
+        return checked
 
-    CapturedCall.__call__ = checked
+    for cls, orig in origs.items():
+        cls.__call__ = checker(orig)
     try:
         yield seen
     finally:
-        CapturedCall.__call__ = orig
+        for cls, orig in origs.items():
+            cls.__call__ = orig
 
 
 def host_ms(fn, n):
@@ -3406,6 +3441,7 @@ def host_step_profile(engine, state, clouds):
         kernel_launches_per_step=count(
             lambda k: k in ("cudaLaunchKernel", "cuLaunchKernel",
                             "cuLaunchKernelEx")) / steps,
+        graph_launches_per_step=count(lambda k: k in GRAPH_LAUNCHES) / steps,
         dtoh_reads_per_step=count(lambda k: "Memcpy DtoH" in k) / steps,
         h2d_copies_per_step=count(lambda k: "Memcpy HtoD" in k) / steps,
         scalar_reads_per_step=count(
@@ -4237,23 +4273,28 @@ def stream(pipe, telegrams, angles, period_s=1.0 / LMS_HZ, gated=False,
     return results, clouds, poses, dt, dev.max_late_s
 
 
-def live_line_profile(telegrams, angles):
+def live_line_profile(telegrams, angles, compiled=True):
     """The consumer's cost a line: one capture streamed (gated) through
-    the chain with no SLAM, under torch.profiler: kernel launches, H2D
-    copies, device-to-host reads, device busy time and the host clock a
-    line."""
+    the chain with no SLAM, under torch.profiler: kernel and graph
+    launches, H2D copies, device-to-host reads, device busy time and the
+    host clock a line. The first run's lines are checked for reads or
+    syncs inside a captured call (``replays_checked`` counts them), and
+    its clouds are returned beside the costs."""
     import torch
 
     from tpu_slam_torch.pipeline.live import LiveConfig, LivePipeline
 
-    pipe = LivePipeline(LiveConfig(start_angle_deg=LIVE_START_DEG))
+    pipe = LivePipeline(LiveConfig(start_angle_deg=LIVE_START_DEG),
+                        compiled=compiled)
     n = len(telegrams)
 
     def run():
-        stream(pipe, telegrams, angles, gated=True, max_lines=n)
+        out = stream(pipe, telegrams, angles, gated=True, max_lines=n)
         torch.cuda.synchronize()
+        return out[1]
 
-    run()
+    with replays_sync_checked() as chk:
+        clouds = run()
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
@@ -4263,12 +4304,15 @@ def live_line_profile(telegrams, angles):
     def count(pred):
         return sum(e.count for e in ka if pred(e.key))
 
-    return dict(
-        lines=pipe.lines, host_ms_per_line=wall * 1e3 / n,
+    return clouds, dict(
+        lines=pipe.lines, replays_checked=chk.calls,
+        line_graphs=len(pipe.aggregator._lines),
+        host_ms_per_line=wall * 1e3 / n,
         device_busy_us_per_line=sum(per_kernel.values()) / n,
         kernel_launches_per_line=count(
             lambda k: k in ("cudaLaunchKernel", "cuLaunchKernel",
                             "cuLaunchKernelEx")) / n,
+        graph_launches_per_line=count(lambda k: k in GRAPH_LAUNCHES) / n,
         h2d_copies_per_line=count(lambda k: "Memcpy HtoD" in k) / n,
         dtoh_reads_per_line=count(lambda k: "Memcpy DtoH" in k) / n,
         scalar_reads_per_line=count(
@@ -4283,7 +4327,8 @@ def phase_live():
     LMS100's 50 Hz through LivePipeline -> SLAMSystem, then its first
     captures again unpaced (bit-identical), the cost a line and a scan,
     and the kernel cases of the path. Returns ({kernel: launches}, the
-    ndt_terms args and the nn_search args of the path)."""
+    ndt_terms args and the nn_search args of the path, and the survey's
+    run for phase_compiled_slam)."""
     import torch
 
     from tpu_slam_torch.kernels.ndt_terms import ndt_terms, ndt_terms_plain
@@ -4324,7 +4369,8 @@ def phase_live():
     # the cost a line (no SLAM) and of a SLAM step (scans 2 and 3 replayed
     # from the state after scan 1)
     first = int(np.searchsorted(stops, 1))
-    per_line = live_line_profile(telegrams[:first], angles[:first])
+    line_clouds, per_line = live_line_profile(telegrams[:first],
+                                              angles[:first])
     slam = again.slam
     s = slam.init_state()
     s, _ = slam.step(s, clouds[0])
@@ -4384,7 +4430,13 @@ def phase_live():
     pairs = sorted(state.loop_pairs) or [(0, state.n_keyframes - 1)]
     terms_args = host_terms_args(slam.odometry, state.odom, clouds[-1])
     nn_args = verification_batch(state, cfg, pairs=pairs)
-    return launches, terms_args, nn_args
+    survey_run = dict(telegrams=telegrams, angles=angles, clouds=clouds,
+                      poses=poses, first=first, per_line=per_line,
+                      line_clouds=line_clouds, rerun_lines=k,
+                      per_step=per_step, seconds=dt,
+                      keyframes=state.n_keyframes,
+                      loops=state.n_loop_closures, ate_m=ate)
+    return launches, terms_args, nn_args, survey_run
 
 
 def phase_live_cli(tmpdir):
@@ -4484,6 +4536,349 @@ def gauge_error(found, true):
     Rx[:, 1, 2], Rx[:, 2, 1] = -torch.sin(phi), torch.sin(phi)
     e = se3.log(se3.inverse(Rx @ M_t) @ M_f)
     return float(torch.linalg.vector_norm(e, dim=1).min())
+
+
+# ---------------------------------------------------------------------------
+# The live SLAM path's compiled programs (the scan line, the map insert,
+# the keyframe store, the batched ICP) against their eager forms
+# ---------------------------------------------------------------------------
+
+VERIFY_TIMED = 10              # verification batches timed, each form
+
+
+def run_profile(fn, units):
+    """``fn`` timed on the host clock (after one warm run), then under
+    torch.profiler: per unit, the wall ms, the device's busy ms and idle
+    share, kernel and graph launches, H2D copies, device-to-host reads
+    and scalar reads."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    per_kernel, prof = device_time_us(fn, 1)
+    ka = prof.key_averages()
+    busy = sum(per_kernel.values())
+
+    def count(keys):
+        return sum(e.count for e in ka if keys(e.key)) / units
+
+    return dict(
+        wall_ms=wall_us / 1e3 / units, device_busy_ms=busy / 1e3 / units,
+        device_idle_share=1.0 - busy / wall_us,
+        kernel_launches=count(lambda k: k in KERNEL_LAUNCHES),
+        graph_launches=count(lambda k: k in GRAPH_LAUNCHES),
+        h2d_copies=count(lambda k: "Memcpy HtoD" in k),
+        dtoh_reads=count(lambda k: "Memcpy DtoH" in k),
+        scalar_reads=count(lambda k: k == "aten::_local_scalar_dense"))
+
+
+def line_host_us(compiled, n=150, seed=0):
+    """The host's us a line spends on the line's device work alone (no
+    stream, no parsing): n random lines of LMS_BEAMS beams staged and
+    copied (or copied as three tensors), transformed and aggregated, and
+    the ready flag read, as LivePipeline's consumer does; p50 over the
+    lines of a second pass."""
+    import torch
+
+    from tpu_slam_torch.ingest.aggregator import (AggregatorConfig,
+                                                  ScanAggregator, stage_line,
+                                                  staged_size)
+    from tpu_slam_torch.ingest.frames import FrameChain, SensorModel
+
+    rng = np.random.default_rng(seed)
+    L, dev = 1024, torch.device("cuda")
+    chain = FrameChain(sensor=SensorModel.by_name("LMS100"))
+    agg = ScanAggregator(AggregatorConfig(line_length=L), compiled=compiled)
+    staging = torch.zeros(staged_size(L), pin_memory=True)
+    ang = np.radians(LIVE_START_DEG) + np.radians(LMS_STEP_DEG) * np.arange(
+        LMS_BEAMS)
+    dirs = np.stack([np.cos(ang), np.sin(ang), np.zeros(LMS_BEAMS)],
+                    1).astype(np.float32)
+    lines = [rng.uniform(0.5, 8.0, LMS_BEAMS).astype(np.float32)
+             for _ in range(n)]
+    times = []
+    for _ in range(2):
+        state, times = agg.init_state(), []
+        for k, r in enumerate(lines):
+            t0 = time.perf_counter()
+            pts, valid = dirs * r[:, None], r <= 7.5
+            if compiled:
+                stage_line(staging.numpy(), pts, valid, r, k * SURVEY_STEP)
+                state = agg.add_staged_line(
+                    state, staging.to(dev, non_blocking=True), chain)
+            else:
+                p = np.zeros((L, 3), np.float32)
+                v = np.zeros(L, bool)
+                i = np.zeros(L, np.float32)
+                p[:LMS_BEAMS], v[:LMS_BEAMS], i[:LMS_BEAMS] = pts, valid, r
+                state = agg.add_line(
+                    state, torch.from_numpy(p).to(dev),
+                    torch.from_numpy(v).to(dev),
+                    chain.base_from_laser(k * SURVEY_STEP, device=dev),
+                    torch.from_numpy(i).to(dev))
+            bool(agg.ready(state))
+            times.append((time.perf_counter() - t0) * 1e6)
+    return float(np.percentile(times, 50))
+
+
+def compiled_lines(survey):
+    """The survey's first capture (its lines, no SLAM) through
+    LivePipeline on compiled=False, against the captured line's run of
+    the live phase (its lines checked under sync-debug "error"): the
+    cloud bit for bit, each form's costs a line, unpaced lines/s (1 / its
+    host time a line, the stream's own costs included) and the host us of
+    the line's device work alone."""
+    n = survey["first"]
+    clouds, eager = live_line_profile(survey["telegrams"][:n],
+                                      survey["angles"][:n], compiled=False)
+    captured = dict(survey["per_line"])
+    out = {}
+    for form, row in (("eager", eager), ("captured", captured)):
+        row.update(unpaced_lines_per_s=1e3 / row["host_ms_per_line"],
+                   line_host_us_p50=line_host_us(form == "captured"))
+        out[form] = row
+    cap = survey["line_clouds"]
+    out["bit_equal"] = (len(clouds) == len(cap) == 1
+                        and same_tensors(clouds, cap)
+                        and same_tensors(cap, survey["clouds"][:1]))
+    return out
+
+
+def compiled_survey(survey):
+    """The survey's first SURVEY_RERUN captures again, unpaced, with the
+    chain and SLAMSystem() on compiled=False, against the paced captured
+    run of the live phase: clouds and poses bit for bit; the eager SLAM
+    step's costs beside the captured one's (scans 2 and 3 replayed from
+    the state after scan 1, as the live phase measures them). (The loop
+    sweeps' verification, captured against eager, is slam_host's, config
+    4's and the verification batch's.)"""
+    import torch
+
+    from tpu_slam_torch.pipeline.live import LiveConfig, LivePipeline
+    from tpu_slam_torch.pipeline.slam import SLAMSystem
+
+    pipe = LivePipeline(LiveConfig(start_angle_deg=LIVE_START_DEG),
+                        slam=SLAMSystem(survey_slam_config(),
+                                        compiled=False), compiled=False)
+    n = SURVEY_RERUN
+    k = survey["rerun_lines"]
+    _, clouds, poses, dt, _ = stream(pipe, survey["telegrams"][:k],
+                                     survey["angles"][:k], gated=True,
+                                     max_scans=n)
+    poses = torch.stack(poses).cpu().numpy()
+    slam = pipe.slam
+    s = slam.init_state()
+    for c in clouds[:2]:
+        s, _ = slam.step(s, c)
+    per_step = host_step_profile(slam, s, clouds[2:4])
+    state = pipe.slam_state
+    return dict(
+        scans=len(clouds), lines=pipe.lines, dropped=pipe.dropped_lines,
+        eager_seconds=dt, keyframes=state.n_keyframes,
+        loops=state.n_loop_closures,
+        clouds_bit_equal=len(clouds) == n and all(
+            same_tensors(a, b) for a, b in zip(clouds, survey["clouds"])),
+        poses_bit_equal=bool(np.array_equal(poses, survey["poses"][:n])),
+        per_step=dict(eager=per_step, captured=survey["per_step"]))
+
+
+def compiled_slam_host():
+    """slam_host's office circle (40 scans, SLAMSystem() on the host
+    engine) on both forms: poses and the final state bit for bit, every
+    captured call under sync-debug "error"; each form's costs a step over
+    scans 20-23 (one loop sweep among them) replayed from the state after
+    scan 20."""
+    import torch
+
+    from tpu_slam_torch.pipeline.metrics import ate_rmse
+    from tpu_slam_torch.pipeline.slam import SLAMSystem
+    from tpu_slam_torch.pipeline.state import slam_state_to_numpy
+
+    clouds, gt = office_arc(40, n_azimuth=240, arc_fraction=1.0)
+    k = SLAM_HOST_RESUME_AT
+    out, poses, states = {}, {}, {}
+    for form, compiled in (("eager", False), ("captured", True)):
+        slam = SLAMSystem(slam_host_cfg(), compiled=compiled)
+
+        def run(slam=slam):
+            state, ps, snap = slam.init_state(gt[0]), [], None
+            for i, c in enumerate(clouds):
+                state, _ = slam.step(state, c)
+                ps.append(state.odom.pose)
+                if i + 1 == k:
+                    snap = state
+            return state, torch.stack(ps).cpu().numpy(), snap
+
+        with replays_sync_checked() as chk:
+            state, poses[form], snap = run()
+        states[form] = slam_state_to_numpy(state)
+        out[form] = dict(
+            ate_m=ate_rmse(poses[form], gt, align=False),
+            keyframes=state.n_keyframes, loops=state.n_loop_closures,
+            replays_checked=chk.calls,
+            per_step=host_step_profile(slam, snap, clouds[k:k + 4]))
+    differ = sorted(key for key in states["eager"] if not np.array_equal(
+        np.asarray(states["eager"][key]),
+        np.asarray(states["captured"].get(key))))
+    out.update(poses_bit_equal=bool(np.array_equal(poses["eager"],
+                                                   poses["captured"])),
+               state_keys_differing=differ)
+    return out
+
+
+def compiled_verify(state):
+    """Config 4's verification batch (its first 6 loop pairs of 4,096
+    points, point-to-plane, both directions) on the captured batched ICP,
+    on compiled=False, and on compiled=False with the brute-force NN's
+    plain version in place of the kernel: results and decisions bit for
+    bit; ms, launches and reads a batch; nn_search's device us a call
+    inside the replayed graphs."""
+    from unittest import mock
+
+    import torch
+
+    from tpu_slam_torch.graph.loop_closure import verify_candidates
+    from tpu_slam_torch.kernels.nn_search import (nearest_neighbors,
+                                                  nearest_neighbors_plain)
+    from tpu_slam_torch.registration import icp as icp_mod
+
+    cfg = config4()
+    pairs = sorted(state.loop_pairs)[:6]
+    ci = np.asarray([p[0] for p in pairs], np.int32)
+    cj = np.asarray([p[1] for p in pairs], np.int32)
+
+    def verify(compiled):
+        return verify_candidates(
+            state.kf_points, state.kf_mask, state.graph.poses, ci, cj,
+            cfg.loop, clouds_normals=(state.kf_normals
+                                      if cfg.loop.plane_verify else None),
+            compiled=compiled)
+
+    plain0 = nearest_neighbors_plain.launches
+    with mock.patch.object(icp_mod, "nearest_neighbors",
+                           nearest_neighbors_plain):
+        plain = verify(False)
+    plain_calls = nearest_neighbors_plain.launches - plain0
+    out, res = {}, {}
+    for form, compiled in (("eager", False), ("captured", True)):
+        verify(compiled)
+        with replays_sync_checked() as chk:
+            res[form] = verify(compiled)
+        n0 = launches_of(nearest_neighbors)
+        verify(compiled)
+        torch.cuda.synchronize()
+        calls = launches_of(nearest_neighbors) - n0
+        out[form] = dict(
+            ms=host_ms(lambda c=compiled: verify(c), VERIFY_TIMED),
+            replays_checked=chk.calls, nn_search_calls=calls,
+            nn_search_us_per_call=terms_us_in_graph(
+                lambda c=compiled: verify(c), "nn_search", calls),
+            iterations=res[form][0].iterations.tolist(),
+            accepted=int(res[form][1].sum()),
+            **run_profile(lambda c=compiled: verify(c), 1))
+    out.update(pairs=len(pairs), points=int(state.kf_points.shape[1]),
+               bit_equal=same_tensors(res["eager"], res["captured"]),
+               plain_nn_bit_equal=same_tensors(plain, res["captured"]),
+               plain_nn_calls=plain_calls)
+    return out
+
+
+def compiled_brute(pairs, rates):
+    """Config 1's brute tier at 8k-256k on the captured batched ICP and on
+    compiled=False: the result bit for bit, recovery errors, iterations,
+    registrations/s from the identity (one timed call after a warm one),
+    launches and syncs a registration; and where the captured raster tier
+    leads the captured brute tier in the pair_icp phase's slope loops."""
+    from tpu_slam_torch.kernels.nn_search import nearest_neighbors
+
+    out = {}
+    for label, (src, tgt, xi) in pairs.items():
+        res, row = {}, {}
+        for form, compiled in (("eager", False), ("captured", True)):
+            with replays_sync_checked() as chk:
+                res[form] = brute_register(src, tgt, compiled=compiled)
+            prof = registration_profile(
+                lambda c=compiled: brute_register(src, tgt, compiled=c),
+                lambda: launches_of(nearest_neighbors))
+            row[form] = dict(
+                registrations_per_s=1e6 / prof["wall_us"],
+                recovery_err_mm=recovery_err_mm(xi, res[form].T),
+                iterations=int(res[form].iterations),
+                replays_checked=chk.calls,
+                nn_search_calls=prof["counted_launches"],
+                kernel_launches=prof["kernel_launches"],
+                graph_launches=prof["graph_launches"],
+                host_syncs=prof["host_syncs"],
+                htod_copies=prof["htod_copies"],
+                device_idle_share=prof["device_idle_share"])
+        row["bit_equal"] = same_tensors(res["eager"], res["captured"])
+        out[label] = row
+    faster = [lb for _, lb in C1_SIZES
+              if rates[("raster", lb)] > rates[("brute", lb)]]
+    return out, faster
+
+
+def phase_compiled_slam(survey, c4_state, c1_pairs, c1_rates):
+    """The live SLAM path's compiled programs against their eager forms
+    (compiled=False) in this call: the survey's lines (the scan line), the
+    whole survey through SLAMSystem() and slam_host's office circle (the
+    map insert, the keyframe store, the verification ICP, with the
+    registrations), config 4's verification batch and config 1's brute
+    tier at 8k-256k (the batched ICP). Any difference in the bits, a read
+    or a synchronisation inside a captured call, or an accuracy row out
+    of its limit fails. Returns the launches of each kernel in the
+    phase."""
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms
+    from tpu_slam_torch.kernels.nn_search import nearest_neighbors
+
+    kernels = (ndt_terms, nearest_neighbors)
+    reset_launches(*kernels)
+    t0 = time.perf_counter()
+    lines = compiled_lines(survey)
+    whole = compiled_survey(survey)
+    host = compiled_slam_host()
+    verify = compiled_verify(c4_state)
+    brute, faster = compiled_brute(c1_pairs, c1_rates)
+    launches = {k.__name__: launches_of(k) for k in kernels}
+    emit("compiled_slam", device=nvidia_smi_line(), lines=lines,
+         survey=whole, slam_host=host, verify=verify, config1_brute=brute,
+         config1_raster_captured_faster_at=faster,
+         config1_slope_rates={f"{t}_{lb}": c1_rates[(t, lb)]
+                              for t, lb in sorted(c1_rates)},
+         launches=launches, seconds=time.perf_counter() - t0)
+    failed = []
+    if not lines["bit_equal"]:
+        failed.append("the captured line's cloud differs")
+    if lines["captured"]["replays_checked"] < survey["first"]:
+        failed.append("lines were not replayed")
+    if not (whole["clouds_bit_equal"] and whole["poses_bit_equal"]
+            and whole["dropped"] == 0 and whole["scans"] == SURVEY_RERUN):
+        failed.append(f"the eager survey differs: {whole}")
+    if not (host["poses_bit_equal"] and not host["state_keys_differing"]):
+        failed.append(f"slam_host differs: {host['state_keys_differing']}")
+    for form in ("eager", "captured"):
+        row = host[form]
+        if not (row["ate_m"] < SLAM_HOST_ATE_BAR_M and row["loops"] > 0):
+            failed.append(f"slam_host {form} ATE or loops")
+    if host["captured"]["replays_checked"] <= 0:
+        failed.append("slam_host replayed no graph")
+    if not (verify["bit_equal"] and verify["plain_nn_bit_equal"]
+            and verify["captured"]["replays_checked"] == 2):
+        failed.append("the verification batch differs, or its plain NN")
+    for label, row in brute.items():
+        bar = C1_BRUTE_BAR_MM if label == "8k" else C1_LARGE_BAR_MM
+        if not (row["bit_equal"]
+                and row["captured"]["replays_checked"] == 1
+                and all(row[f]["recovery_err_mm"] <= bar
+                        for f in ("eager", "captured"))):
+            failed.append(f"config 1 brute {label}")
+    if failed:
+        raise AssertionError(f"compiled_slam failed: {failed}")
+    return launches
 
 
 def phase_calibration():
@@ -5457,7 +5852,11 @@ def main() -> int:
 
     # the rotating unit's live chain and the extrinsic calibration
     t_live = time.perf_counter()
-    live_launches, live_terms_args, live_nn_args = phase_live()
+    live_launches, live_terms_args, live_nn_args, survey = phase_live()
+    # the live SLAM path's captured programs against their eager forms
+    slam_launches = phase_compiled_slam(survey, run["state"], pairs,
+                                        c1_rates)
+    del survey
     with tempfile.TemporaryDirectory() as tmpdir:
         cli_launches = phase_live_cli(tmpdir)
     live_terms_cases, live_nn_cases = phase_live_kernels(live_terms_args,
@@ -5474,6 +5873,7 @@ def main() -> int:
                           live=live_launches["ndt_terms"],
                           live_cli=cli_launches["ndt_terms"],
                           compiled_registration=reg_launches["ndt_terms"],
+                          compiled_slam=slam_launches["ndt_terms"],
                           **dist_terms_launches)
     nn_launches = dict(config4=run["nn_launches"], config1=nn_c1_launches,
                        host_engine_cases=case_launches["nn_search"],
@@ -5482,6 +5882,7 @@ def main() -> int:
                        live_cli=cli_launches["nn_search"],
                        compiled_registration=reg_launches[
                            "nearest_neighbors"],
+                       compiled_slam=slam_launches["nearest_neighbors"],
                        **dist_nn_launches)
 
     emit("total", seconds=time.perf_counter() - t_start)

@@ -732,10 +732,12 @@ def test_captured_register_matches_eager(cuda, case):
 @pytest.mark.parametrize("path", ["kernel", "sparse"])
 def test_captured_host_engine_matches_eager(cuda, path):
     """LidarOdometry's captured registrations (the coarse, then the fine
-    one on the kernel path) against compiled=False over four scans."""
+    one on the kernel path) and map inserts against compiled=False over
+    four scans."""
     import numpy as np
 
     import chip_smoke
+    from tpu_slam_torch.mapping.voxel_map import insert_cloud
     from tpu_slam_torch.pipeline.odometry import LidarOdometry
 
     clouds, gt = _office_scans(cuda, 4)
@@ -743,16 +745,19 @@ def test_captured_host_engine_matches_eager(cuda, path):
     runs = []
     for compiled in (False, True):
         eng = LidarOdometry(cfg, compiled=compiled)
-        eng.warm_up()
+        eng.warm_up(clouds[0])
+        insert_cloud.fallbacks = insert_cloud.incremental = 0
         with chip_smoke.replays_sync_checked() as chk:
             poses, log = eng.run(clouds, init_pose=gt[0])
         runs.append((poses, [(m.iterations, m.matched_fraction)
-                             for m in log.records], chk.calls))
-    (p0, m0, c0), (p1, m1, c1) = runs
-    assert np.array_equal(p0, p1) and m0 == m1
-    # the warm-up captured every graph the run replayed
+                             for m in log.records], chk.calls,
+                     insert_cloud.fallbacks + insert_cloud.incremental))
+    (p0, m0, c0, i0), (p1, m1, c1, i1) = runs
+    assert np.array_equal(p0, p1) and m0 == m1 and i0 == i1 > 1
+    # the warm-up captured every graph the run replayed: the
+    # registrations of each tracked scan and every insert
     assert c0 == 0 and c1 == (len(clouds) - 1) * (2 if path == "kernel"
-                                                  else 1)
+                                                  else 1) + i1
 
 
 def test_captured_jit_step_matches_eager(cuda):
@@ -803,3 +808,239 @@ def test_dense_reanchor_compiled_matches_eager(cuda):
     row = chip_smoke.dense_reanchor_compare()
     assert row["reanchors"] > 0 and row["loops"] > 0
     assert row["poses_bit_equal"] and not row["state_keys_differing"]
+
+
+# ---------------------------------------------------------------------------
+# The live SLAM path's captured programs against their eager forms
+# ---------------------------------------------------------------------------
+
+def _room_pair(device, xi, noise, seed, n=4096):
+    """A cloud on a floor and two walls, and the same cloud moved by
+    exp(xi)^-1 with noise: (source, target, target normals)."""
+    import numpy as np
+
+    from tpu_slam_torch.core import se3
+    from tpu_slam_torch.core.pointcloud import PointCloud
+
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 3, n)
+    u, v = rng.uniform(-4.0, 4.0, (2, n))
+    tgt = np.stack([np.where(k == 1, -4.0, u), np.where(k == 2, -4.0, v),
+                    np.where(k == 0, -1.5, 0.5 * u + 0.2 * v)], axis=1)
+    nrm = np.eye(3)[np.array([2, 0, 1])[k]]
+    T = se3.exp(torch.tensor(xi)).numpy()
+    src = (tgt - T[:3, 3]) @ T[:3, :3] + rng.normal(0, noise, tgt.shape)
+    mask = torch.from_numpy(rng.random(n) < 0.9).to(device)
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(device)
+
+    return (PointCloud(t(src), mask),
+            PointCloud(t(tgt), torch.ones_like(mask)), t(nrm))
+
+
+@pytest.mark.parametrize("plane", [False, True])
+def test_captured_icp_matches_eager(cuda, plane):
+    """The batched icp's CUDA graph (3 pairs: one converging early, the
+    others running to the cap) and one pair's, against the host-exit
+    form: every result bit for bit at each replay, no read or
+    synchronisation in a call, the NN kernel launched every trip."""
+    import chip_smoke
+    from tpu_slam_torch.kernels.nn_search import nearest_neighbors
+    from tpu_slam_torch.registration.icp import ICPParams, icp
+
+    pairs = [_room_pair(cuda, [0.01, 0, 0, 0, 0, 0.005], 0.0, 0),
+             _room_pair(cuda, [0.2, -0.1, 0.05, 0.02, 0.0, 0.1], 0.01, 1),
+             _room_pair(cuda, [-0.3, 0.2, 0.0, 0.0, 0.03, -0.1], 0.02, 2)]
+    batch = [type(pairs[0][0])(torch.stack([p[i].points for p in pairs]),
+                               torch.stack([p[i].mask for p in pairs]))
+             for i in (0, 1)] + [torch.stack([p[2] for p in pairs])]
+    params = ICPParams(max_iterations=12, tolerance=1e-5,
+                       point_to_plane=plane)
+    for src, tgt, nrm in (batch, pairs[1]):
+        nrm = nrm if plane else None
+        eager = icp(src, tgt, params=params, target_normals=nrm,
+                    compiled=False)
+        icp(src, tgt, params=params, target_normals=nrm)      # captures
+        before = chip_smoke.launches_of(nearest_neighbors)
+        with chip_smoke.replays_sync_checked() as chk:
+            got = [icp(src, tgt, params=params, target_normals=nrm)
+                   for _ in range(2)]
+        assert chk.calls == 2
+        assert chip_smoke.launches_of(nearest_neighbors) - before == 24
+        for g in got:
+            assert chip_smoke.same_tensors(eager, g)
+
+
+@pytest.mark.parametrize("case", ["incremental", "overflow", "full"])
+def test_captured_insert_matches_eager(cuda, case):
+    """insert_cloud's graph (the scan's stats and the merge; the overflow
+    flag read after it) against compiled=False: the map bit for bit and
+    the same fallback counts, no synchronisation inside a call."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.kernels.voxel_hash import VoxelGridSpec
+    from tpu_slam_torch.mapping import voxel_map as vm
+
+    rng = np.random.default_rng(0)
+    spec = VoxelGridSpec.centered(leaf=0.25, half_extent=16.0)
+    pts = rng.uniform(-6, 6, (20000, 3)).astype(np.float32)
+    base = vm.insert_cloud(vm.empty_map(16384 if case != "overflow"
+                                        else 9000, device=cuda),
+                           PointCloud.from_points_host(pts[:8000], 8192,
+                                                       device=cuda),
+                           spec, stamp=1.0)
+    scan = PointCloud.from_points_host(pts[4000:10000], 6144, device=cuda)
+    incremental = case != "full"
+    outs, counts = [], []
+    for compiled in (False, True, True, True):
+        vm.insert_cloud.fallbacks = vm.insert_cloud.incremental = 0
+        with chip_smoke.replays_sync_checked() as chk:
+            outs.append(vm.insert_cloud(base, scan, spec, stamp=2.0,
+                                        incremental=incremental,
+                                        compiled=compiled))
+        counts.append((vm.insert_cloud.fallbacks,
+                       vm.insert_cloud.incremental, chk.calls))
+    for o in outs[1:]:
+        assert chip_smoke.same_tensors(outs[0], o)
+    assert counts[0][:2] == counts[1][:2] and counts[3][2] == 1
+    if incremental:
+        assert counts[0][:2] == ((1, 0) if case == "overflow" else (0, 1))
+
+
+def test_captured_keyframe_store_matches_eager(cuda):
+    """The keyframe store's graph (k and e device scalars: one capture for
+    every keyframe) against compiled=False over six stores of a window of
+    four (k = 0, k > 0, a slide): every buffer bit for bit, the normals'
+    eigh after the replay, no synchronisation inside a call."""
+    import dataclasses
+
+    import numpy as np
+
+    import chip_smoke
+    from tpu_slam_torch.core import se3
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.pipeline import slam as slam_mod
+    from tpu_slam_torch.pipeline.config import OdometryConfig, SLAMConfig
+    from tpu_slam_torch.pipeline.state import slam_state_to_numpy
+
+    cfg = SLAMConfig(
+        odometry=OdometryConfig(scan_capacity=2048, map_capacity=4096),
+        keyframe_capacity=4, keyframe_cloud_capacity=1024, edge_capacity=64)
+    runs = []
+    n_graphs = len(slam_mod._stores)
+    for compiled in (False, True):
+        rng = np.random.default_rng(2)
+        system = slam_mod.SLAMSystem(cfg, device=cuda, compiled=compiled)
+        state = system.init_state()
+        states = []
+        with chip_smoke.replays_sync_checked() as chk:
+            for k in range(6):
+                n = 700 if k % 2 == 0 else 1500
+                scan = PointCloud.from_points_host(
+                    rng.uniform(-8, 8, (n, 3)).astype(np.float32),
+                    capacity=n + 16, device=cuda,
+                    attrs=rng.uniform(0, 1, (n, 1)).astype(np.float32))
+                xi = torch.from_numpy(
+                    rng.normal(0, 0.3, 6).astype(np.float32)).to(cuda)
+                state = dataclasses.replace(
+                    state, odom=dataclasses.replace(state.odom,
+                                                    pose=se3.exp(xi)))
+                state = system._store_keyframe(state, scan)
+                states.append(slam_state_to_numpy(state))
+        runs.append((states, chk.calls))
+    (eager, _), (captured, calls) = runs
+    # one graph for each of the two scan sizes
+    assert calls == 6 and len(slam_mod._stores) == n_graphs + 2
+    for a, b in zip(eager, captured):
+        assert sorted(a) == sorted(b)
+        for key in a:
+            assert np.array_equal(np.asarray(a[key]), np.asarray(b[key])), key
+
+
+def _agg_equal(a, b, capacity):
+    """Two aggregator states equal bit for bit, but for the spare row past
+    the capacity (the dropped writes land there in any order)."""
+    import dataclasses
+
+    import chip_smoke
+
+    def cut(s):
+        return dataclasses.replace(s, points=s.points[:capacity],
+                                   intensity=s.intensity[:capacity],
+                                   mask=s.mask[:capacity])
+
+    return chip_smoke.same_tensors(cut(a), cut(b))
+
+
+def test_captured_line_matches_eager_while_another_thread_runs(cuda):
+    """The scan line's graph, captured while a second thread keeps
+    launching work on the device, against the eager chain (the live
+    pipeline's base_from_laser + add_line): every state bit for bit over
+    lines that fill the capacity, an emit, the next scan started; no
+    synchronisation inside a line's call."""
+    import threading
+
+    import numpy as np
+
+    import chip_smoke
+    from tpu_slam_torch.ingest import aggregator as agg_mod
+    from tpu_slam_torch.ingest.frames import FrameChain, SensorModel
+
+    chain = FrameChain(sensor=SensorModel.by_name("LMS100"))
+    L = 1024
+    cfg = agg_mod.AggregatorConfig(capacity=20000, line_length=L)
+    eager = agg_mod.ScanAggregator(cfg, device=cuda, compiled=False)
+    comp = agg_mod.ScanAggregator(cfg, device=cuda)
+    stop = threading.Event()
+
+    def busy():
+        x = torch.ones(1 << 20, device=cuda)
+        while not stop.is_set():
+            x.mul_(1.0000001)
+        torch.cuda.synchronize()
+
+    worker = threading.Thread(target=busy)
+    worker.start()
+    try:
+        se, sc = eager.init_state(), comp.init_state()
+        staged = torch.zeros(agg_mod.staged_size(L), pin_memory=True)
+        rng = np.random.default_rng(7)
+        emits = dropped = 0
+        with chip_smoke.replays_sync_checked() as chk:
+            for k in range(160):
+                ang = np.linspace(-2.3, 2.3, 541)
+                r = rng.uniform(0.3, 8.0, 541)
+                pts = (np.stack([np.cos(ang), np.sin(ang), np.zeros(541)], 1)
+                       * r[:, None]).astype(np.float32)
+                valid = r < 7.5
+                inten = rng.random(541).astype(np.float32)
+                p = np.zeros((L, 3), np.float32)
+                v = np.zeros(L, bool)
+                i = np.zeros(L, np.float32)
+                p[:541], v[:541], i[:541] = pts, valid, inten
+                se = eager.add_line(
+                    se, torch.from_numpy(p).to(cuda),
+                    torch.from_numpy(v).to(cuda),
+                    chain.base_from_laser(k * 0.05, device=cuda),
+                    torch.from_numpy(i).to(cuda))
+                agg_mod.stage_line(staged.numpy(), pts, valid, inten,
+                                   k * 0.05)
+                sc = comp.add_staged_line(
+                    sc, staged.to(cuda, non_blocking=True), chain)
+                # (the comparison's reads free the staging buffer)
+                assert _agg_equal(se, sc, cfg.capacity)
+                dropped = max(dropped, int(sc.dropped))
+                if bool(eager.ready(se)):
+                    assert bool(comp.ready(sc))
+                    ce, se = eager.emit(se)
+                    cc, sc = comp.emit(sc)
+                    assert chip_smoke.same_tensors(ce, cc)
+                    emits += 1
+    finally:
+        stop.set()
+        worker.join()
+    assert emits == 2 and chk.calls == 160 and len(comp._lines) == 1
+    assert dropped > 0

@@ -60,9 +60,11 @@ def sharded_pairwise_icp(mesh: mesh_mod.Mesh,
         t0[b:] = torch.eye(4, dtype=t0.dtype, device=t0.device)
     k = sp.shape[0] // n
     lo, hi = mesh.rank * k, (mesh.rank + 1) * k
+    # the sharded programs run eagerly: a rank's share takes icp's
+    # host-exit form
     res = icp(PointCloud(points=sp[lo:hi], mask=sm[lo:hi]),
               PointCloud(points=tp[lo:hi], mask=tm[lo:hi]),
-              init_T=t0[lo:hi], params=params)
+              init_T=t0[lo:hi], params=params, compiled=False)
     f32 = torch.float32
 
     def gather(x):

@@ -4,7 +4,8 @@ Port of ``tpu_slam.graph.loop_closure``. Candidates come from a dense
 pairwise keyframe-distance matrix on the host (numpy, a copy of the
 reference's code); verification registers every candidate pair in one
 batched ICP solve per direction (``registration.icp`` with a leading pair
-dimension, one NN kernel launch per iteration for all pairs).
+dimension, one NN kernel launch per iteration for all pairs; each solve
+one CUDA graph replay on the card by default).
 """
 
 from __future__ import annotations
@@ -75,7 +76,8 @@ def propose_candidates(positions, n_nodes: int, params: LoopClosureParams
 def verify_candidates(clouds_points: torch.Tensor, clouds_mask: torch.Tensor,
                       poses: torch.Tensor, cand_i: np.ndarray,
                       cand_j: np.ndarray, params: LoopClosureParams,
-                      clouds_normals: Optional[torch.Tensor] = None
+                      clouds_normals: Optional[torch.Tensor] = None,
+                      compiled: bool = True
                       ) -> Tuple[ICPResult, torch.Tensor]:
     """Register candidate pairs in one batch per direction.
 
@@ -86,6 +88,8 @@ def verify_candidates(clouds_points: torch.Tensor, clouds_mask: torch.Tensor,
       cand_i/cand_j: (K,) candidate indices (host arrays).
       clouds_normals: (N, P, 3) per-point normals, required for the
         point-to-plane solve and gate (params.plane_verify).
+      compiled: each direction's solve as ``icp``'s captured program (the
+        default) or its host-exit form (``registration.icp``).
 
     Returns (ICPResult with leading axis K, accept (K,) bool). ICP maps
     source = cloud_j onto target = cloud_i, so result.T is the refined
@@ -105,7 +109,7 @@ def verify_candidates(clouds_points: torch.Tensor, clouds_mask: torch.Tensor,
         icp_params = dataclasses.replace(icp_params, point_to_plane=True)
         tgt_nrm, src_nrm = clouds_normals[ci], clouds_normals[cj]
     res = icp(src, tgt, init_T=init, params=icp_params,
-              target_normals=tgt_nrm)
+              target_normals=tgt_nrm, compiled=compiled)
     # gate on solution quality (match fraction + residual) and on
     # consistency with the current estimate, not on the step-norm flag
     dev_xi = se3.log(se3.inverse(res.T) @ init)
@@ -117,7 +121,7 @@ def verify_candidates(clouds_points: torch.Tensor, clouds_mask: torch.Tensor,
                  <= params.max_correction_r))
     if params.symmetric_verify:
         res_rev = icp(tgt, src, init_T=se3.inverse(res.T), params=icp_params,
-                      target_normals=src_nrm)
+                      target_normals=src_nrm, compiled=compiled)
         cyc = se3.log(res.T @ res_rev.T)
         accept = (accept
                   & (torch.linalg.vector_norm(cyc[:, :3], dim=1)

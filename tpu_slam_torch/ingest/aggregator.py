@@ -19,25 +19,41 @@ Behaviour of the reference:
 
 The reference's state is functional and donated to each step. Here
 ``add_line`` updates the state's buffers in place and returns the state
-with its new scalars; the state passed in must not be used again.
-``emit`` hands the buffers to the cloud and starts a state with new ones,
-so an emitted cloud never changes under its consumer. Each buffer has one
-spare row past the capacity: a kept point whose slot lies past the
-capacity is written there, which is where the reference's
+with its new scalars; the state passed in must not be used again. Each
+buffer has one spare row past the capacity: a kept point whose slot lies
+past the capacity is written there, which is where the reference's
 ``mode="drop"`` scatter throws it away, so no index leaves the buffer and
 no count is read back to the host.
+
+The reference compiles a line into one program. With ``compiled=True``
+(the default) a line is one CUDA graph replay on a CUDA device
+(``utils.capture.CapturedStep``, cached by the inputs' signature): the
+graph updates a state of its own, into which a call copies a state that
+is not the graph's (a new one, after ``init_state``, ``emit`` or
+``request``), and it writes the new scalars into that state too. On the
+CPU the same program runs eagerly. ``add_staged_line`` is the live
+chain's line: points, valid flags, intensities and the encoder angle in
+one float32 buffer (``stage_line``'s layout, one host-to-device copy),
+the line's transform (``FrameChain.base_from_laser``) computed inside the
+program. ``emit`` hands the buffers to the cloud and starts a state with
+new ones (``compiled``: it copies them, since the graph's state is updated
+by the next line), so an emitted cloud never changes under its consumer.
+``compiled=False`` runs the program eagerly, with the same bits.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tpu_slam_torch.core import se3
+from tpu_slam_torch.core.consts import const
 from tpu_slam_torch.core.pointcloud import PAD_COORD, PointCloud
+from tpu_slam_torch.utils.capture import CapturedStep, signature
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,16 +92,46 @@ class AggregatorState:
     dropped: torch.Tensor       # () int32 — points lost to overflow
 
 
+# the scalars a line updates
+_SCALARS = ("write_idx", "angular_distance", "last_quat", "has_last",
+            "dropped")
+
+
+def staged_size(line_length: int) -> int:
+    """Floats in a staged line: points (L, 3), valid, intensity (L each),
+    the encoder angle."""
+    return 5 * line_length + 1
+
+
+def stage_line(out: np.ndarray, points: np.ndarray, valid: np.ndarray,
+               intensity: np.ndarray, angle: float) -> np.ndarray:
+    """Write a line of n <= L beams into ``out`` (a float32 array of
+    ``staged_size(L)``): the beams padded to L with zeros, valid flags as
+    1/0, the angle rounded to float32."""
+    L = (out.shape[0] - 1) // 5
+    n = points.shape[0]
+    out[:] = 0.0
+    out[:3 * n] = points.reshape(-1)
+    out[3 * L:3 * L + n] = valid
+    out[4 * L:4 * L + n] = intensity
+    out[5 * L] = angle
+    return out
+
+
 class ScanAggregator:
     """Creates and advances :class:`AggregatorState` on ``device`` (CUDA
     unless the caller asks for the CPU)."""
 
     def __init__(self, config: AggregatorConfig = AggregatorConfig(),
-                 device=None):
+                 device=None, compiled: bool = True):
         from tpu_slam_torch import default_device
 
         self.config = config
         self.device = default_device(device)
+        self.compiled = compiled
+        # captured lines by (program, its static args, the inputs'
+        # signature); the values hold what the key names by identity
+        self._lines: Dict[Tuple, Tuple] = {}
 
     def init_state(self, armed: bool = True) -> AggregatorState:
         c, dev = self.config, self.device
@@ -98,8 +144,8 @@ class ScanAggregator:
             write_idx=torch.zeros((), dtype=torch.int32, device=dev),
             angular_distance=torch.zeros((), dtype=torch.float32,
                                          device=dev),
-            last_quat=torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float32,
-                                   device=dev),
+            last_quat=const((0.0, 0.0, 0.0, 1.0), torch.float32,
+                            dev).clone(),
             has_last=torch.zeros((), dtype=torch.bool, device=dev),
             creating=torch.full((), armed, dtype=torch.bool, device=dev),
             dropped=torch.zeros((), dtype=torch.int32, device=dev),
@@ -122,8 +168,36 @@ class ScanAggregator:
         if intensity is None:
             intensity = torch.zeros(points.shape[0], dtype=torch.float32,
                                     device=points.device)
-        return _add_line(state, points, valid, T_base_sensor, intensity,
-                         self.config)
+        args = (points, valid, T_base_sensor, intensity)
+        if not self.compiled:
+            return _add_line(state, *args, self.config)
+        return self._run(_line_in_place, state, args, ())
+
+    def add_staged_line(self, state: AggregatorState, staged: torch.Tensor,
+                        chain) -> AggregatorState:
+        """Integrate one line staged by ``stage_line`` (a (staged_size(L),)
+        float32 tensor on the device) at ``chain.base_from_laser`` of its
+        angle, both in one program: the live chain's line. ``state`` is
+        consumed as in ``add_line``."""
+        if not self.compiled:
+            return _staged_line(state, staged, chain, self.config)
+        return self._run(_staged_line, state, (staged,), (chain,))
+
+    def _run(self, program, state, args, static):
+        """``program(state, *args, *static, config)`` updating ``state``:
+        a replay of its captured step on a CUDA device, eager on the
+        CPU."""
+        if state.points.device.type != "cuda":
+            return program(state, *args, *static, self.config)
+        key = (program, tuple(id(s) for s in static),
+               signature((state, tuple(args))))
+        hit = self._lines.get(key)
+        if hit is None:
+            step = CapturedStep(
+                lambda st, *a: program(st, *a, *static, self.config),
+                state, args)
+            hit = self._lines[key] = (step, static)
+        return hit[0](state, *args)
 
     def ready(self, state: AggregatorState) -> torch.Tensor:
         return state.angular_distance > self.config.angular_threshold
@@ -143,6 +217,10 @@ class ScanAggregator:
         c = self.config.capacity
         cloud = PointCloud(points=state.points[:c], mask=state.mask[:c],
                            attrs=state.intensity[:c, None])
+        if self.compiled:
+            cloud = PointCloud(points=cloud.points.clone(),
+                               mask=cloud.mask.clone(),
+                               attrs=cloud.attrs.clone())
         return cloud, self.init_state(armed=self.config.auto_rearm)
 
     def request(self, state: AggregatorState) -> AggregatorState:
@@ -198,3 +276,25 @@ def _add_line(state: AggregatorState, points: torch.Tensor,
         has_last=state.has_last | state.creating,
         dropped=state.dropped + n_dropped,
     )
+
+
+def _line_in_place(state: AggregatorState, points: torch.Tensor,
+                   valid: torch.Tensor, T: torch.Tensor,
+                   intensity: torch.Tensor,
+                   config: AggregatorConfig) -> AggregatorState:
+    """``_add_line`` with the new scalars written into ``state``'s own
+    (a captured line updates one state)."""
+    new = _add_line(state, points, valid, T, intensity, config)
+    for name in _SCALARS:
+        getattr(state, name).copy_(getattr(new, name))
+    return state
+
+
+def _staged_line(state: AggregatorState, staged: torch.Tensor, chain,
+                 config: AggregatorConfig) -> AggregatorState:
+    """A staged line at ``chain.base_from_laser`` of its angle."""
+    L = config.line_length
+    return _line_in_place(state, staged[:3 * L].view(L, 3),
+                          staged[3 * L:4 * L] != 0,
+                          chain.base_from_laser(staged[5 * L]),
+                          staged[4 * L:5 * L], config)

@@ -36,6 +36,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from tpu_slam_torch.core import se3
+from tpu_slam_torch.core.consts import const
 
 # Sensor-model mounting offsets (translation xyz, quaternion xyzw), the
 # constant tables of transformBroadcaster.py:10-19.
@@ -140,7 +141,8 @@ def rotation_link_transform(angle: torch.Tensor) -> torch.Tensor:
     q = se3.quat_from_euler(torch.zeros_like(angle),
                             torch.full_like(angle, -0.5 * math.pi), angle)
     R = se3.quat_to_matrix(q)
-    t = torch.tensor(ROT_LINK_TRANSLATION, dtype=R.dtype, device=R.device)
+    # a device constant: a captured line computes this transform
+    t = const(ROT_LINK_TRANSLATION, R.dtype, R.device)
     return se3.from_rt(R, t.expand(R.shape[:-2] + (3,)))
 
 

@@ -8,10 +8,18 @@ sort-merge (``insert_scan_stats``: concatenate, stable sort, segment sums,
 keep the newest ``capacity`` voxels) or incrementally
 (``insert_scan_stats_incremental``: dense adds on the voxels the scan hits,
 new keys merged in by a gather, the full merge when they do not fit).
-Scrolling-window rebase, eviction, means, covariances, normals, the
-27-neighbourhood moments, the host bulk build (``build_map_host``, numpy,
-float64 sums as the reference has them) and the re-aggregation at a
-coarser leaf (``coarsen_map``) complete the module.
+``insert_cloud`` is the reference's two compiled programs (the scan's
+stats, then the merge whose overflow fallback is a ``lax.cond``): with
+``compiled=True`` (the default) the stats, the merge and its overflow flag
+are one sync-free program, a CUDA graph replay on a CUDA device (cached by
+the inputs' signature and the static arguments) and eager on the CPU; the
+flag is read after it, and in the rare overflow the full merge of the
+untouched old map runs eagerly. ``compiled=False`` runs the same steps
+eagerly. Both give the same bits. Scrolling-window rebase, eviction,
+means, covariances, normals, the 27-neighbourhood moments, the host bulk
+build (``build_map_host``, numpy, float64 sums as the reference has them)
+and the re-aggregation at a coarser leaf (``coarsen_map``) complete the
+module.
 
 Every float segment sum goes through ``core.scatter`` (fixed order on both
 devices); segment maxima are order-free. Sorts are stable, so ties fall as
@@ -21,8 +29,9 @@ the reference's ``argsort(stable=True)`` lets them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,8 +42,11 @@ from tpu_slam_torch.kernels.voxel_hash import (INVALID_KEY, VoxelGridSpec,
                                                neighbor_offsets_keys,
                                                segment_ids_from_sorted_keys,
                                                voxel_keys)
+from tpu_slam_torch.utils.capture import CapturedCall, replay
 
 _INT32_MIN = -2 ** 31
+# the incremental merge's default bound on the new keys of one scan
+NEW_CAP = 8192
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +162,14 @@ def _first_keys(k: torch.Tensor, seg: torch.Tensor, is_start: torch.Tensor,
     return mk[:m]
 
 
+def _stamp_tensor(stamp, device) -> torch.Tensor:
+    """``stamp`` (a number or a tensor) as a float32 scalar on ``device``;
+    a number is filled there, with no copy from the host."""
+    if isinstance(stamp, torch.Tensor):
+        return stamp.to(device=device, dtype=torch.float32)
+    return torch.full((), float(stamp), dtype=torch.float32, device=device)
+
+
 def _stable_order(flag: torch.Tensor) -> torch.Tensor:
     """Stable argsort of a bool tensor (False first)."""
     return torch.argsort(flag.to(torch.uint8), stable=True)
@@ -191,8 +211,7 @@ def insert_scan_stats(vmap: VoxelMap, keys: torch.Tensor,
     segment-reduce equal keys, keep the ``capacity`` voxels with the newest
     stamps (ties in sorted-key order), and restore key order."""
     C = vmap.capacity
-    dev = vmap.keys.device
-    stamp = torch.as_tensor(stamp, dtype=torch.float32, device=dev)
+    stamp = _stamp_tensor(stamp, vmap.keys.device)
     new_stamp = torch.where(keys != INVALID_KEY, stamp, -math.inf)
     all_keys = torch.cat([vmap.keys, keys])
     order = torch.argsort(all_keys, stable=True)
@@ -225,7 +244,7 @@ def insert_scan_stats(vmap: VoxelMap, keys: torch.Tensor,
 def insert_scan_stats_incremental(vmap: VoxelMap, keys: torch.Tensor,
                                   count: torch.Tensor, sum_pts: torch.Tensor,
                                   sum_outer: torch.Tensor, stamp,
-                                  new_cap: int = 8192):
+                                  new_cap: int = NEW_CAP):
     """Incremental merge: dense adds on the map voxels the scan hits, and
     the first ``new_cap`` new keys merged in by a gather (for output slot k,
     the new rows placed at or before k are counted by a binary search over
@@ -233,14 +252,29 @@ def insert_scan_stats_incremental(vmap: VoxelMap, keys: torch.Tensor,
     re-sorted).
 
     When more than ``new_cap`` keys are new, or they would overflow the
-    map, the full merge ``insert_scan_stats`` of the original map runs
-    instead: that choice is one host read of one flag. Returns
+    map, the full merge ``insert_scan_stats`` of the original map is the
+    result instead: that choice is one host read of one flag. Returns
     ``(vmap, overflowed)``.
     """
+    stamp = _stamp_tensor(stamp, vmap.keys.device)
+    merged, overflow = _merge_incremental(vmap, keys, count, sum_pts,
+                                          sum_outer, stamp, new_cap)
+    if bool(overflow.item()):
+        return insert_scan_stats(vmap, keys, count, sum_pts, sum_outer,
+                                 stamp), True
+    return merged, False
+
+
+def _merge_incremental(vmap: VoxelMap, keys: torch.Tensor,
+                       count: torch.Tensor, sum_pts: torch.Tensor,
+                       sum_outer: torch.Tensor, stamp: torch.Tensor,
+                       new_cap: int) -> Tuple[VoxelMap, torch.Tensor]:
+    """The incremental merge and its overflow flag (a () bool tensor),
+    read nowhere: where the flag is set, the merged map is not the result
+    (every index stays in bounds all the same)."""
     C = vmap.capacity
     s_cap = keys.shape[0]
     dev = vmap.keys.device
-    stamp = torch.as_tensor(stamp, dtype=torch.float32, device=dev)
     valid = keys != INVALID_KEY
     occ = vmap.occupied_mask()
 
@@ -260,9 +294,6 @@ def insert_scan_stats_incremental(vmap: VoxelMap, keys: torch.Tensor,
     new_cap = min(new_cap, s_cap)
     n_new = is_new.sum(dtype=torch.int32)
     overflow = (n_new > new_cap) | (occ.sum(dtype=torch.int32) + n_new > C)
-    if bool(overflow.item()):
-        return insert_scan_stats(vmap, keys, count, sum_pts, sum_outer,
-                                 stamp), True
 
     # the first new_cap new rows, already in key order
     order = _stable_order(~is_new)[:new_cap]
@@ -289,19 +320,53 @@ def insert_scan_stats_incremental(vmap: VoxelMap, keys: torch.Tensor,
         sum_pts=pick(sum_pts[order], new_sum),
         sum_outer=pick(sum_outer[order], new_outer),
         stamp=pick(torch.where(nk != INVALID_KEY, stamp, -math.inf),
-                   new_stamp)), False
+                   new_stamp)), overflow
+
+
+def _insert_program(vmap: VoxelMap, cloud: PointCloud, stamp: torch.Tensor,
+                    spec: VoxelGridSpec, incremental: bool):
+    """``insert_cloud``'s sync-free program: the full merge's map, or the
+    incremental merge's map, its overflow flag and the scan's stats."""
+    stats = scan_to_voxel_stats(cloud, spec)
+    if not incremental:
+        return insert_scan_stats(vmap, *stats, stamp)
+    merged, overflow = _merge_incremental(vmap, *stats, stamp, NEW_CAP)
+    return merged, overflow, stats
+
+
+# the captured insert_cloud programs, by their inputs' signature and static
+# args
+_inserts: Dict[Tuple, CapturedCall] = {}
 
 
 def insert_cloud(vmap: VoxelMap, cloud: PointCloud, spec: VoxelGridSpec,
-                 stamp=0.0, incremental: bool = True) -> VoxelMap:
+                 stamp=0.0, incremental: bool = True,
+                 compiled: bool = True) -> VoxelMap:
     """Integrate a (map-frame) cloud into the map. With ``incremental``,
     ``insert_cloud.fallbacks`` counts the inserts that took the full
-    merge and ``insert_cloud.incremental`` those that did not."""
-    keys, cnt, ssum, souter = scan_to_voxel_stats(cloud, spec)
-    if not incremental:
-        return insert_scan_stats(vmap, keys, cnt, ssum, souter, stamp)
-    vmap, overflowed = insert_scan_stats_incremental(vmap, keys, cnt, ssum,
-                                                     souter, stamp)
+    merge and ``insert_cloud.incremental`` those that did not.
+    ``compiled``: see the module docstring."""
+    if not compiled:
+        keys, cnt, ssum, souter = scan_to_voxel_stats(cloud, spec)
+        if not incremental:
+            return insert_scan_stats(vmap, keys, cnt, ssum, souter, stamp)
+        vmap, overflowed = insert_scan_stats_incremental(
+            vmap, keys, cnt, ssum, souter, stamp)
+    else:
+        dev = vmap.keys.device
+        program = functools.partial(_insert_program, spec=spec,
+                                    incremental=incremental)
+        args = (vmap, PointCloud(cloud.points, cloud.mask),
+                _stamp_tensor(stamp, dev))
+        out = (replay(_inserts, program, args, static=(spec, incremental))
+               if dev.type == "cuda" else program(*args))
+        if not incremental:
+            return out
+        merged, overflow, stats = out
+        # the one read of the flag, as the eager merge makes it
+        overflowed = bool(overflow.item())
+        vmap = (insert_scan_stats(vmap, *stats, args[2]) if overflowed
+                else merged)
     if overflowed:
         insert_cloud.fallbacks += 1
     else:

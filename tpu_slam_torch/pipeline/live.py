@@ -14,14 +14,19 @@ side), or interpolated at the line's arrival time from a sampler thread's
 history (``encoder_rate_hz``), the reference's TF lookup
 (m3d_aggregator.cpp:261-262).
 
-Per line the consumer makes three host-to-device copies (points, valid
-flags, intensities), computes the line's transform on the device and
-reads one flag back (is the 3D scan complete?), in the reference's order.
-Everything the chain builds or initialises at first use (the native
-library, the kernels of the SLAM path, its captured graphs, the device's
-context) is done before the stream opens: the feeder holds ``feeder_slots`` lines (2.56 s
-of an LMS100 at 50 Hz), and a first step that waited on a compiler would
-overflow it and drop real lines.
+Per line the consumer stages the line (points, valid flags, intensities
+and its encoder angle) in one pinned buffer, copies it to the device once
+and runs the line's program (its transform and the aggregation) as one
+CUDA graph replay (``ScanAggregator.add_staged_line``), then reads one
+flag back (is the 3D scan complete?), in the reference's order; that read
+also orders the next line's staging after this line's copy.
+``compiled=False`` runs the line eagerly from three copies (points, valid
+flags, intensities), with the same bits. Everything the chain builds or
+initialises at first use (the native library, the kernels of the SLAM
+path, its captured graphs, the line's graph, the device's context) is
+done before the stream opens: the feeder holds ``feeder_slots`` lines
+(2.56 s of an LMS100 at 50 Hz), and a first step that waited on a
+compiler would overflow it and drop real lines.
 """
 
 from __future__ import annotations
@@ -35,7 +40,9 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tpu_slam_torch.ingest.aggregator import AggregatorConfig, ScanAggregator
+from tpu_slam_torch.ingest.aggregator import (AggregatorConfig,
+                                              ScanAggregator, stage_line,
+                                              staged_size)
 from tpu_slam_torch.ingest.frames import (EncoderHistory, FrameChain,
                                           SensorModel, front_laser_transform)
 from tpu_slam_torch.ingest.native import NativeFeeder, NativeLms
@@ -71,11 +78,13 @@ class LivePipeline:
 
     ``slam_state`` is the SLAM state after the newest scan (``on_scan``
     may read it); after ``run``, ``lines`` counts the lines consumed and
-    ``dropped_lines`` the lines the full feeder ring refused.
+    ``dropped_lines`` the lines the full feeder ring refused. ``compiled``
+    (the default): each line one staged copy and one graph replay (see the
+    module docstring); the SLAM system has its own.
     """
 
     def __init__(self, config: LiveConfig, chain: Optional[FrameChain] = None,
-                 slam=None, device=None):
+                 slam=None, device=None, compiled: bool = True):
         from tpu_slam_torch import default_device
 
         if config.aggregator.line_length != config.line_capacity:
@@ -92,8 +101,14 @@ class LivePipeline:
         self.chain = chain or FrameChain(
             sensor=SensorModel.by_name(config.sensor_model))
         self.slam = slam
+        self.compiled = compiled
         self.aggregator = ScanAggregator(config.aggregator,
-                                         device=self.device)
+                                         device=self.device,
+                                         compiled=compiled)
+        # the staging buffer of a line (pinned on a CUDA device)
+        self._staging = torch.zeros(
+            staged_size(config.line_capacity), dtype=torch.float32,
+            pin_memory=self.device.type == "cuda")
         self._dirs = None            # (L, 3) beam direction table
         self._meta0 = None
         self._producer_done = threading.Event()
@@ -159,33 +174,31 @@ class LivePipeline:
 
     def warm_up(self) -> None:
         """Everything built or initialised at first use, done now: one
-        aggregator step on the device (its context and kernels), the
-        CUDA libraries of the SLAM path built and loaded, the host
-        engine's captured registrations (pipeline.odometry) and the
-        captured graph solve (graph.pose_graph) captured."""
+        line on the device (its context and kernels; the line's graph
+        captured), the CUDA libraries of the SLAM path built and loaded,
+        and the SLAM system's graphs for the aggregator's clouds captured
+        (``SLAMSystem.warm_up``)."""
         L = self.config.line_capacity
         dev = self.device
-        warm = self.aggregator.add_line(
-            self.aggregator.init_state(),
-            torch.zeros((L, 3), dtype=torch.float32, device=dev),
-            torch.zeros(L, dtype=torch.bool, device=dev),
-            self.chain.base_from_laser(0.0, device=dev),
-            torch.zeros(L, dtype=torch.float32, device=dev))
+        if self.compiled:
+            warm = self.aggregator.add_staged_line(
+                self.aggregator.init_state(),
+                self._staging.to(dev, non_blocking=True), self.chain)
+        else:
+            warm = self.aggregator.add_line(
+                self.aggregator.init_state(),
+                torch.zeros((L, 3), dtype=torch.float32, device=dev),
+                torch.zeros(L, dtype=torch.bool, device=dev),
+                self.chain.base_from_laser(0.0, device=dev),
+                torch.zeros(L, dtype=torch.float32, device=dev))
         bool(self.aggregator.ready(warm))
         if self.slam is not None and dev.type == "cuda":
             from tpu_slam_torch.kernels import _build
             for name in SLAM_KERNELS:
                 _build.load(name)
-            if not self.slam._dense:
-                self.slam.odometry.warm_up()
-            if (self.slam.compiled
-                    and self.slam.config.graph.solver != "dense"):
-                from tpu_slam_torch.graph.pose_graph import (captured_solve,
-                                                             empty_graph)
-                cfg = self.slam.config
-                captured_solve(empty_graph(cfg.keyframe_capacity,
-                                           cfg.edge_capacity, device=dev),
-                               cfg.graph)
+            # an emitted cloud's shapes: points, mask, intensity as attrs
+            cloud, _ = self.aggregator.emit(self.aggregator.init_state())
+            self.slam.warm_up(cloud)
 
     def run(self, lms: NativeLms,
             angle_source: Callable[[], float],
@@ -272,15 +285,24 @@ class LivePipeline:
                 dirs = self._directions(n)
                 pts = dirs * ranges[:, None]
                 valid = (ranges >= cfg.range_min) & (ranges <= cfg.range_max)
-                pts_p = np.zeros((L, 3), np.float32)
-                val_p = np.zeros((L,), bool)
-                int_p = np.zeros((L,), np.float32)
-                pts_p[:n], val_p[:n], int_p[:n] = pts, valid, intens
-                T = self.chain.base_from_laser(float(angle), device=dev)
-                agg_state = self.aggregator.add_line(
-                    agg_state, torch.from_numpy(pts_p).to(dev),
-                    torch.from_numpy(val_p).to(dev), T,
-                    torch.from_numpy(int_p).to(dev))
+                if self.compiled:
+                    # the staging buffer is free again: the last line's
+                    # ready read came after its copy
+                    stage_line(self._staging.numpy(), pts, valid, intens,
+                               float(angle))
+                    agg_state = self.aggregator.add_staged_line(
+                        agg_state, self._staging.to(dev, non_blocking=True),
+                        self.chain)
+                else:
+                    pts_p = np.zeros((L, 3), np.float32)
+                    val_p = np.zeros((L,), bool)
+                    int_p = np.zeros((L,), np.float32)
+                    pts_p[:n], val_p[:n], int_p[:n] = pts, valid, intens
+                    T = self.chain.base_from_laser(float(angle), device=dev)
+                    agg_state = self.aggregator.add_line(
+                        agg_state, torch.from_numpy(pts_p).to(dev),
+                        torch.from_numpy(val_p).to(dev), T,
+                        torch.from_numpy(int_p).to(dev))
                 self.lines += 1
                 if bool(self.aggregator.ready(agg_state)):
                     cloud, agg_state = self.aggregator.emit(agg_state)

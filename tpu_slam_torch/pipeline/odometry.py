@@ -18,15 +18,18 @@ the engine's device; the loop and its decisions live on the host. A scan:
 
 The NDT field is cached and rebuilt only on the scan after the map
 changed (an insert, an eviction or a rebase); ``field_builds`` counts the
-builds. Each NDT registration (the coarse one, then the fine one) is the
-reference's compiled ``ndt_register``: with ``compiled=True`` (the
-default) one CUDA graph replay on a CUDA device
-(``registration.ndt.compiled_register``) and its sync-free form on the
-CPU; ``compiled=False`` runs the host-exit form, whose LM loops read their
+builds. The reference's compiled programs on the step each run, with
+``compiled=True`` (the default), as one CUDA graph replay on a CUDA
+device and in their sync-free form on the CPU: each NDT registration (the
+coarse one, then the fine one; ``registration.ndt.compiled_register``),
+the ICP flavours' solve (``registration.icp.icp``) and the map insert
+(``mapping.voxel_map.insert_cloud``, whose overflow flag is read after
+it). ``compiled=False`` runs their host-exit forms, whose loops read their
 exits back. Both give the same bits; the gating read of step 4 stays, as
-it does in the reference's host engine. ICP runs eagerly. ``scan_max_range`` and ``insert_downsampled`` belong to the dense
-engine: this engine registers the whole downsampled scan and inserts the
-raw cloud, as the reference does.
+it does in the reference's host engine. ``scan_max_range`` and
+``insert_downsampled`` belong to the dense engine: this engine registers
+the whole downsampled scan and inserts the raw cloud, as the reference
+does.
 """
 
 from __future__ import annotations
@@ -218,28 +221,36 @@ class LidarOdometry:
                              mask=vmap.occupied_mask() & n_valid).sanitize()
             params = dataclasses.replace(cfg.icp, point_to_plane=True)
         res = icp(scan, tgt, init_T=init_T, params=params,
-                  target_normals=normals)
+                  target_normals=normals, compiled=self.compiled)
         return res.T, res.iterations, res.error, res.matched_fraction
 
-    def warm_up(self) -> None:
-        """Capture the NDT registrations' graphs for this config's shapes
-        now (a compiled NDT engine on a CUDA device; otherwise nothing):
-        one registration of an empty scan against the empty map's fields,
-        as the first tracked scan would run it."""
-        if not (self.compiled and self.device.type == "cuda"
-                and self.config.method == "ndt"):
+    def warm_up(self, cloud: Optional[PointCloud] = None) -> None:
+        """Capture the engine's graphs for this config's shapes now (a
+        compiled engine on a CUDA device; otherwise nothing): the NDT
+        registrations, by one registration of an empty scan against the
+        empty map's fields, as the first tracked scan would run it; with
+        ``cloud`` (a cloud of the stream's shapes; its values are not
+        used), the map insert of such a cloud."""
+        if not (self.compiled and self.device.type == "cuda"):
             return
         state = self.init_state()
-        n = self.config.scan_capacity
-        empty = PointCloud(
-            points=torch.zeros((n, 3), dtype=torch.float32,
-                               device=self.device),
-            mask=torch.zeros(n, dtype=torch.bool, device=self.device))
-        builds = self.field_builds
-        self._register(self.downsample(empty),
-                       self._to_local(state.pose, state.map_offset),
-                       state.vmap)
-        self.field_builds = builds          # counts the scans' builds only
+        if self.config.method == "ndt":
+            n = self.config.scan_capacity
+            empty = PointCloud(
+                points=torch.zeros((n, 3), dtype=torch.float32,
+                                   device=self.device),
+                mask=torch.zeros(n, dtype=torch.bool, device=self.device))
+            builds = self.field_builds
+            self._register(self.downsample(empty),
+                           self._to_local(state.pose, state.map_offset),
+                           state.vmap)
+            self.field_builds = builds      # counts the scans' builds only
+        if cloud is not None:
+            counts = (insert_cloud.fallbacks, insert_cloud.incremental)
+            insert_cloud(state.vmap, cloud.transform(state.pose),
+                         self.map_spec)
+            # they count the scans' inserts only
+            insert_cloud.fallbacks, insert_cloud.incremental = counts
 
     def step(self, state: OdometryState, cloud: PointCloud
              ) -> Tuple[OdometryState, ScanMetrics]:
@@ -273,7 +284,7 @@ class LidarOdometry:
         Gaussian)."""
         T0_loc = self._to_local(state.pose, state.map_offset)
         vmap = insert_cloud(state.vmap, cloud.transform(T0_loc),
-                            self.map_spec, stamp=0.0)
+                            self.map_spec, stamp=0.0, compiled=self.compiled)
         occ = state.occ
         if self.config.use_occupancy:
             occ, vmap, _ = self._maintain_occupancy(occ, vmap, T0_loc, scan)
@@ -328,7 +339,8 @@ class LidarOdometry:
         if (state.scan_index % cfg.insert_every == 0 and not rejected
                 and frac_h >= cfg.min_insert_fraction):
             vmap = insert_cloud(vmap, cloud.transform(T), self.map_spec,
-                                stamp=float(state.scan_index))
+                                stamp=float(state.scan_index),
+                                compiled=self.compiled)
             field = None                # the map changed
 
         occ = state.occ

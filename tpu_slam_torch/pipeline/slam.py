@@ -17,12 +17,18 @@ and their outcomes to ``loop_debug``.
 (odometry, keyframe store, loop verification, graph solve), each closed by
 a device synchronisation so the time lands in the stage that spent it.
 
-With ``compiled`` (the default) the dense engine steps through its
-captured step, the host engine's NDT registrations replay their captured
-graphs, and the graph solves run captured on a CUDA device (see
-``pipeline.odometry_dense``, ``pipeline.odometry`` and
-``graph.pose_graph``); ``compiled=False`` runs them all eagerly, with the
-same bits.
+With ``compiled`` (the default) the reference's compiled programs run as
+CUDA graph replays on a CUDA device and in their sync-free forms on the
+CPU: the dense engine's step, the host engine's registrations and map
+insert (see ``pipeline.odometry_dense`` and ``pipeline.odometry``), the
+keyframe store (the reference's ``_store_kf_device``: the scan padded or
+cut to P rows, its rows, the normals' covariances, the descriptor, the
+node and the odometry edge, with the keyframe index k and edge slot e as
+device scalars, so one capture serves every keyframe; the normals' eigh,
+which reads its status back, runs after the replay), each direction of
+the loop verification's batched ICP and the graph solves (see
+``registration.icp`` and ``graph.pose_graph``). ``compiled=False`` runs
+them all eagerly, with the same bits.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from tpu_slam_torch.core.pointcloud import PAD_COORD, PointCloud
 from tpu_slam_torch.graph.loop_closure import (propose_candidates,
                                                verify_candidates)
 from tpu_slam_torch.graph.pose_graph import (PoseGraph, add_edge,
+                                             captured_solve,
                                              drop_node_prefix, empty_graph,
                                              n_edges, optimize_pose_graph)
 from tpu_slam_torch.graph.scan_context import (propose_sc_candidates,
@@ -52,7 +59,10 @@ from tpu_slam_torch.pipeline.metrics import MetricsLog, ScanMetrics, Stopwatch
 from tpu_slam_torch.pipeline.odometry import LidarOdometry, OdometryState
 from tpu_slam_torch.pipeline.odometry_dense import (DenseLidarOdometry,
                                                     DenseOdomState)
-from tpu_slam_torch.registration.normals import estimate_normals
+from tpu_slam_torch.registration.normals import (estimate_normals,
+                                                 normal_covariances,
+                                                 normals_from_covariances)
+from tpu_slam_torch.utils.capture import CapturedCall, replay
 
 STAGES = ("odometry", "keyframe", "verify", "graph")
 
@@ -91,6 +101,65 @@ def _set_row(buf: torch.Tensor, k: int, val: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _put_row(buf: torch.Tensor, k: torch.Tensor,
+             val: torch.Tensor) -> torch.Tensor:
+    """``buf`` with the row at ``k`` (a (1,) long tensor on its device)
+    replaced, out of place."""
+    return buf.clone().index_copy_(0, k, val[None])
+
+
+def _keyframe_rows(scan_ds: PointCloud, P: int):
+    """The scan's first P points, mask and intensity (0 without attrs),
+    padded to P rows."""
+    pts_in, msk_in = scan_ds.points, scan_ds.mask
+    inten_in = (scan_ds.attrs[:, 0] if scan_ds.attrs is not None
+                else torch.zeros_like(msk_in, dtype=torch.float32))
+    n_in = pts_in.shape[0]
+    if n_in >= P:
+        return pts_in[:P], msk_in[:P], inten_in[:P]
+    return (torch.cat([pts_in, pts_in.new_full((P - n_in, 3), PAD_COORD)]),
+            torch.cat([msk_in, msk_in.new_zeros(P - n_in)]),
+            torch.cat([inten_in, inten_in.new_zeros(P - n_in)]))
+
+
+def _store_program(kf, g, k, e, scan_ds: PointCloud, pose, last_kf_pose, *,
+                   plane_verify, use_sc, sc, odom_edge_info):
+    """The keyframe store's sync-free program (the reference's
+    ``_store_kf_device``). ``kf``: the (points, mask, intensity, desc)
+    buffers; ``g``: the graph's (poses, edge_i, edge_j, edge_T, edge_info,
+    edge_mask); ``k``, ``e``: (1,) long tensors. The edge (k-1, k) is
+    written at slot e only where k > 0 (else slot e keeps its values).
+    Returns the new ``kf`` and ``g``, the pose written, and the normals'
+    covariances (None without ``plane_verify``)."""
+    kf_points, kf_mask, kf_intensity, kf_desc = kf
+    poses, ei, ej, eT, einfo, emask = g
+    pts, msk, inten = _keyframe_rows(scan_ds, kf_points.shape[1])
+    cov = normal_covariances(pts, msk) if plane_verify else None
+    if use_sc:
+        kf_desc = _put_row(kf_desc, k, scan_context(
+            PointCloud(points=pts, mask=msk, attrs=inten[:, None]), sc))
+    pose = pose.clone()
+    has_edge = k > 0
+
+    def edge_row(buf, val):
+        keep = has_edge.reshape((1,) + (1,) * (buf.dim() - 1))
+        return _put_row(buf, e, torch.where(keep, val,
+                                            buf.index_select(0, e))[0])
+
+    g = (_put_row(poses, k, pose), edge_row(ei, k - 1), edge_row(ej, k),
+         edge_row(eT, se3.inverse(last_kf_pose) @ pose),
+         edge_row(einfo, odom_edge_info * torch.eye(
+             6, dtype=torch.float32, device=pose.device)),
+         edge_row(emask, True))
+    kf = (_put_row(kf_points, k, pts), _put_row(kf_mask, k, msk),
+          _put_row(kf_intensity, k, inten), kf_desc)
+    return kf, g, pose, cov
+
+
+# the captured keyframe stores, by their inputs' signature and static args
+_stores: Dict[Tuple, CapturedCall] = {}
+
+
 def _flat_keyframes(poses, kf_points, kf_mask, n: int) -> PointCloud:
     """Every keyframe cloud at its optimized pose as one (K*P,) cloud, the
     keyframes from n on masked out."""
@@ -103,13 +172,13 @@ def _flat_keyframes(poses, kf_points, kf_mask, n: int) -> PointCloud:
 
 
 def _rebuild_map_batched(poses, kf_points, kf_mask, n: int, *, spec,
-                         capacity):
+                         capacity, compiled: bool = True):
     """Sparse-map rebuild from keyframes at optimized poses: one
     ``insert_cloud`` of every live keyframe point into an empty map, all
     stamped n (recency restarts at the rebuild)."""
     return insert_cloud(empty_map(capacity, device=kf_points.device),
                         _flat_keyframes(poses, kf_points, kf_mask, n), spec,
-                        stamp=float(n))
+                        stamp=float(n), compiled=compiled)
 
 
 def _rebuild_grid_batched(poses, kf_points, kf_mask, n: int, center, *,
@@ -184,6 +253,25 @@ class SLAMSystem:
             n_keyframes=0,
             last_kf_pose=torch.eye(4, **f32))
 
+    def warm_up(self, cloud: PointCloud) -> None:
+        """Capture now what a stream of clouds of ``cloud``'s shapes (its
+        values are not used) would capture at its first scans (a compiled
+        system on a CUDA device; otherwise nothing): the host engine's
+        registrations and map insert, the graph solve and, on the host
+        engine, the keyframe store. The verification's ICP graphs are
+        captured at their first batch of each size."""
+        if not (self.compiled and self.device.type == "cuda"):
+            return
+        cfg = self.config
+        if cfg.graph.solver != "dense":
+            captured_solve(empty_graph(cfg.keyframe_capacity,
+                                       cfg.edge_capacity, device=self.device),
+                           cfg.graph)
+        if not self._dense:
+            self.odometry.warm_up(cloud)
+            self._store_keyframe(self.init_state(),
+                                 self.odometry.downsample(cloud))
+
     # -- keyframe policy --------------------------------------------------
 
     def _is_keyframe(self, state: SLAMState,
@@ -255,18 +343,10 @@ class SLAMSystem:
             state = self._slide_window(state)
         k = state.n_keyframes
         e = n_edges(state.graph)
+        if self.compiled:
+            return self._store_compiled(state, scan_ds, k, e)
         P = state.kf_points.shape[1]
-        pts_in, msk_in = scan_ds.points, scan_ds.mask
-        inten_in = (scan_ds.attrs[:, 0] if scan_ds.attrs is not None
-                    else torch.zeros_like(msk_in, dtype=torch.float32))
-        n_in = pts_in.shape[0]
-        if n_in >= P:
-            pts, msk, inten = pts_in[:P], msk_in[:P], inten_in[:P]
-        else:
-            pts = torch.cat([pts_in, pts_in.new_full((P - n_in, 3),
-                                                     PAD_COORD)])
-            msk = torch.cat([msk_in, msk_in.new_zeros(P - n_in)])
-            inten = torch.cat([inten_in, inten_in.new_zeros(P - n_in)])
+        pts, msk, inten = _keyframe_rows(scan_ds, P)
 
         kf_normals, kf_desc = state.kf_normals, state.kf_desc
         if cfg.loop.plane_verify:
@@ -298,6 +378,45 @@ class SLAMSystem:
             kf_intensity=_set_row(state.kf_intensity, k, inten),
             kf_normals=kf_normals, kf_desc=kf_desc, n_keyframes=k + 1,
             last_kf_pose=pose, last_kf_pose_np=pose.cpu().numpy())
+
+    def _store_compiled(self, state: SLAMState, scan_ds: PointCloud, k: int,
+                        e: int) -> SLAMState:
+        """``_store_keyframe`` as ``_store_program``: one graph replay on
+        a CUDA device (eager on the CPU), then the normals' eigh."""
+        loop = self.config.loop
+        g = state.graph
+        dev = self.device
+
+        def index(i):
+            return torch.full((1,), i, dtype=torch.long, device=dev)
+
+        args = ((state.kf_points, state.kf_mask, state.kf_intensity,
+                 state.kf_desc),
+                (g.poses, g.edge_i, g.edge_j, g.edge_T, g.edge_info,
+                 g.edge_mask), index(k), index(e), scan_ds, state.odom.pose,
+                state.last_kf_pose)
+        static = dict(plane_verify=loop.plane_verify,
+                      use_sc=loop.use_scan_context, sc=loop.sc,
+                      odom_edge_info=self.config.odom_edge_info)
+
+        def program(*a):
+            return _store_program(*a, **static)
+
+        kf, rows, pose, cov = (
+            replay(_stores, program, args, static=tuple(static.items()))
+            if dev.type == "cuda" else program(*args))
+        kf_normals = state.kf_normals
+        if loop.plane_verify:
+            kf_normals = _set_row(kf_normals, k, normals_from_covariances(
+                cov, kf[1][k]))
+        graph = dataclasses.replace(
+            g, poses=rows[0], n_nodes=k + 1, edge_i=rows[1], edge_j=rows[2],
+            edge_T=rows[3], edge_info=rows[4], edge_mask=rows[5])
+        return dataclasses.replace(
+            state, graph=graph, kf_points=kf[0], kf_mask=kf[1],
+            kf_intensity=kf[2], kf_normals=kf_normals, kf_desc=kf[3],
+            n_keyframes=k + 1, last_kf_pose=pose,
+            last_kf_pose_np=pose.cpu().numpy())
 
     # -- loop closure -----------------------------------------------------
 
@@ -355,7 +474,7 @@ class SLAMSystem:
                 state.kf_points, state.kf_mask, state.graph.poses, ci, cj,
                 cfg.loop,
                 clouds_normals=(state.kf_normals if cfg.loop.plane_verify
-                                else None))
+                                else None), compiled=self.compiled)
             accept_np = accept.cpu().numpy()
         tried = dict(state.tried_pairs)
         for a, b, ok in zip(ci, cj, accept_np):
@@ -435,7 +554,8 @@ class SLAMSystem:
             cfg = self.config.odometry
             vmap = _rebuild_map_batched(
                 graph.poses, state.kf_points, state.kf_mask, n,
-                spec=self.odometry.map_spec, capacity=cfg.map_capacity)
+                spec=self.odometry.map_spec, capacity=cfg.map_capacity,
+                compiled=self.compiled)
             # the cached NDT field is stale after a rebuild
             odom = dataclasses.replace(odom, vmap=vmap, field=None)
         elif self.config.rebuild_map_after_loop:

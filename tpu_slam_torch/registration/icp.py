@@ -11,19 +11,21 @@ a pair by its size.
 
 ``icp`` takes one pair or a batch of B pairs (a leading dimension on the
 clouds, the normals and ``init_T``), where the reference ``jax.vmap``s its
-``while_loop``. The batch keeps a per-pair ``active`` mask and runs until
-no pair is active: a finished pair's T, iterations, error and matched
-fraction stop changing, so each pair ends exactly where its own loop would.
-The loop is host-driven: one read of the mask per iteration.
+``while_loop``. The batch keeps a per-pair ``active`` mask: a finished
+pair's T, iterations, error and matched fraction stop changing, so each
+pair ends exactly where its own loop would.
 
-``icp_raster`` is the reference's compiled program (one ``jax.jit`` with
-two ``while_loop`` stages): with ``compiled=True`` (the default) its
-sync-free form, each stage a fixed trip count that freezes the solve on
-the device once the reference's loop condition fails, replays as one CUDA
-graph on a CUDA device (cached by the inputs' signature and the static
-arguments) and runs eagerly on the CPU; ``compiled=False`` runs the
-host-exit form, which reads the step norm back each iteration. Both count
-the reference's iterations and give the same bits.
+Both solves are the reference's compiled programs (``icp`` one
+``jax.jit`` with a ``while_loop``, ``icp_raster`` one with two). With
+``compiled=True`` (the default) each runs its sync-free form, a fixed trip
+count (``icp``: max_iterations trips; ``icp_raster``: each stage's bound)
+that freezes a solve on the device once the reference's loop condition
+fails: one CUDA graph replay on a CUDA device (cached by the inputs'
+signature and the static arguments), eagerly on the CPU.
+``compiled=False`` runs the host-exit form, which reads the mask (``icp``)
+or the step norm (``icp_raster``) back after every iteration and stops
+when nothing is left to do. Both count the reference's iterations and
+give the same bits.
 """
 
 from __future__ import annotations
@@ -107,18 +109,46 @@ def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                                           x.shape[-1]))
 
 
+# the captured icp programs, by their inputs' signature and static args
+_batches: Dict[Tuple, CapturedCall] = {}
+
+
 def icp(source: PointCloud, target: PointCloud,
         init_T: Optional[torch.Tensor] = None,
         params: ICPParams = ICPParams(),
-        target_normals: Optional[torch.Tensor] = None) -> ICPResult:
+        target_normals: Optional[torch.Tensor] = None,
+        compiled: bool = True) -> ICPResult:
     """Register ``source`` onto ``target``; returns T with T @ source ~ target.
 
     One pair: points (N, 3) / (M, 3), init_T (4, 4). A batch: (B, N, 3) /
-    (B, M, 3), init_T (B, 4, 4); the result then has a leading B. For
-    point-to-plane, pass per-target-point normals of the target's shape.
+    (B, M, 3), init_T (B, 4, 4) or (4, 4); the result then has a leading B.
+    For point-to-plane, pass per-target-point normals of the target's
+    shape. ``compiled``: see the module docstring.
     """
     if params.point_to_plane and target_normals is None:
         raise ValueError("point_to_plane ICP requires target_normals")
+    if not compiled or source.points.device.type != "cuda":
+        return _icp_body(source, target, init_T, target_normals, params,
+                         sync_free=compiled)
+
+    def body(src, tgt, T0, nrm):
+        return _icp_body(src, tgt, T0, nrm, params, sync_free=True)
+
+    return replay(_batches, body,
+                  (PointCloud(source.points, source.mask),
+                   PointCloud(target.points, target.mask), init_T,
+                   target_normals),
+                  static=(params,), counters=(nearest_neighbors,))
+
+
+def _icp_body(source: PointCloud, target: PointCloud,
+              init_T: Optional[torch.Tensor],
+              target_normals: Optional[torch.Tensor], params: ICPParams,
+              sync_free: bool) -> ICPResult:
+    """``icp``'s solve. Both forms gate every update on the per-pair
+    ``active`` mask; the host-exit form reads it back after each iteration
+    and stops once no pair is active, the sync-free form runs all
+    max_iterations trips."""
     single = source.points.dim() == 2
     src = source.sanitize()
     src_pts = src.points[None] if single else src.points
@@ -166,7 +196,7 @@ def icp(source: PointCloud, target: PointCloud,
         frac = torch.where(active, inlier.sum(dim=-1, dtype=dtype) / n_valid,
                            frac)
         active = active & (dx > params.tolerance)
-        if not bool(active.any()):
+        if not sync_free and not bool(active.any()):
             break
     res = ICPResult(T=T, iterations=it, error=err, matched_fraction=frac,
                     converged=dx <= params.tolerance)
@@ -363,16 +393,18 @@ def _icp_raster_body(source: PointCloud, target: PointCloud,
 def icp_auto(source: PointCloud, target: PointCloud,
              init_T: Optional[torch.Tensor] = None,
              params: ICPParams = ICPParams(),
-             crossover: int = AUTO_CROSSOVER, **raster_kwargs) -> ICPResult:
+             crossover: int = AUTO_CROSSOVER, compiled: bool = True,
+             **raster_kwargs) -> ICPResult:
     """Size-routed pair ICP: brute-force ``icp`` under ``crossover`` points
-    (the source's capacity), ``icp_raster`` (compiled, its default) at or
-    above it.
+    (the source's capacity), ``icp_raster`` at or above it, each compiled
+    (its default).
 
     The brute tier's NN pass is O(N^2) an iteration, the raster tier's
     pass ~O(N) plus a binning a stage. ``raster_kwargs`` (dims, leaf,
     origin_world, axis_perm, qs, qt) configure the raster tier.
     """
     if source.capacity < crossover:
-        return icp(source, target, init_T=init_T, params=params)
+        return icp(source, target, init_T=init_T, params=params,
+                   compiled=compiled)
     return icp_raster(source, target, init_T=init_T, params=params,
-                      **raster_kwargs)
+                      compiled=compiled, **raster_kwargs)

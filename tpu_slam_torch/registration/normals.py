@@ -5,12 +5,18 @@ neighbours from the Gram-form distance matrix (one (P, P) matrix product,
 cheap at keyframe sizes), their covariance, and its smallest eigenvector.
 Runs once per keyframe at store time. The normal's sign is arbitrary:
 point-to-plane residuals and Jacobians do not depend on it.
+
+``estimate_normals`` is ``normal_covariances`` (sync-free: a keyframe
+store's CUDA graph computes it) then ``normals_from_covariances``, whose
+``torch.linalg.eigh`` reads its solver's status back to the host (it has
+no ``_ex`` form) and so runs outside a graph.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpu_slam_torch.core.consts import const
 from tpu_slam_torch.core.pointcloud import PAD_COORD
 
 
@@ -21,6 +27,14 @@ def estimate_normals(points: torch.Tensor, mask: torch.Tensor,
     Invalid points (mask False) sit at PAD_COORD and never enter a valid
     point's neighbourhood; their own normals are (0, 0, 1).
     """
+    return normals_from_covariances(normal_covariances(points, mask, k),
+                                     mask)
+
+
+def normal_covariances(points: torch.Tensor, mask: torch.Tensor,
+                       k: int = 16) -> torch.Tensor:
+    """(P, 3, 3) covariance of each point's k nearest neighbours (itself
+    included), finite everywhere."""
     pts = torch.where(mask[:, None], points, PAD_COORD)
     sq = torch.sum(pts * pts, dim=1)
     d2 = sq[:, None] + sq[None, :] - 2.0 * (pts @ pts.T)
@@ -32,11 +46,16 @@ def estimate_normals(points: torch.Tensor, mask: torch.Tensor,
     # padded/degenerate neighbourhoods get an identity-ish covariance so
     # eigh stays finite
     cov = cov + 1e-12 * eye
-    cov = torch.where(torch.isfinite(cov), cov, eye)
+    return torch.where(torch.isfinite(cov), cov, eye)
+
+
+def normals_from_covariances(cov: torch.Tensor,
+                             mask: torch.Tensor) -> torch.Tensor:
+    """(P, 3) unit eigenvectors of the smallest eigenvalues; (0, 0, 1)
+    where ``mask`` is False."""
     vecs = torch.linalg.eigh(cov).eigenvectors       # ascending eigenvalues
     nrm = vecs[:, :, 0]
     nrm = nrm / torch.clamp(torch.linalg.vector_norm(nrm, dim=1,
                                                      keepdim=True), min=1e-12)
-    up = torch.zeros(3, dtype=nrm.dtype, device=nrm.device)
-    up[2] = 1.0
+    up = const((0.0, 0.0, 1.0), nrm.dtype, nrm.device)
     return torch.where(mask[:, None], nrm, up)

@@ -2,7 +2,9 @@
 
 The port's counterpart of ``jax.jit`` for its compiled programs: the dense
 engine's step, the pose-graph solve, ``ndt_register`` (the host engine's
-registrations, config 3), ``JitLidarOdometry``'s step and ``icp_raster``.
+registrations, config 3), ``JitLidarOdometry``'s step, ``icp_raster`` and
+the batched ``icp``, the map insert, the keyframe store and the live
+chain's scan line.
 ``Captured(fn, device)`` runs ``fn`` once on a side stream (the warm-up
 PyTorch asks for: the libraries' handles and workspaces and the nvcc build
 of a kernel come up there), then records it into a ``torch.cuda.CUDAGraph``
@@ -17,7 +19,10 @@ returns copies of the outputs. ``replay(cache, fn, args, static)`` keeps
 one for each ``signature((args, static))``: the structure, each tensor's
 shape, strides, dtype and device (a kernel's choice, and so its bits, may
 follow the strides) and the other values (specs, parameters, window
-dims).
+dims). ``CapturedStep(fn, state, args)`` is for a ``fn(state, *args)``
+that updates ``state``'s tensors in place (the aggregator's line): the
+graph's state is a static copy that each call returns, and a call copies
+a state in only when it is not the graph's own.
 
 A capture or a replay that fails raises; nothing falls back to running
 ``fn`` eagerly. The capture is ``thread_local``: another thread (the live
@@ -182,3 +187,35 @@ def replay(cache: Dict, fn: Callable, args: Sequence, static: Any = (),
     if cap is None:
         cap = cache[key] = CapturedCall(fn, args, counters=counters)
     return cap(*args)
+
+
+class CapturedStep:
+    """``fn(state, *args)``, which updates ``state``'s tensors in place, as
+    one CUDA graph over static copies of ``state`` and ``args``. A call
+    copies its arguments in, and its state too unless the state is the
+    one the graph updates (what the last call returned), replays, and
+    returns that state: its tensors change at the next call."""
+
+    def __init__(self, fn: Callable, state, args: Sequence):
+        self.state = with_tensors(state,
+                                  [t.clone() for t in tensors_of(state)])
+        self.inputs = [t.clone() for t in tensors_of(args)]
+        template = with_tensors(tuple(args), self.inputs)
+        # the warm-up run updates the static state; the first call copies
+        # the caller's state in (it is never the graph's own)
+        self.graph = Captured(lambda: fn(self.state, *template),
+                              self.inputs[0].device)
+
+    def __call__(self, state, *args):
+        srcs = tensors_of(args)
+        if len(srcs) != len(self.inputs):
+            raise ValueError("a captured step's arguments must have the "
+                             "signature it was captured for")
+        for dst, src in zip(self.inputs, srcs):
+            dst.copy_(src)
+        mine, theirs = tensors_of(self.state), tensors_of(state)
+        if any(a is not b for a, b in zip(mine, theirs)):
+            for dst, src in zip(mine, theirs):
+                dst.copy_(src)
+        self.graph.replay()
+        return self.state
