@@ -9,8 +9,9 @@ bag replay through the CLI (bench config 6), the distributed layer
 (bench config 5: the sharded map and NDT; the sharded dense step, ICP
 batch and pose-graph solvers; the heartbeat), the rotating unit's live
 chain (CoLa-A stream -> native poller -> aggregator -> SLAM, and run_live)
-with the live SLAM path's compiled programs against their eager forms,
-and the extrinsic calibration.
+with the live SLAM path's compiled programs, the default SLAM's loop
+sweep and the host engine's options against their eager forms, and the
+extrinsic calibration.
 
     python3 chip_smoke.py
 
@@ -50,14 +51,15 @@ Phases, each printing one JSON line:
                step and on the host-exit step from fresh engines (poses,
                iterations and matched fractions bit-equal; scans/s synced
                and with sync_every=0, p50/p95, the capture's seconds and
-               memory; 6 steps profiled: kernel and graph launches, the
-               device's kernels, host reads and synchronisations (none in
-               a captured step), idle share), config 4 eager through its
-               first accepting sweep against the slam run there (poses and
-               state bit-equal, stage seconds), and the sweep's and the
-               final refinement's graph solves on the run's final graph
-               (seconds, launches a GN iteration, bit-equal; the
-               refinement's first 10 of its 40 GN iterations)
+               memory; 6 captured steps profiled: kernel and graph
+               launches, the device's kernels, host reads and
+               synchronisations (none), idle share), config 4 eager
+               through its first accepting sweep against the slam run
+               there (poses and state bit-equal, stage seconds), and the
+               sweep's and the final refinement's graph solves on the
+               run's final graph (seconds, launches a GN iteration,
+               bit-equal; the refinement's first 4 of its 40 GN
+               iterations)
   kernels      nn_search against its plain version: a verification batch
                of the slam run's own keyframes (6 pairs x 4,096 points), a
                seeded edge case (ties, padding, ragged sizes, one pair) and
@@ -137,14 +139,14 @@ Phases, each printing one JSON line:
                against their eager forms (compiled=False) in this call:
                config 3's coarse-then-fine registration, LidarOdometry on
                config 2's route, JitLidarOdometry's jit_arc and
-               jit_config2, config 1's raster tier at 8k-256k, and the
-               dense SLAM's default re-anchor over the office circle; all
+               jit_config2, config 1's raster tier at 8k-256k; all
                bit-equal, every captured call run under sync-debug "error"
                (0 reads or syncs); p50 ms, scans/s and registrations/s,
                terms calls, launches, reads, H2D copies and idle share on
-               both forms; the input copies' us, the captures' seconds
-               and memory; the crossover of pair_icp's rates (the raster
-               tier captured against the brute tier)
+               both forms (the host odometry's profile captured only);
+               the input copies' us, the captures' seconds and memory;
+               the crossover of pair_icp's rates (the raster tier
+               captured against the brute tier)
   config6      bench_bag_replay: VLP-16 packets along config 2's route ->
                pcap -> revolutions -> rosbag with TF ground truth -> the
                port's run_odometry CLI (--engine dense, the bench's --set
@@ -199,15 +201,32 @@ Phases, each printing one JSON line:
                "error": the survey's first capture's lines (the cloud bit
                for bit; launches, graph launches, H2D copies, reads and
                host ms a line, the line's own work alone, unpaced
-               lines/s), its first 4 captures through SLAMSystem() (clouds
-               and poses bit for bit against the paced run; a step's
-               costs), slam_host's office circle (poses and final state
+               lines/s), its first 2 captures through SLAMSystem() (clouds
+               and poses bit for bit against the paced run), slam_host's
+               office circle (poses and final state
                bit for bit; a step's costs over a loop sweep), config 4's
                verification batch (6 pairs x 4,096, also with the NN's
                plain version in place of the kernel; ms, NN calls and its
                us a call inside the graph), config 1's brute tier at
                8k-256k (registrations/s, recovery errors, syncs); and where
                the captured raster tier leads the brute tier
+  compiled_host the default SLAM's loop sweep and the host engine's
+               options against compiled=False, every captured call under
+               sync-debug "error": the survey's 32 clouds through
+               SLAMSystem() at SLAMConfig()'s capacities (poses and final
+               state bit for bit, and against the live run; each accepted
+               sweep's step by stage: candidates, verify, graph,
+               re-anchor; the map rebuild's and sc_distance's graphs
+               captured once, by the warm-up, and replayed every sweep;
+               on the state after each sweep, the rebuild and sc_distance
+               alone: ms, launches, graph launches, reads), the dense
+               SLAM's default re-anchor (the windows' rebuild, one graph a
+               window, one captured step), and config 2's first 8 scans
+               on the host engine with the pyramid (factor 2), occupancy
+               (64 steps, 65,536 voxels) and deskew on (poses, metrics,
+               map and grid bit for bit; step p50, launches, graph
+               launches, reads and idle share a step; coarsen_map,
+               occupancy_maintain and deskew_cloud alone, both forms)
   live_cli     run_live.main against the fake LMS100 and a fake motor
                controller for 2 scans: its JSON lines; the speed commanded,
                then the unit stopped
@@ -1242,7 +1261,7 @@ def phase_slam_resume(run, clouds, tmpdir):
 # ---------------------------------------------------------------------------
 
 COMPILED_WARM = 3              # steps before the profiled ones
-COMPILED_REFINE_GN = 10        # the refinement's GN iterations compared
+COMPILED_REFINE_GN = 4         # the refinement's GN iterations compared
 COMPILED_PROFILED = 6          # steps profiled, and timed unprofiled
 
 
@@ -1310,8 +1329,10 @@ def steps_profile(engine, state, clouds):
 def compiled_config2(clouds, gt):
     """Config 2 on the eager host-exit step and on the captured step, fresh
     engines: poses, iterations and matched fractions bit-equal, rates
-    synced and with sync_every=0, p50/p95, the profile of a few steps, the
-    one-off capture and the memory."""
+    synced and with sync_every=0, p50/p95, the one-off capture and the
+    memory; the captured step's profile of a few steps (the eager step's
+    is in PERF.md and not repeated; its first run is its timed one: it
+    captures nothing)."""
     import torch
 
     from tpu_slam_torch.kernels.ndt_terms import ndt_terms
@@ -1328,20 +1349,24 @@ def compiled_config2(clouds, gt):
         poses, log = engine.run(clouds, init_pose=gt[0])
         first_s = time.perf_counter() - t0
         first_launches = launches_of(ndt_terms)
-        engine.metrics = MetricsLog()
-        t0 = time.perf_counter()
-        poses, log = engine.run(clouds, init_pose=gt[0])
-        dt = time.perf_counter() - t0
+        dt = first_s
+        if compiled:
+            engine.metrics = MetricsLog()
+            t0 = time.perf_counter()
+            poses, log = engine.run(clouds, init_pose=gt[0])
+            dt = time.perf_counter() - t0
         t0 = time.perf_counter()
         poses0, _ = engine.run(clouds, init_pose=gt[0], sync_every=0)
         dt0 = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        state = engine.init_state(clouds[0], gt[0])
-        for c in clouds[1:COMPILED_WARM]:
-            state = engine.step(state, c)
-        prof = steps_profile(
-            engine, state,
-            clouds[COMPILED_WARM:COMPILED_WARM + COMPILED_PROFILED])
+        prof = None
+        if compiled:
+            state = engine.init_state(clouds[0], gt[0])
+            for c in clouds[1:COMPILED_WARM]:
+                state = engine.step(state, c)
+            prof = steps_profile(
+                engine, state,
+                clouds[COMPILED_WARM:COMPILED_WARM + COMPILED_PROFILED])
         summary = log.summary()
         graphs = [g.graph for g in engine.graphs.values()]
         keep[label] = dict(
@@ -1464,10 +1489,15 @@ def phase_compiled(clouds, gt, run, c4_clouds, c4_gt):
     read back inside a captured step, fails."""
     t0 = time.perf_counter()
     c2, c2_same = compiled_config2(clouds, gt)
+    t1 = time.perf_counter()
     c4 = compiled_config4(run, c4_clouds, c4_gt)
+    t2 = time.perf_counter()
     solves = compiled_graph_solves(run["state"].graph)
+    t3 = time.perf_counter()
     emit("compiled", config2=c2, config2_bit_equal=c2_same, config4=c4,
-         graph_solves=solves, seconds=time.perf_counter() - t0)
+         graph_solves=solves, seconds=t3 - t0,
+         part_seconds=dict(config2=t1 - t0, config4=t2 - t1,
+                           graph_solves=t3 - t2))
     if not all(c2_same.values()):
         raise AssertionError(f"config 2: captured and eager differ: "
                              f"{c2_same}")
@@ -2815,6 +2845,21 @@ def host_ms(fn, n):
     return float(np.percentile(out, 50))
 
 
+class PartTimer:
+    """``parts(name, fn, *args)`` runs ``fn(*args)`` and adds its wall
+    seconds to ``parts.seconds[name]``: where a phase's time goes."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def __call__(self, name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            self.seconds[name] = time.perf_counter() - t0
+
+
 def same_tensors(a, b) -> bool:
     """Every tensor of two results or states equal (and equal ints)."""
     import torch
@@ -2938,8 +2983,9 @@ def compiled_config3(w):
 def compiled_host_odometry(clouds, gt):
     """Config 2's route through LidarOdometry on both forms from fresh
     engines: poses, iterations and matched fractions bit-equal, ATE,
-    scans/s, step p50/p95, launches, then six steps replayed under the
-    profiler (reads, launches, idle share) each."""
+    scans/s, step p50/p95, launches; then six captured steps replayed
+    under the profiler (reads, launches, idle share; the eager step's is
+    in PERF.md and not repeated)."""
     import torch
 
     from tpu_slam_torch.kernels.ndt_terms import ndt_terms
@@ -2976,7 +3022,8 @@ def compiled_host_odometry(clouds, gt):
             replays_checked=chk.calls,
             profile=host_step_profile(
                 eng, kept[HOST_PROFILE[0] - 1],
-                clouds[HOST_PROFILE[0]:HOST_PROFILE[1]]))
+                clouds[HOST_PROFILE[0]:HOST_PROFILE[1]])
+            if compiled else None)
     e, c = keep["eager"], keep["captured"]
     return dict(eager=out["eager"], captured=out["captured"],
                 bit_equal=dict(poses=bool(np.array_equal(e[0], c[0])),
@@ -3084,9 +3131,10 @@ def dense_reanchor_cfg():
 def dense_reanchor_case(compiled, device="cuda"):
     """The dense SLAM over slam_host's office circle with the default
     re-anchor after each accepted loop sweep: poses, the final state as
-    numpy, loops, re-anchors, keyframes and the captured steps' count."""
+    numpy, loops, re-anchors, keyframes, the captured steps' count and the
+    windows' rebuild graphs (captured in the run, replays of each)."""
+    from tpu_slam_torch.pipeline import slam as slam_mod
     from tpu_slam_torch.pipeline.metrics import ate_rmse
-    from tpu_slam_torch.pipeline.slam import SLAMSystem
     from tpu_slam_torch.pipeline.state import slam_state_to_numpy
 
     cfg = dense_reanchor_cfg()
@@ -3095,7 +3143,8 @@ def dense_reanchor_case(compiled, device="cuda"):
                              "default re-anchor and map rebuild")
     clouds, gt = office_arc(REANCHOR_SCANS, n_azimuth=240, arc_fraction=1.0,
                             device=device)
-    slam = SLAMSystem(cfg, device=device, compiled=compiled)
+    slam = slam_mod.SLAMSystem(cfg, device=device, compiled=compiled)
+    before = cache_replays(slam_mod._grid_rebuilds)
     state = slam.init_state(gt[0])
     poses, reanchors = [], 0
     t0 = time.perf_counter()
@@ -3110,7 +3159,8 @@ def dense_reanchor_case(compiled, device="cuda"):
                 loops=state.n_loop_closures, reanchors=reanchors,
                 keyframes=state.n_keyframes,
                 ate_m=ate_rmse(poses, gt, align=False),
-                captured_steps=len(slam.odometry.graphs))
+                captured_steps=len(slam.odometry.graphs),
+                grid_rebuild=cache_use(slam_mod._grid_rebuilds, before))
 
 
 def dense_reanchor_compare(device="cuda"):
@@ -3121,7 +3171,7 @@ def dense_reanchor_compare(device="cuda"):
     differ = sorted(k for k in e["state"] if not np.array_equal(
         np.asarray(e["state"][k]), np.asarray(c["state"].get(k))))
     row = {k: c[k] for k in ("loops", "reanchors", "keyframes", "ate_m",
-                             "captured_steps")}
+                             "captured_steps", "grid_rebuild")}
     return dict(row, eager_seconds=e["seconds"], captured_seconds=c["seconds"],
                 poses_bit_equal=bool(np.array_equal(e["poses"], c["poses"])),
                 state_keys_differing=differ)
@@ -3143,21 +3193,21 @@ def phase_compiled_registration(clouds, gt, w3, c1_pairs, c1_rates):
     kernels = (ndt_terms, icp_terms_raster, nearest_neighbors)
     reset_launches(*kernels)
     t0 = time.perf_counter()
-    c3 = compiled_config3(w3)
-    host = compiled_host_odometry(clouds, gt)
-    jit = compiled_jit_cases(clouds, gt)
-    c1 = compiled_config1(c1_pairs)
+    parts = PartTimer()
+    c3 = parts("config3", compiled_config3, w3)
+    host = parts("host_odometry", compiled_host_odometry, clouds, gt)
+    jit = parts("jit", compiled_jit_cases, clouds, gt)
+    c1 = parts("config1", compiled_config1, c1_pairs)
     labels = [label for _, label in C1_SIZES]
     faster = [lb for lb in labels
               if c1_rates[("raster", lb)] > c1_rates[("brute", lb)]]
-    reanchor = dense_reanchor_compare()
     launches = {k.__name__: launches_of(k) for k in kernels}
     emit("compiled_registration", config3=c3, host_odometry=host, jit=jit,
          config1=c1, config1_raster_captured_faster_at=faster,
          config1_rates={f"{t}_{lb}": c1_rates[(t, lb)]
                         for t, lb in sorted(c1_rates)},
-         dense_reanchor=reanchor, launches=launches,
-         seconds=time.perf_counter() - t0)
+         launches=launches, seconds=time.perf_counter() - t0,
+         part_seconds=parts.seconds)
     failed = []
     if not c3["bit_equal"]:
         failed.append("config 3 captured and eager differ")
@@ -3186,10 +3236,6 @@ def phase_compiled_registration(clouds, gt, w3, c1_pairs, c1_rates):
             failed.append(f"config 1 {label} recovery error")
         if row["captured"]["replays_checked"] != 2:
             failed.append(f"config 1 {label} did not replay both graphs")
-    if not (reanchor["poses_bit_equal"]
-            and not reanchor["state_keys_differing"]
-            and reanchor["reanchors"] > 0):
-        failed.append(f"dense re-anchor: {reanchor}")
     if failed:
         raise AssertionError(f"compiled_registration failed: {failed}")
     return launches
@@ -3986,6 +4032,7 @@ SURVEY_STOPS = 32
 SURVEY_RADIUS = 2.5
 SURVEY_STEP = 1.1 * math.pi / 148.5
 SURVEY_RERUN = 4                # captures of the unpaced rerun
+SURVEY_EAGER = 2                # captures of compiled_slam's eager rerun
 # loop.min_index_gap of the survey's SLAMConfig: a keyframe comes every
 # second stop (0.98 m), ~16 in all, and the default gap of 20 keyframes
 # never passes; 12 lets the closing pair (keyframes 0 and 14, 1.91 m
@@ -4273,7 +4320,7 @@ def stream(pipe, telegrams, angles, period_s=1.0 / LMS_HZ, gated=False,
     return results, clouds, poses, dt, dev.max_late_s
 
 
-def live_line_profile(telegrams, angles, compiled=True):
+def live_line_profile(telegrams, angles):
     """The consumer's cost a line: one capture streamed (gated) through
     the chain with no SLAM, under torch.profiler: kernel and graph
     launches, H2D copies, device-to-host reads, device busy time and the
@@ -4284,8 +4331,7 @@ def live_line_profile(telegrams, angles, compiled=True):
 
     from tpu_slam_torch.pipeline.live import LiveConfig, LivePipeline
 
-    pipe = LivePipeline(LiveConfig(start_angle_deg=LIVE_START_DEG),
-                        compiled=compiled)
+    pipe = LivePipeline(LiveConfig(start_angle_deg=LIVE_START_DEG))
     n = len(telegrams)
 
     def run():
@@ -4432,7 +4478,7 @@ def phase_live():
     nn_args = verification_batch(state, cfg, pairs=pairs)
     survey_run = dict(telegrams=telegrams, angles=angles, clouds=clouds,
                       poses=poses, first=first, per_line=per_line,
-                      line_clouds=line_clouds, rerun_lines=k,
+                      line_clouds=line_clouds, stops=stops,
                       per_step=per_step, seconds=dt,
                       keyframes=state.n_keyframes,
                       loops=state.n_loop_closures, ate_m=ate)
@@ -4629,12 +4675,24 @@ def compiled_lines(survey):
     """The survey's first capture (its lines, no SLAM) through
     LivePipeline on compiled=False, against the captured line's run of
     the live phase (its lines checked under sync-debug "error"): the
-    cloud bit for bit, each form's costs a line, unpaced lines/s (1 / its
-    host time a line, the stream's own costs included) and the host us of
-    the line's device work alone."""
+    cloud bit for bit, unpaced lines/s (1 / the host time a line, the
+    stream's own costs included) and the host us of the line's device work
+    alone, each form; the captured line's costs (the eager line's are in
+    PERF.md and not profiled again)."""
+    import torch
+
+    from tpu_slam_torch.pipeline.live import LiveConfig, LivePipeline
+
     n = survey["first"]
-    clouds, eager = live_line_profile(survey["telegrams"][:n],
-                                      survey["angles"][:n], compiled=False)
+    pipe = LivePipeline(LiveConfig(start_angle_deg=LIVE_START_DEG),
+                        compiled=False)
+    t0 = time.perf_counter()
+    _, clouds, _, _, _ = stream(pipe, survey["telegrams"][:n],
+                                survey["angles"][:n], gated=True,
+                                max_lines=n)
+    torch.cuda.synchronize()
+    eager = dict(lines=pipe.lines,
+                 host_ms_per_line=(time.perf_counter() - t0) * 1e3 / n)
     captured = dict(survey["per_line"])
     out = {}
     for form, row in (("eager", eager), ("captured", captured)):
@@ -4649,13 +4707,13 @@ def compiled_lines(survey):
 
 
 def compiled_survey(survey):
-    """The survey's first SURVEY_RERUN captures again, unpaced, with the
+    """The survey's first SURVEY_EAGER captures again, unpaced, with the
     chain and SLAMSystem() on compiled=False, against the paced captured
-    run of the live phase: clouds and poses bit for bit; the eager SLAM
-    step's costs beside the captured one's (scans 2 and 3 replayed from
-    the state after scan 1, as the live phase measures them). (The loop
-    sweeps' verification, captured against eager, is slam_host's, config
-    4's and the verification batch's.)"""
+    run of the live phase: clouds and poses bit for bit. (Every scan of
+    the survey runs through SLAMSystem() on both forms in compiled_host,
+    with the eager step's costs; the loop sweeps' verification, captured
+    against eager, is slam_host's, config 4's and the verification
+    batch's.)"""
     import torch
 
     from tpu_slam_torch.pipeline.live import LiveConfig, LivePipeline
@@ -4664,17 +4722,12 @@ def compiled_survey(survey):
     pipe = LivePipeline(LiveConfig(start_angle_deg=LIVE_START_DEG),
                         slam=SLAMSystem(survey_slam_config(),
                                         compiled=False), compiled=False)
-    n = SURVEY_RERUN
-    k = survey["rerun_lines"]
+    n = SURVEY_EAGER
+    k = int(np.searchsorted(survey["stops"], n))
     _, clouds, poses, dt, _ = stream(pipe, survey["telegrams"][:k],
                                      survey["angles"][:k], gated=True,
                                      max_scans=n)
     poses = torch.stack(poses).cpu().numpy()
-    slam = pipe.slam
-    s = slam.init_state()
-    for c in clouds[:2]:
-        s, _ = slam.step(s, c)
-    per_step = host_step_profile(slam, s, clouds[2:4])
     state = pipe.slam_state
     return dict(
         scans=len(clouds), lines=pipe.lines, dropped=pipe.dropped_lines,
@@ -4683,15 +4736,16 @@ def compiled_survey(survey):
         clouds_bit_equal=len(clouds) == n and all(
             same_tensors(a, b) for a, b in zip(clouds, survey["clouds"])),
         poses_bit_equal=bool(np.array_equal(poses, survey["poses"][:n])),
-        per_step=dict(eager=per_step, captured=survey["per_step"]))
+        per_step=dict(captured=survey["per_step"]))
 
 
 def compiled_slam_host():
     """slam_host's office circle (40 scans, SLAMSystem() on the host
     engine) on both forms: poses and the final state bit for bit, every
-    captured call under sync-debug "error"; each form's costs a step over
-    scans 20-23 (one loop sweep among them) replayed from the state after
-    scan 20."""
+    captured call under sync-debug "error"; the captured form's costs a
+    step over scans 20-23 (one loop sweep among them) replayed from the
+    state after scan 20 (the eager form's are in PERF.md and not
+    repeated)."""
     import torch
 
     from tpu_slam_torch.pipeline.metrics import ate_rmse
@@ -4720,7 +4774,8 @@ def compiled_slam_host():
             ate_m=ate_rmse(poses[form], gt, align=False),
             keyframes=state.n_keyframes, loops=state.n_loop_closures,
             replays_checked=chk.calls,
-            per_step=host_step_profile(slam, snap, clouds[k:k + 4]))
+            per_step=host_step_profile(slam, snap, clouds[k:k + 4])
+            if compiled else None)
     differ = sorted(key for key in states["eager"] if not np.array_equal(
         np.asarray(states["eager"][key]),
         np.asarray(states["captured"].get(key))))
@@ -4838,25 +4893,27 @@ def phase_compiled_slam(survey, c4_state, c1_pairs, c1_rates):
     kernels = (ndt_terms, nearest_neighbors)
     reset_launches(*kernels)
     t0 = time.perf_counter()
-    lines = compiled_lines(survey)
-    whole = compiled_survey(survey)
-    host = compiled_slam_host()
-    verify = compiled_verify(c4_state)
-    brute, faster = compiled_brute(c1_pairs, c1_rates)
+    parts = PartTimer()
+    lines = parts("lines", compiled_lines, survey)
+    whole = parts("survey", compiled_survey, survey)
+    host = parts("slam_host", compiled_slam_host)
+    verify = parts("verify", compiled_verify, c4_state)
+    brute, faster = parts("brute", compiled_brute, c1_pairs, c1_rates)
     launches = {k.__name__: launches_of(k) for k in kernels}
     emit("compiled_slam", device=nvidia_smi_line(), lines=lines,
          survey=whole, slam_host=host, verify=verify, config1_brute=brute,
          config1_raster_captured_faster_at=faster,
          config1_slope_rates={f"{t}_{lb}": c1_rates[(t, lb)]
                               for t, lb in sorted(c1_rates)},
-         launches=launches, seconds=time.perf_counter() - t0)
+         launches=launches, seconds=time.perf_counter() - t0,
+         part_seconds=parts.seconds)
     failed = []
     if not lines["bit_equal"]:
         failed.append("the captured line's cloud differs")
     if lines["captured"]["replays_checked"] < survey["first"]:
         failed.append("lines were not replayed")
     if not (whole["clouds_bit_equal"] and whole["poses_bit_equal"]
-            and whole["dropped"] == 0 and whole["scans"] == SURVEY_RERUN):
+            and whole["dropped"] == 0 and whole["scans"] == SURVEY_EAGER):
         failed.append(f"the eager survey differs: {whole}")
     if not (host["poses_bit_equal"] and not host["state_keys_differing"]):
         failed.append(f"slam_host differs: {host['state_keys_differing']}")
@@ -4878,6 +4935,274 @@ def phase_compiled_slam(survey, c4_state, c1_pairs, c1_rates):
             failed.append(f"config 1 brute {label}")
     if failed:
         raise AssertionError(f"compiled_slam failed: {failed}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The default SLAM's loop sweep and the host engine's options (the
+# after-loop rebuilds, sc_distance, coarsen_map, occupancy_maintain,
+# deskew_cloud) against their eager forms
+# ---------------------------------------------------------------------------
+
+HOST_OPTION_SCANS = 8          # config 2's scans on both forms, options on
+HOST_OPTION_PROFILED = (4, 8)  # the scans replayed under the profiler
+PROGRAM_TIMED = 10             # calls of a program alone timed, each form
+
+
+def cache_replays(cache):
+    """The replays so far of each CapturedCall of ``cache`` (by key)."""
+    return {k: c.graph.replays for k, c in cache.items()}
+
+
+def cache_use(cache, before):
+    """How ``cache`` was used since ``before`` (``cache_replays``): the
+    graphs captured meanwhile; for each graph that ran, its replays, its
+    capture's seconds, the bytes it holds and its private pool's reserved
+    bytes."""
+    used = [(c.graph, c.graph.replays - before.get(k, 0))
+            for k, c in cache.items() if c.graph.replays > before.get(k, 0)]
+    return dict(captured=len(set(cache) - set(before)),
+                replays=[n for _, n in used],
+                capture_s=[g.capture_s for g, _ in used],
+                held_bytes=[g.held_bytes for g, _ in used],
+                pool_bytes=[g.pool_bytes for g, _ in used])
+
+
+def program_pair(eager_fn, captured_fn):
+    """One program alone on both forms (``captured_fn`` replays its graph,
+    captured before): the results bit for bit (the captured calls under
+    sync-debug "error"); each form's p50 ms over PROGRAM_TIMED calls and
+    run_profile's costs a call (launches, graph launches, reads, idle
+    share)."""
+    res, row = {}, {}
+    for form, fn in (("eager", eager_fn), ("captured", captured_fn)):
+        fn()
+        with replays_sync_checked() as chk:
+            res[form] = fn()
+        row[form] = dict(ms_p50=host_ms(fn, PROGRAM_TIMED),
+                         replays_checked=chk.calls, **run_profile(fn, 1))
+    row["bit_equal"] = same_tensors(res["eager"], res["captured"])
+    return row
+
+
+def survey_sweeps(survey):
+    """The survey's 32 clouds through SLAMSystem() (survey_slam_config:
+    SLAMConfig()'s capacities, 512 keyframes x 8,192 points, a 131,072-voxel
+    map) on both forms from fresh systems, the captured one warmed up as
+    the live chain warms it: poses and the final state bit for bit (and
+    the poses against the live run's); for each accepted loop sweep the
+    step's ms by stage (candidates, verify, graph, re-anchor), both forms;
+    the map rebuild's and sc_distance's graphs captured during the run (0:
+    the warm-up captured them) and the replays of each graph used; then,
+    on the state after each accepted sweep, the rebuild (program 1) and
+    sc_distance (program 3) alone, captured against eager."""
+    import torch
+
+    from tpu_slam_torch.graph import scan_context as sc_mod
+    from tpu_slam_torch.mapping.voxel_map import insert_cloud
+    from tpu_slam_torch.pipeline import slam as slam_mod
+    from tpu_slam_torch.pipeline.state import slam_state_to_numpy
+
+    clouds = survey["clouds"]
+    caches = dict(map_rebuild=slam_mod._map_rebuilds,
+                  sc_distance=sc_mod._distances)
+    out, poses, states, swept = {}, {}, {}, []
+    for form, compiled in (("eager", False), ("captured", True)):
+        slam = slam_mod.SLAMSystem(survey_slam_config(), compiled=compiled)
+        t0 = time.perf_counter()
+        slam.warm_up(clouds[0])
+        warm_s = time.perf_counter() - t0
+        before = {k: cache_replays(c) for k, c in caches.items()}
+        state, ps, sweeps = slam.init_state(), [], []
+        fallbacks = insert_cloud.fallbacks
+        with replays_sync_checked() as chk:
+            for i, c in enumerate(clouds):
+                stages = dict(slam.sweep_seconds)
+                state, m = slam.step(state, c)
+                ps.append(state.odom.pose)
+                if m.n_loop_closures:
+                    sweeps.append(dict(
+                        scan=i, keyframes=state.n_keyframes,
+                        loops=m.n_loop_closures,
+                        step_ms=m.wall_time_s * 1e3,
+                        stage_ms={k: (v - stages[k]) * 1e3
+                                  for k, v in slam.sweep_seconds.items()}))
+                    if compiled:
+                        swept.append(state)
+        poses[form] = torch.stack(ps).cpu().numpy()
+        states[form] = slam_state_to_numpy(state)
+        out[form] = dict(
+            warm_up_s=warm_s, sweeps=sweeps, keyframes=state.n_keyframes,
+            loops=state.n_loop_closures, replays_checked=chk.calls,
+            insert_fallbacks=insert_cloud.fallbacks - fallbacks,
+            stage_seconds=dict(slam.stage_seconds),
+            graphs={k: cache_use(c, before[k]) for k, c in caches.items()})
+    differ = sorted(key for key in states["eager"] if not np.array_equal(
+        np.asarray(states["eager"][key]),
+        np.asarray(states["captured"].get(key))))
+    n = len(clouds)
+    out.update(
+        poses_bit_equal=bool(np.array_equal(poses["eager"],
+                                            poses["captured"])),
+        poses_equal_live=bool(np.array_equal(poses["captured"],
+                                             survey["poses"][:n])),
+        state_keys_differing=differ)
+
+    cfg = survey_slam_config()
+    spec, cap = cfg.odometry.map_spec(), cfg.odometry.map_capacity
+    programs = []
+    for st in swept:
+        k = st.n_keyframes
+
+        def rebuild(compiled, st=st, k=k):
+            return slam_mod._rebuild_map_batched(
+                st.graph.poses, st.kf_points, st.kf_mask, k, spec=spec,
+                capacity=cap, compiled=compiled)
+
+        def score(compiled, st=st, k=k):
+            return sc_mod.sc_distances(st.kf_desc[k - 1], st.kf_desc,
+                                       compiled=compiled)
+
+        programs.append(dict(
+            keyframes=k, points=int(st.kf_mask.sum()),
+            map_rebuild=program_pair(lambda: rebuild(False),
+                                     lambda: rebuild(True)),
+            sc_distance=program_pair(lambda: score(False),
+                                     lambda: score(True))))
+    out["programs"] = programs
+    return out
+
+
+def host_options_cfg():
+    """config2() on the host engine with its three options on: a pyramid
+    (factor 2), occupancy (64 steps, 65,536 voxels) and deskew."""
+    import dataclasses
+
+    return dataclasses.replace(config2(), pyramid_factor=2,
+                               use_occupancy=True, occupancy_steps=64,
+                               occupancy_capacity=65536, deskew=True)
+
+
+def host_options(clouds, gt):
+    """LidarOdometry with host_options_cfg() over config 2's first
+    HOST_OPTION_SCANS scans (65,536 rays) on both forms from fresh engines
+    (the captured one warmed up): poses, metrics, the map and the
+    occupancy grid bit for bit; step p50, launches, graph launches and
+    reads a step, idle share (scans 5-8 replayed under the profiler); the
+    graphs of coarsen_map, occupancy_maintain and deskew_cloud (captured
+    in the run: 0; their memory); then each of them alone on the state
+    after scan 4, captured against eager."""
+    import dataclasses
+
+    from tpu_slam_torch.pipeline import odometry as odo_mod
+
+    caches = dict(coarsen_map=odo_mod._coarsens,
+                  occupancy_maintain=odo_mod._maintains,
+                  deskew_cloud=odo_mod._deskews)
+    a, b = HOST_OPTION_PROFILED
+    out, keep, engines = {}, {}, {}
+    for form, compiled in (("eager", False), ("captured", True)):
+        eng = odo_mod.LidarOdometry(host_options_cfg(), compiled=compiled)
+        eng.warm_up(clouds[0])
+        before = {k: cache_replays(c) for k, c in caches.items()}
+        with replays_sync_checked() as chk:
+            poses, state, kept = run_host(eng, clouds, gt[0], keep=(a - 1,))
+        recs = eng.metrics.records
+        wall = np.array([r.wall_time_s for r in recs[1:]]) * 1e3
+        keep[form] = (poses, [dataclasses.replace(r, wall_time_s=0.0)
+                              for r in recs], state)
+        engines[form] = (eng, kept[a - 1])
+        out[form] = dict(
+            step_ms_p50=float(np.percentile(wall, 50)),
+            matched=[r.matched_fraction for r in recs],
+            field_builds=eng.field_builds, replays_checked=chk.calls,
+            profile=host_step_profile(eng, kept[a - 1], clouds[a:b]),
+            graphs={k: cache_use(c, before[k]) for k, c in caches.items()})
+    (pe, me, se), (pc, mc, sc) = keep["eager"], keep["captured"]
+    out["bit_equal"] = dict(
+        poses=bool(np.array_equal(pe, pc)), metrics=me == mc,
+        state=same_tensors((se.pose, se.vmap, se.occ),
+                           (sc.pose, sc.vmap, sc.occ)))
+    (ee, st), (ec, _) = engines["eager"], engines["captured"]
+    scan = ee.downsample(clouds[a])
+    out["programs"] = dict(
+        coarsen_map=program_pair(lambda: ee._coarsen(st.vmap),
+                                 lambda: ec._coarsen(st.vmap)),
+        occupancy_maintain=program_pair(
+            lambda: ee._maintain_occupancy(st.occ, st.vmap, st.pose, scan),
+            lambda: ec._maintain_occupancy(st.occ, st.vmap, st.pose, scan)),
+        deskew_cloud=program_pair(
+            lambda: ee._deskew(clouds[a], st.last_delta).points,
+            lambda: ec._deskew(clouds[a], st.last_delta).points))
+    return out
+
+
+def phase_compiled_host(survey, c2_clouds, c2_gt):
+    """The default SLAM's loop sweep and the host engine's option programs
+    against their eager forms (compiled=False) in this call: the survey's
+    32 clouds through SLAMSystem() (the map rebuild and sc_distance at
+    SLAMConfig()'s capacities, the sweep step by stage), the dense SLAM's
+    default re-anchor (the windows' rebuild; one graph a window and one
+    captured step across the re-anchors), and config 2's first scans on
+    the host engine with the pyramid, occupancy and deskew on (coarsen_map,
+    occupancy_maintain, deskew_cloud). Any difference in the bits, a read
+    or a synchronisation inside a captured call, a program captured more
+    than once, or an accuracy row out of its limit fails. Returns the
+    launches of each kernel in the phase."""
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms
+    from tpu_slam_torch.kernels.nn_search import nearest_neighbors
+
+    kernels = (ndt_terms, nearest_neighbors)
+    reset_launches(*kernels)
+    t0 = time.perf_counter()
+    parts = PartTimer()
+    sweeps = parts("survey", survey_sweeps, survey)
+    reanchor = parts("dense_reanchor", dense_reanchor_compare)
+    options = parts("host_options", host_options, c2_clouds, c2_gt)
+    launches = {k.__name__: launches_of(k) for k in kernels}
+    emit("compiled_host", device=nvidia_smi_line(), survey=sweeps,
+         dense_reanchor=reanchor, host_options=options, launches=launches,
+         seconds=time.perf_counter() - t0, part_seconds=parts.seconds)
+    failed = []
+    if not (sweeps["poses_bit_equal"] and sweeps["poses_equal_live"]
+            and not sweeps["state_keys_differing"]):
+        failed.append("the survey's SLAM differs between forms or from "
+                      "the live run")
+    cap = sweeps["captured"]
+    if not (cap["loops"] == survey["loops"]
+            and cap["keyframes"] == survey["keyframes"]
+            and len(cap["sweeps"]) > 0):
+        failed.append("the survey's loops or keyframes moved")
+    for name, use in cap["graphs"].items():
+        if use["captured"] != 0 or len(use["replays"]) != 1:
+            failed.append(f"{name}: not one graph warmed up for every "
+                          f"sweep ({use})")
+    if cap["graphs"]["map_rebuild"]["replays"] != [len(cap["sweeps"])]:
+        failed.append("the map rebuild did not replay once a sweep")
+    for row in sweeps["programs"]:
+        for name in ("map_rebuild", "sc_distance"):
+            if not (row[name]["bit_equal"]
+                    and row[name]["captured"]["replays_checked"] == 1):
+                failed.append(f"{name} at {row['keyframes']} keyframes")
+    if not (reanchor["poses_bit_equal"]
+            and not reanchor["state_keys_differing"]
+            and reanchor["reanchors"] > 0 and reanchor["captured_steps"] == 1
+            and reanchor["grid_rebuild"]["replays"]
+            == [reanchor["reanchors"]] * 2):
+        failed.append(f"dense re-anchor: {reanchor}")
+    if not all(options["bit_equal"].values()):
+        failed.append(f"host options differ: {options['bit_equal']}")
+    for name, use in options["captured"]["graphs"].items():
+        if use["captured"] != 0 or len(use["replays"]) != 1:
+            failed.append(f"{name}: not one graph warmed up ({use})")
+    for name, row in options["programs"].items():
+        if not (row["bit_equal"]
+                and row["captured"]["replays_checked"] == 1):
+            failed.append(f"{name} alone differs or replayed no graph")
+    if not all(np.isfinite(options["captured"]["matched"])):
+        failed.append("host options: a matched fraction not finite")
+    if failed:
+        raise AssertionError(f"compiled_host failed: {failed}")
     return launches
 
 
@@ -5839,6 +6164,9 @@ def main() -> int:
     # the registration layer's captured programs against their eager forms
     reg_launches = phase_compiled_registration(clouds, gt, w3, pairs,
                                                c1_rates)
+    # config 2's first scans for compiled_host's host-engine options
+    host_clouds = clouds[:HOST_OPTION_SCANS]
+    host_gt = gt[:HOST_OPTION_SCANS]
     del clouds
     with tempfile.TemporaryDirectory() as tmpdir:
         c6_launches = phase_config6(tmpdir)
@@ -5856,7 +6184,9 @@ def main() -> int:
     # the live SLAM path's captured programs against their eager forms
     slam_launches = phase_compiled_slam(survey, run["state"], pairs,
                                         c1_rates)
-    del survey
+    # the default SLAM's loop sweep and the host engine's options
+    host_prog_launches = phase_compiled_host(survey, host_clouds, host_gt)
+    del survey, host_clouds
     with tempfile.TemporaryDirectory() as tmpdir:
         cli_launches = phase_live_cli(tmpdir)
     live_terms_cases, live_nn_cases = phase_live_kernels(live_terms_args,
@@ -5874,6 +6204,7 @@ def main() -> int:
                           live_cli=cli_launches["ndt_terms"],
                           compiled_registration=reg_launches["ndt_terms"],
                           compiled_slam=slam_launches["ndt_terms"],
+                          compiled_host=host_prog_launches["ndt_terms"],
                           **dist_terms_launches)
     nn_launches = dict(config4=run["nn_launches"], config1=nn_c1_launches,
                        host_engine_cases=case_launches["nn_search"],
@@ -5883,6 +6214,7 @@ def main() -> int:
                        compiled_registration=reg_launches[
                            "nearest_neighbors"],
                        compiled_slam=slam_launches["nearest_neighbors"],
+                       compiled_host=host_prog_launches["nearest_neighbors"],
                        **dist_nn_launches)
 
     emit("total", seconds=time.perf_counter() - t_start)

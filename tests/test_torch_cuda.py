@@ -751,13 +751,16 @@ def test_captured_host_engine_matches_eager(cuda, path):
             poses, log = eng.run(clouds, init_pose=gt[0])
         runs.append((poses, [(m.iterations, m.matched_fraction)
                              for m in log.records], chk.calls,
-                     insert_cloud.fallbacks + insert_cloud.incremental))
-    (p0, m0, c0, i0), (p1, m1, c1, i1) = runs
+                     insert_cloud.fallbacks + insert_cloud.incremental,
+                     eng.field_builds))
+    (p0, m0, c0, i0, _), (p1, m1, c1, i1, builds) = runs
     assert np.array_equal(p0, p1) and m0 == m1 and i0 == i1 > 1
     # the warm-up captured every graph the run replayed: the
-    # registrations of each tracked scan and every insert
-    assert c0 == 0 and c1 == (len(clouds) - 1) * (2 if path == "kernel"
-                                                  else 1) + i1
+    # registrations of each tracked scan, every insert and, with the
+    # pyramid, coarsen_map at every field build
+    assert c0 == 0 and c1 == ((len(clouds) - 1) * (2 if path == "kernel"
+                                                   else 1) + i1
+                              + (builds if path == "kernel" else 0))
 
 
 def test_captured_jit_step_matches_eager(cuda):
@@ -808,6 +811,10 @@ def test_dense_reanchor_compiled_matches_eager(cuda):
     row = chip_smoke.dense_reanchor_compare()
     assert row["reanchors"] > 0 and row["loops"] > 0
     assert row["poses_bit_equal"] and not row["state_keys_differing"]
+    # one captured step, and one graph for each window's rebuild, replayed
+    # at every re-anchor
+    assert row["captured_steps"] == 1
+    assert row["grid_rebuild"]["replays"] == [row["reanchors"]] * 2
 
 
 # ---------------------------------------------------------------------------
@@ -1044,3 +1051,157 @@ def test_captured_line_matches_eager_while_another_thread_runs(cuda):
         worker.join()
     assert emits == 2 and chk.calls == 160 and len(comp._lines) == 1
     assert dropped > 0
+
+
+# ---------------------------------------------------------------------------
+# The default SLAM's loop sweep and the host engine's options
+# ---------------------------------------------------------------------------
+
+def _keyframe_buffers(device, K=8, P=2048, live=6, seed=5):
+    """K keyframe slots of P room points at random poses, the first
+    ``live`` filled: (poses (K, 4, 4), points (K, P, 3), mask (K, P))."""
+    import numpy as np
+
+    from tpu_slam_torch.core import se3
+    from tpu_slam_torch.core.pointcloud import PAD_COORD
+
+    rng = np.random.default_rng(seed)
+    pts = np.full((K, P, 3), PAD_COORD, np.float32)
+    mask = np.zeros((K, P), bool)
+    poses = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+    for k in range(live):
+        m = P - 200 * k
+        c = rng.integers(0, 3, m)
+        u, v = rng.uniform(-6.0, 6.0, (2, m))
+        pts[k, :m] = np.stack([np.where(c == 1, -6.0, u),
+                               np.where(c == 2, -6.0, v),
+                               np.where(c == 0, -1.5, 0.4 * u - 0.2 * v)], 1)
+        mask[k, :m] = True
+        poses[k] = se3.exp(torch.from_numpy(
+            rng.normal(0, 0.3, 6).astype(np.float32))).numpy()
+    return tuple(torch.from_numpy(x).to(device) for x in (poses, pts, mask))
+
+
+@pytest.mark.parametrize("capacity", [16384, 1024])
+def test_captured_map_rebuild_matches_eager(cuda, capacity):
+    """The map rebuild's graph (the flatten, the empty map and the
+    insert's body; n a device scalar) against compiled=False at two values
+    of n: the map bit for bit, one capture for both, no read or
+    synchronisation inside; at capacity 1024 the voxels overflow, and the
+    full merge runs after the replay."""
+    import chip_smoke
+    from tpu_slam_torch.kernels.voxel_hash import VoxelGridSpec
+    from tpu_slam_torch.mapping.voxel_map import insert_cloud
+    from tpu_slam_torch.pipeline import slam as slam_mod
+
+    poses, pts, mask = _keyframe_buffers(cuda)
+    spec = VoxelGridSpec.centered(leaf=0.25, half_extent=16.0)
+    n_graphs = len(slam_mod._map_rebuilds)
+    for n in (3, 6):
+        runs = []
+        for compiled in (False, True):
+            counts = (insert_cloud.fallbacks, insert_cloud.incremental)
+            with chip_smoke.replays_sync_checked() as chk:
+                vmap = slam_mod._rebuild_map_batched(
+                    poses, pts, mask, n, spec=spec, capacity=capacity,
+                    compiled=compiled)
+            runs.append((vmap, chk.calls,
+                         (insert_cloud.fallbacks - counts[0],
+                          insert_cloud.incremental - counts[1])))
+        (e, _, ce), (c, calls, cc) = runs
+        assert chip_smoke.same_tensors(e, c) and calls == 1
+        assert ce == cc == ((1, 0) if capacity == 1024 else (0, 1))
+        occ = c.occupied_mask()
+        assert set(c.stamp[occ].tolist()) == {float(n)}
+    assert len(slam_mod._map_rebuilds) == n_graphs + 1
+
+
+@pytest.mark.parametrize("align", [1, 4])
+def test_captured_grid_rebuild_matches_eager(cuda, align):
+    """A dense window's rebuild graph (n and the centre its inputs)
+    against compiled=False at two values of n and two centres, one near
+    the grid's edge: rows and origin bit for bit, one capture for all."""
+    import chip_smoke
+    from tpu_slam_torch.kernels.voxel_hash import VoxelGridSpec
+    from tpu_slam_torch.pipeline import slam as slam_mod
+
+    poses, pts, mask = _keyframe_buffers(cuda)
+    spec = VoxelGridSpec.centered(leaf=0.25, half_extent=16.0)
+    n_graphs = len(slam_mod._grid_rebuilds)
+    for n, center in ((3, [0.4, -0.2, 0.1]), (6, [15.6, -15.7, 0.3])):
+        center = torch.tensor(center, device=cuda)
+        e = slam_mod._rebuild_grid_batched(
+            poses, pts, mask, n, center, spec=spec, dims=(64, 64, 16),
+            align=align, compiled=False)
+        with chip_smoke.replays_sync_checked() as chk:
+            c = slam_mod._rebuild_grid_batched(
+                poses, pts, mask, n, center, spec=spec, dims=(64, 64, 16),
+                align=align)
+        assert chip_smoke.same_tensors(e, c) and chk.calls == 1
+        assert float(c.rows[:, 0].sum()) > 0
+    assert len(slam_mod._grid_rebuilds) == n_graphs + 1
+
+
+def test_captured_sc_distance_matches_eager(cuda):
+    """sc_distance's graph over a (12, 16, 60) database with empty slots
+    against the eager score, for two queries: the distances bit for bit,
+    the same candidates, one capture."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.graph import scan_context as sc
+
+    _, pts, mask = _keyframe_buffers(cuda)
+    db = torch.zeros((12, 16, 60), device=cuda)
+    for k in range(8):
+        db[k] = sc.scan_context(PointCloud(pts[k], mask[k]))
+    n_graphs = len(sc._distances)
+    for q in (5, 7):
+        e = sc.sc_distances(db[q], db, compiled=False)
+        with chip_smoke.replays_sync_checked() as chk:
+            c = sc.sc_distances(db[q], db)
+        assert torch.equal(e, c) and chk.calls == 1
+        for a, b in zip(sc.propose_sc_candidates(db[q], db, q, 8, 1.0, 2, 3,
+                                                 compiled=False),
+                        sc.propose_sc_candidates(db[q], db, q, 8, 1.0, 2,
+                                                 3)):
+            np.testing.assert_array_equal(a, b)
+    assert len(sc._distances) == n_graphs + 1
+
+
+def test_captured_host_options_match_eager(cuda):
+    """LidarOdometry with the pyramid, occupancy and deskew on, warmed up,
+    against compiled=False over four scans: poses, metrics, map and grid
+    bit for bit; coarsen_map, occupancy_maintain and deskew_cloud each one
+    graph captured by the warm-up and replayed in the run, no read or
+    synchronisation inside."""
+    import dataclasses
+
+    import numpy as np
+
+    import chip_smoke
+    from tpu_slam_torch.pipeline import odometry as odo_mod
+
+    clouds, gt = _office_scans(cuda, 4)
+    cfg = _host_config("kernel", pyramid_factor=2, use_occupancy=True,
+                       occupancy_capacity=16384, occupancy_steps=32,
+                       occupancy_max_range=15.0, deskew=True)
+    caches = (odo_mod._coarsens, odo_mod._maintains, odo_mod._deskews)
+    runs = []
+    for compiled in (False, True):
+        eng = odo_mod.LidarOdometry(cfg, compiled=compiled)
+        eng.warm_up(clouds[0])
+        before = [chip_smoke.cache_replays(c) for c in caches]
+        with chip_smoke.replays_sync_checked() as chk:
+            poses, state, _ = chip_smoke.run_host(eng, clouds, gt[0])
+        use = [chip_smoke.cache_use(c, b) for c, b in zip(caches, before)]
+        runs.append((poses, [dataclasses.replace(m, wall_time_s=0.0)
+                             for m in eng.metrics.records], state,
+                     chk.calls, use))
+    (p0, m0, s0, c0, _), (p1, m1, s1, c1, use) = runs
+    assert np.array_equal(p0, p1) and m0 == m1
+    assert chip_smoke.same_tensors((s0.vmap, s0.occ), (s1.vmap, s1.occ))
+    assert c0 == 0 and c1 > 0
+    for u in use:
+        assert u["captured"] == 0 and len(u["replays"]) == 1

@@ -55,7 +55,11 @@ Layer map (every module of ``tpu_slam`` has its counterpart here, but
                    (torch.profiler), structured logging, the PLY writer,
                    the CUDA-graph capture of the compiled programs (the
                    dense engine's step, the pose-graph solve,
-                   ndt_register, JitLidarOdometry's step, icp_raster)
+                   ndt_register, JitLidarOdometry's step, icp_raster,
+                   the batched icp, the map insert, the keyframe store,
+                   the scan line, the after-loop map and window rebuilds,
+                   sc_distance, and the host engine's coarsen_map,
+                   occupancy maintenance and deskew)
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; a
 missing GPU raises instead of silently falling back.

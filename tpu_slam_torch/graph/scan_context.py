@@ -2,7 +2,8 @@
 
 Port of ``tpu_slam.graph.scan_context``: a polar ring x sector max-height
 descriptor per keyframe (Kim & Kim's Scan Context), matched
-rotation-invariantly by scoring every sector shift in one contraction.
+rotation-invariantly by scoring every sector shift in one contraction
+(``sc_distances``: one CUDA graph replay on a CUDA device).
 The descriptor's segment max is ``scatter_reduce_(..., "amax")`` over a
 -inf buffer; a maximum does not depend on the order of the writes, so the
 descriptor is the same run to run.
@@ -12,12 +13,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from tpu_slam_torch.core.pointcloud import PointCloud
+from tpu_slam_torch.utils.capture import CapturedCall, compiled_call
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,19 +98,36 @@ def sc_distance(query: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     return 1.0 - sim.max(dim=-1).values
 
 
+# the captured sc_distance programs, by their inputs' signature
+_distances: Dict[Tuple, CapturedCall] = {}
+
+
+def sc_distances(query: torch.Tensor, db: torch.Tensor,
+                 compiled: bool = True) -> torch.Tensor:
+    """``sc_distance`` as the reference's compiled program: with
+    ``compiled``, one CUDA graph replay on a CUDA device for the
+    database's shape (eager on the CPU); the same bits either way."""
+    if not compiled:
+        return sc_distance(query, db)
+    return compiled_call(_distances, sc_distance, (query, db))
+
+
 def propose_sc_candidates(query_desc: torch.Tensor, db_desc: torch.Tensor,
                           query_idx: int, n_nodes: int,
                           max_distance: float, min_index_gap: int,
-                          top_k: int = 3) -> Tuple[np.ndarray, np.ndarray]:
+                          top_k: int = 3, compiled: bool = True
+                          ) -> Tuple[np.ndarray, np.ndarray]:
     """Scan-context candidates (i, query_idx) for the newest keyframe.
 
-    One device call scores the whole database; the top-k under
-    ``max_distance`` (respecting the index gap) come back as numpy index
-    arrays for the ICP verification batch.
+    One device call scores the whole database (``sc_distances``), read
+    back in one copy; the top-k under ``max_distance`` (respecting the
+    index gap) come back as numpy index arrays for the ICP verification
+    batch.
     """
     if query_idx < min_index_gap + 1:
         return (np.zeros((0,), np.int32), np.zeros((0,), np.int32))
-    d = sc_distance(query_desc, db_desc).cpu().numpy().copy()
+    d = sc_distances(query_desc, db_desc,
+                     compiled=compiled).cpu().numpy().copy()
     d[n_nodes:] = np.inf                               # empty slots
     d[max(0, query_idx - min_index_gap):] = np.inf     # too recent + self
     order = np.argsort(d, kind="stable")[:top_k]

@@ -42,7 +42,7 @@ from tpu_slam_torch.kernels.voxel_hash import (INVALID_KEY, VoxelGridSpec,
                                                neighbor_offsets_keys,
                                                segment_ids_from_sorted_keys,
                                                voxel_keys)
-from tpu_slam_torch.utils.capture import CapturedCall, replay
+from tpu_slam_torch.utils.capture import CapturedCall, compiled_call
 
 _INT32_MIN = -2 ** 31
 # the incremental merge's default bound on the new keys of one scan
@@ -352,26 +352,37 @@ def insert_cloud(vmap: VoxelMap, cloud: PointCloud, spec: VoxelGridSpec,
             return insert_scan_stats(vmap, keys, cnt, ssum, souter, stamp)
         vmap, overflowed = insert_scan_stats_incremental(
             vmap, keys, cnt, ssum, souter, stamp)
-    else:
-        dev = vmap.keys.device
-        program = functools.partial(_insert_program, spec=spec,
-                                    incremental=incremental)
-        args = (vmap, PointCloud(cloud.points, cloud.mask),
-                _stamp_tensor(stamp, dev))
-        out = (replay(_inserts, program, args, static=(spec, incremental))
-               if dev.type == "cuda" else program(*args))
-        if not incremental:
-            return out
-        merged, overflow, stats = out
-        # the one read of the flag, as the eager merge makes it
-        overflowed = bool(overflow.item())
-        vmap = (insert_scan_stats(vmap, *stats, args[2]) if overflowed
-                else merged)
+        _count_insert(overflowed)
+        return vmap
+    program = functools.partial(_insert_program, spec=spec,
+                                incremental=incremental)
+    stamp = _stamp_tensor(stamp, vmap.keys.device)
+    out = compiled_call(_inserts, program,
+                        (vmap, PointCloud(cloud.points, cloud.mask), stamp),
+                        static=(spec, incremental))
+    return settle_insert(vmap, *out, stamp) if incremental else out
+
+
+def settle_insert(vmap: Optional[VoxelMap], merged: VoxelMap,
+                  overflow: torch.Tensor, stats, stamp) -> VoxelMap:
+    """The result of an incremental insert program run on ``vmap`` (None:
+    an empty map of ``merged``'s capacity): one read of its overflow
+    flag, as the eager merge makes it, and on overflow the full merge of
+    ``vmap`` (untouched) and the program's ``stats``, eagerly."""
+    overflowed = bool(overflow.item())
+    _count_insert(overflowed)
+    if not overflowed:
+        return merged
+    if vmap is None:
+        vmap = empty_map(merged.capacity, device=merged.keys.device)
+    return insert_scan_stats(vmap, *stats, stamp)
+
+
+def _count_insert(overflowed: bool) -> None:
     if overflowed:
         insert_cloud.fallbacks += 1
     else:
         insert_cloud.incremental += 1
-    return vmap
 
 
 insert_cloud.fallbacks = 0

@@ -22,9 +22,15 @@ builds. The reference's compiled programs on the step each run, with
 ``compiled=True`` (the default), as one CUDA graph replay on a CUDA
 device and in their sync-free form on the CPU: each NDT registration (the
 coarse one, then the fine one; ``registration.ndt.compiled_register``),
-the ICP flavours' solve (``registration.icp.icp``) and the map insert
+the ICP flavours' solve (``registration.icp.icp``), the map insert
 (``mapping.voxel_map.insert_cloud``, whose overflow flag is read after
-it). ``compiled=False`` runs their host-exit forms, whose loops read their
+it), and the options' programs: the pyramid's ``coarsen_map`` at each
+field build, the occupancy maintenance (``_occupancy_program``: the
+scan's transform, ``ray_evidence``, ``occupancy_update`` and the eviction
+as one graph; the evicted count read after it) and the deskew
+(``_deskew_program``: the time fractions, the clamped prediction and
+``deskew_cloud``). ``warm_up`` captures them before a stream.
+``compiled=False`` runs their host-exit forms, whose loops read their
 exits back. Both give the same bits; the gating read of step 4 stays, as
 it does in the reference's host engine. ``scan_max_range`` and
 ``insert_downsampled`` belong to the dense engine: this engine registers
@@ -35,7 +41,8 @@ does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +50,11 @@ import torch
 from tpu_slam_torch import default_device
 from tpu_slam_torch.core import se3
 from tpu_slam_torch.core.pointcloud import PointCloud
+from tpu_slam_torch.ingest.deskew import deskew_cloud, vlp16_time_fractions
 from tpu_slam_torch.kernels.downsample import voxel_downsample
+from tpu_slam_torch.mapping.occupancy import (empty_occupancy,
+                                              occupancy_maintain,
+                                              shift_occupancy_cells)
 from tpu_slam_torch.mapping.voxel_map import (VoxelMap, coarse_spec_of,
                                               coarsen_map, empty_map,
                                               insert_cloud, voxel_means,
@@ -52,6 +63,7 @@ from tpu_slam_torch.pipeline.config import OdometryConfig
 from tpu_slam_torch.pipeline.metrics import MetricsLog, ScanMetrics, Stopwatch
 from tpu_slam_torch.registration.icp import icp
 from tpu_slam_torch.registration.ndt import compiled_register, ndt_field
+from tpu_slam_torch.utils.capture import CapturedCall, compiled_call
 
 
 @dataclasses.dataclass
@@ -69,6 +81,48 @@ class OdometryState:
     # scrolling window: world = local + map_offset, a float64 host array of
     # exact leaf multiples; None when the map grid is world-fixed
     map_offset: Optional[np.ndarray] = None
+
+
+def _clamp_delta(delta: torch.Tensor, max_t: float, max_r: float
+                 ) -> torch.Tensor:
+    """Clamp the constant-velocity extrapolation: one misconverged
+    registration must not throw the next prediction out of the basin."""
+    xi = se3.log(delta)
+    t_n = torch.linalg.vector_norm(xi[:3])
+    r_n = torch.linalg.vector_norm(xi[3:])
+    scale = torch.minimum(
+        torch.clamp(max_t / torch.clamp(t_n, min=1e-9), max=1.0),
+        torch.clamp(max_r / torch.clamp(r_n, min=1e-9), max=1.0))
+    return se3.exp(xi * scale)
+
+
+def _deskew_program(cloud: PointCloud, last_delta: torch.Tensor, *,
+                    max_t: float, max_r: float) -> torch.Tensor:
+    """The host engine's deskew (the reference's ``deskew_cloud`` with its
+    VLP-16 time fractions, against the clamped prediction's inverse): the
+    cloud's points in the sweep-end frame."""
+    pred = _clamp_delta(last_delta, max_t, max_r)
+    return deskew_cloud(
+        cloud, vlp16_time_fractions(cloud.points), T_start=se3.inverse(pred),
+        T_end=torch.eye(4, dtype=torch.float32,
+                        device=cloud.points.device)).points
+
+
+def _occupancy_program(occ, vmap, T, scan: PointCloud, *, spec, n_steps,
+                       max_range, evict_below):
+    """One scan's occupancy maintenance (the reference's
+    ``occupancy_maintain``: ``ray_evidence``, ``occupancy_update``, the
+    eviction) from the sensor at T, the scan taken there: (grid, map,
+    evicted count)."""
+    return occupancy_maintain(occ, vmap, T[:3, 3], scan.transform(T), spec,
+                              n_steps=n_steps, max_range=max_range,
+                              evict_below=evict_below)
+
+
+# the captured option programs, by their inputs' signature and static args
+_coarsens: Dict[Tuple, CapturedCall] = {}
+_maintains: Dict[Tuple, CapturedCall] = {}
+_deskews: Dict[Tuple, CapturedCall] = {}
 
 
 class LidarOdometry:
@@ -93,7 +147,6 @@ class LidarOdometry:
                                      dtype=torch.float32, device=dev))
         occ = None
         if cfg.use_occupancy:
-            from tpu_slam_torch.mapping.occupancy import empty_occupancy
             occ = empty_occupancy(cfg.occupancy_capacity, device=dev)
         offset = None
         if cfg.scrolling_window:
@@ -134,38 +187,57 @@ class LidarOdometry:
         shift_t = torch.as_tensor(shift, device=self.device)
         vmap = shift_map_cells(vmap, self.map_spec, shift_t)
         if occ is not None:
-            from tpu_slam_torch.mapping.occupancy import shift_occupancy_cells
             occ = shift_occupancy_cells(occ, self.map_spec, shift_t)
         offset = offset + shift.astype(np.float64) * cfg.map_leaf
         return vmap, occ, None, offset       # the field cache is stale
 
     def _maintain_occupancy(self, occ, vmap, T, scan):
-        """Free-space update and seen-through voxel eviction."""
-        from tpu_slam_torch.mapping.occupancy import occupancy_maintain
+        """Free-space update and seen-through voxel eviction
+        (``_occupancy_program``)."""
         cfg = self.config
-        return occupancy_maintain(
-            occ, vmap, T[:3, 3], scan.transform(T), self.map_spec,
-            n_steps=cfg.occupancy_steps, max_range=cfg.occupancy_max_range,
-            evict_below=cfg.occupancy_evict_below)
+        static = dict(spec=self.map_spec, n_steps=cfg.occupancy_steps,
+                      max_range=cfg.occupancy_max_range,
+                      evict_below=cfg.occupancy_evict_below)
+        return self._program(_maintains, functools.partial(
+            _occupancy_program, **static),
+            (occ, vmap, T, PointCloud(scan.points, scan.mask)),
+            tuple(static.items()))
+
+    def _deskew(self, cloud: PointCloud, last_delta: torch.Tensor
+                ) -> PointCloud:
+        """``cloud`` undistorted with the predicted sweep motion
+        (``_deskew_program``)."""
+        cfg = self.config
+        static = dict(max_t=cfg.max_pred_translation,
+                      max_r=cfg.max_pred_rotation)
+        pts = self._program(_deskews, functools.partial(
+            _deskew_program, **static),
+            (PointCloud(cloud.points, cloud.mask), last_delta),
+            tuple(static.items()))
+        return dataclasses.replace(cloud, points=pts)
+
+    def _coarsen(self, vmap: VoxelMap) -> VoxelMap:
+        """The map re-aggregated at the pyramid's coarse leaf."""
+        static = dict(spec=self.map_spec, factor=self.config.pyramid_factor)
+        return self._program(_coarsens,
+                             functools.partial(coarsen_map, **static),
+                             (vmap,), tuple(static.items()))
+
+    def _program(self, cache, fn, args, static):
+        """``fn(*args)``: a graph replay from ``cache`` when compiled (on a
+        CUDA device; eager on the CPU), else eager."""
+        if not self.compiled:
+            return fn(*args)
+        return compiled_call(cache, fn, args, static=static)
 
     def downsample(self, cloud: PointCloud) -> PointCloud:
         return voxel_downsample(cloud, self.scan_spec,
                                 capacity=self.config.scan_capacity)
 
     def _clamped_delta(self, delta: torch.Tensor) -> torch.Tensor:
-        """Clamp the constant-velocity extrapolation: one misconverged
-        registration must not throw the next prediction out of the
-        basin."""
         cfg = self.config
-        xi = se3.log(delta)
-        t_n = torch.linalg.vector_norm(xi[:3])
-        r_n = torch.linalg.vector_norm(xi[3:])
-        scale = torch.minimum(
-            torch.clamp(cfg.max_pred_translation
-                        / torch.clamp(t_n, min=1e-9), max=1.0),
-            torch.clamp(cfg.max_pred_rotation
-                        / torch.clamp(r_n, min=1e-9), max=1.0))
-        return se3.exp(xi * scale)
+        return _clamp_delta(delta, cfg.max_pred_translation,
+                            cfg.max_pred_rotation)
 
     def _coarse_params(self):
         cfg = self.config
@@ -187,7 +259,7 @@ class LidarOdometry:
         coarse = None
         if cfg.pyramid_factor > 1:
             cspec = coarse_spec_of(self.map_spec, cfg.pyramid_factor)
-            cmap = coarsen_map(vmap, self.map_spec, cfg.pyramid_factor)
+            cmap = self._coarsen(vmap)
             coarse = ndt_field(cmap, cspec, self._coarse_params(),
                                center=center)
         return fine, coarse
@@ -227,30 +299,36 @@ class LidarOdometry:
     def warm_up(self, cloud: Optional[PointCloud] = None) -> None:
         """Capture the engine's graphs for this config's shapes now (a
         compiled engine on a CUDA device; otherwise nothing): the NDT
-        registrations, by one registration of an empty scan against the
-        empty map's fields, as the first tracked scan would run it; with
-        ``cloud`` (a cloud of the stream's shapes; its values are not
-        used), the map insert of such a cloud."""
+        registrations and, with a pyramid, ``coarsen_map``, by one
+        registration of an empty scan against the empty map's fields, as
+        the first tracked scan would run it; the occupancy maintenance of
+        such a scan; with ``cloud`` (a cloud of the stream's shapes; its
+        values are not used), the map insert and the deskew of such a
+        cloud."""
         if not (self.compiled and self.device.type == "cuda"):
             return
+        cfg = self.config
         state = self.init_state()
-        if self.config.method == "ndt":
-            n = self.config.scan_capacity
-            empty = PointCloud(
-                points=torch.zeros((n, 3), dtype=torch.float32,
-                                   device=self.device),
-                mask=torch.zeros(n, dtype=torch.bool, device=self.device))
+        n = cfg.scan_capacity
+        empty = self.downsample(PointCloud(
+            points=torch.zeros((n, 3), dtype=torch.float32,
+                               device=self.device),
+            mask=torch.zeros(n, dtype=torch.bool, device=self.device)))
+        pose = self._to_local(state.pose, state.map_offset)
+        if cfg.method == "ndt":
             builds = self.field_builds
-            self._register(self.downsample(empty),
-                           self._to_local(state.pose, state.map_offset),
-                           state.vmap)
+            self._register(empty, pose, state.vmap)
             self.field_builds = builds      # counts the scans' builds only
+        if cfg.use_occupancy:
+            self._maintain_occupancy(state.occ, state.vmap, pose, empty)
         if cloud is not None:
             counts = (insert_cloud.fallbacks, insert_cloud.incremental)
             insert_cloud(state.vmap, cloud.transform(state.pose),
                          self.map_spec)
             # they count the scans' inserts only
             insert_cloud.fallbacks, insert_cloud.incremental = counts
+            if cfg.deskew:
+                self._deskew(cloud, state.last_delta)
 
     def step(self, state: OdometryState, cloud: PointCloud
              ) -> Tuple[OdometryState, ScanMetrics]:
@@ -258,15 +336,7 @@ class LidarOdometry:
         cfg = self.config
         with Stopwatch() as sw:
             if cfg.deskew and state.scan_index > 0:
-                # undistort with the predicted sweep motion
-                from tpu_slam_torch.ingest.deskew import (
-                    deskew_cloud, vlp16_time_fractions)
-                pred = self._clamped_delta(state.last_delta)
-                cloud = deskew_cloud(
-                    cloud, vlp16_time_fractions(cloud.points),
-                    T_start=se3.inverse(pred),
-                    T_end=torch.eye(4, dtype=torch.float32,
-                                    device=self.device))
+                cloud = self._deskew(cloud, state.last_delta)
             scan = self.downsample(cloud)
             if state.scan_index == 0:
                 new_state, fields = self._bootstrap(state, cloud, scan)

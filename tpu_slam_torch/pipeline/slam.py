@@ -15,7 +15,9 @@ and their outcomes to ``loop_debug``.
 
 ``stage_seconds`` accumulates the wall time of each stage of ``step``
 (odometry, keyframe store, loop verification, graph solve), each closed by
-a device synchronisation so the time lands in the stage that spent it.
+a device synchronisation so the time lands in the stage that spent it;
+``sweep_seconds`` splits a loop sweep's share the same way (candidates,
+verify, graph, re-anchor).
 
 With ``compiled`` (the default) the reference's compiled programs run as
 CUDA graph replays on a CUDA device and in their sync-free forms on the
@@ -25,15 +27,23 @@ keyframe store (the reference's ``_store_kf_device``: the scan padded or
 cut to P rows, its rows, the normals' covariances, the descriptor, the
 node and the odometry edge, with the keyframe index k and edge slot e as
 device scalars, so one capture serves every keyframe; the normals' eigh,
-which reads its status back, runs after the replay), each direction of
-the loop verification's batched ICP and the graph solves (see
-``registration.icp`` and ``graph.pose_graph``). ``compiled=False`` runs
-them all eagerly, with the same bits.
+which reads its status back, runs after the replay), the scan-context
+score of a sweep (``graph.scan_context.sc_distances``), each direction of
+the loop verification's batched ICP, the graph solves (see
+``registration.icp`` and ``graph.pose_graph``) and the rebuilds after an
+accepted loop: the host engine's map (``_rebuild_map_program``: the
+flatten, the empty map and the insert's body; its overflow flag read
+after it, the full merge eager on overflow) and the dense engine's
+windows (``_rebuild_grid_program``, one graph a window), each with n (and
+the centre) as device inputs, so one capture serves every sweep.
+``warm_up`` captures them before a stream. ``compiled=False`` runs them
+all eagerly, with the same bits.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -48,12 +58,14 @@ from tpu_slam_torch.graph.pose_graph import (PoseGraph, add_edge,
                                              drop_node_prefix, empty_graph,
                                              n_edges, optimize_pose_graph)
 from tpu_slam_torch.graph.scan_context import (propose_sc_candidates,
-                                               scan_context)
+                                               sc_distances, scan_context)
 from tpu_slam_torch.mapping.dense_map import (centered_origin_cell,
                                               empty_grid,
                                               empty_occupancy_grid,
                                               grid_insert)
-from tpu_slam_torch.mapping.voxel_map import empty_map, insert_cloud
+from tpu_slam_torch.mapping.voxel_map import (_insert_program,
+                                              _stamp_tensor, empty_map,
+                                              insert_cloud, settle_insert)
 from tpu_slam_torch.pipeline.config import SLAMConfig
 from tpu_slam_torch.pipeline.metrics import MetricsLog, ScanMetrics, Stopwatch
 from tpu_slam_torch.pipeline.odometry import LidarOdometry, OdometryState
@@ -62,9 +74,12 @@ from tpu_slam_torch.pipeline.odometry_dense import (DenseLidarOdometry,
 from tpu_slam_torch.registration.normals import (estimate_normals,
                                                  normal_covariances,
                                                  normals_from_covariances)
-from tpu_slam_torch.utils.capture import CapturedCall, replay
+from tpu_slam_torch.utils.capture import CapturedCall, compiled_call
 
 STAGES = ("odometry", "keyframe", "verify", "graph")
+# a loop sweep's parts: candidates and verification make the "verify"
+# stage, the solve and the re-anchor the "graph" stage
+SWEEP_STAGES = ("candidates", "verify", "graph", "reanchor")
 
 
 @dataclasses.dataclass
@@ -160,9 +175,17 @@ def _store_program(kf, g, k, e, scan_ds: PointCloud, pose, last_kf_pose, *,
 _stores: Dict[Tuple, CapturedCall] = {}
 
 
-def _flat_keyframes(poses, kf_points, kf_mask, n: int) -> PointCloud:
+def _count_tensor(n, device) -> torch.Tensor:
+    """``n`` (an int, or a device int tensor) as a () int32 tensor on
+    ``device``; an int is filled there, with no copy from the host."""
+    if isinstance(n, torch.Tensor):
+        return n.to(device=device, dtype=torch.int32)
+    return torch.full((), n, dtype=torch.int32, device=device)
+
+
+def _flat_keyframes(poses, kf_points, kf_mask, n) -> PointCloud:
     """Every keyframe cloud at its optimized pose as one (K*P,) cloud, the
-    keyframes from n on masked out."""
+    keyframes from n (an int or a device int tensor) on masked out."""
     K, P = kf_points.shape[:2]
     world = (torch.einsum("kij,kpj->kpi", poses[:, :3, :3], kf_points)
              + poses[:, None, :3, 3])
@@ -171,24 +194,69 @@ def _flat_keyframes(poses, kf_points, kf_mask, n: int) -> PointCloud:
                       mask=live.reshape(K * P))
 
 
-def _rebuild_map_batched(poses, kf_points, kf_mask, n: int, *, spec,
+def _rebuild_map_program(poses, kf_points, kf_mask, n, *, spec, capacity):
+    """The map rebuild's sync-free program (the reference's
+    ``_rebuild_map_batched``): the flatten, the empty map and the
+    incremental insert's body, every point stamped n, a () int32 device
+    tensor (so one capture serves every n). Returns the insert program's
+    (merged map, overflow flag, stats)."""
+    dev = kf_points.device
+    return _insert_program(empty_map(capacity, device=dev),
+                           _flat_keyframes(poses, kf_points, kf_mask, n),
+                           _stamp_tensor(n, dev), spec, incremental=True)
+
+
+def _rebuild_map_batched(poses, kf_points, kf_mask, n, *, spec,
                          capacity, compiled: bool = True):
     """Sparse-map rebuild from keyframes at optimized poses: one
     ``insert_cloud`` of every live keyframe point into an empty map, all
-    stamped n (recency restarts at the rebuild)."""
-    return insert_cloud(empty_map(capacity, device=kf_points.device),
-                        _flat_keyframes(poses, kf_points, kf_mask, n), spec,
-                        stamp=float(n), compiled=compiled)
+    stamped n (recency restarts at the rebuild). ``n``: an int or a device
+    int tensor. With ``compiled``, ``_rebuild_map_program`` (one graph
+    replay on a CUDA device), then its overflow flag read and, on
+    overflow, the full merge eagerly, as ``insert_cloud`` does."""
+    dev = kf_points.device
+    if not compiled:
+        return insert_cloud(empty_map(capacity, device=dev),
+                            _flat_keyframes(poses, kf_points, kf_mask, n),
+                            spec, stamp=n, compiled=False)
+    n = _count_tensor(n, dev)
+    program = functools.partial(_rebuild_map_program, spec=spec,
+                                capacity=capacity)
+    out = compiled_call(_map_rebuilds, program,
+                        (poses, kf_points, kf_mask, n),
+                        static=(spec, capacity))
+    return settle_insert(None, *out, n)
 
 
-def _rebuild_grid_batched(poses, kf_points, kf_mask, n: int, center, *,
-                          spec, dims, align):
-    """Dense-window rebuild from keyframes at optimized poses: re-center
-    the window on ``center``, then one grid_insert of every live keyframe
-    point at its optimized pose."""
+def _rebuild_grid_program(poses, kf_points, kf_mask, n, center, *, spec,
+                          dims, align):
+    """The dense-window rebuild's sync-free program (the reference's
+    ``_rebuild_grid_batched``): re-center the window on ``center``, then
+    one grid_insert of every live keyframe point at its optimized pose."""
     c0 = centered_origin_cell(center, spec, dims, align=align)
     return grid_insert(empty_grid(dims, c0),
                        _flat_keyframes(poses, kf_points, kf_mask, n), spec)
+
+
+def _rebuild_grid_batched(poses, kf_points, kf_mask, n, center, *,
+                          spec, dims, align, compiled: bool = True):
+    """Dense-window rebuild from keyframes at optimized poses
+    (``_rebuild_grid_program``); with ``compiled`` one graph replay on a
+    CUDA device for each (spec, dims, align), n and the centre its
+    inputs."""
+    program = functools.partial(_rebuild_grid_program, spec=spec, dims=dims,
+                                align=align)
+    if not compiled:
+        return program(poses, kf_points, kf_mask, n, center)
+    args = (poses, kf_points, kf_mask,
+            _count_tensor(n, kf_points.device), center)
+    return compiled_call(_grid_rebuilds, program, args,
+                         static=(spec, dims, align))
+
+
+# the captured rebuilds, by their inputs' signature and static args
+_map_rebuilds: Dict[Tuple, CapturedCall] = {}
+_grid_rebuilds: Dict[Tuple, CapturedCall] = {}
 
 
 class SLAMSystem:
@@ -218,6 +286,8 @@ class SLAMSystem:
         self.device = self.odometry.device
         self.metrics = MetricsLog()
         self.stage_seconds: Dict[str, float] = dict.fromkeys(STAGES, 0.0)
+        self.sweep_seconds: Dict[str, float] = dict.fromkeys(SWEEP_STAGES,
+                                                             0.0)
         self._pending_init_pose = None
         # per-sweep loop diagnostics (proposed pairs and each one's
         # outcome), filled when collect_loop_debug is True
@@ -229,7 +299,10 @@ class SLAMSystem:
         return self.config.odometry_engine == "dense"
 
     def _stage(self, name: str) -> "_StageTimer":
-        return _StageTimer(self, name)
+        return _StageTimer(self.device, self.stage_seconds, name)
+
+    def _sweep_stage(self, name: str) -> "_StageTimer":
+        return _StageTimer(self.device, self.sweep_seconds, name)
 
     # -- state ------------------------------------------------------------
 
@@ -255,10 +328,13 @@ class SLAMSystem:
 
     def warm_up(self, cloud: PointCloud) -> None:
         """Capture now what a stream of clouds of ``cloud``'s shapes (its
-        values are not used) would capture at its first scans (a compiled
-        system on a CUDA device; otherwise nothing): the host engine's
-        registrations and map insert, the graph solve and, on the host
-        engine, the keyframe store. The verification's ICP graphs are
+        values are not used) would capture at its first scans and loop
+        sweeps (a compiled system on a CUDA device; otherwise nothing):
+        the graph solve, the scan-context score, the after-loop rebuilds
+        (the map's on the host engine, the windows' on the dense engine;
+        from the state's own buffers, n = 0) and, on the host engine, its
+        registrations, map insert and options (``LidarOdometry.warm_up``)
+        and the keyframe store. The verification's ICP graphs are
         captured at their first batch of each size."""
         if not (self.compiled and self.device.type == "cuda"):
             return
@@ -267,10 +343,27 @@ class SLAMSystem:
             captured_solve(empty_graph(cfg.keyframe_capacity,
                                        cfg.edge_capacity, device=self.device),
                            cfg.graph)
-        if not self._dense:
-            self.odometry.warm_up(cloud)
-            self._store_keyframe(self.init_state(),
-                                 self.odometry.downsample(cloud))
+        pending = self._pending_init_pose
+        state = self.init_state()
+        self._pending_init_pose = pending
+        if cfg.loop.use_scan_context:
+            sc_distances(state.kf_desc[0], state.kf_desc)
+        rebuild = cfg.reanchor_after_loop and cfg.rebuild_map_after_loop
+        if self._dense:
+            if rebuild:
+                self._rebuild_grids(state, 0, state.last_kf_pose[:3, 3],
+                                    self.odometry.factor > 1)
+            return
+        self.odometry.warm_up(cloud)
+        counts = (insert_cloud.fallbacks, insert_cloud.incremental)
+        if rebuild:
+            _rebuild_map_batched(state.graph.poses, state.kf_points,
+                                 state.kf_mask, 0,
+                                 spec=self.odometry.map_spec,
+                                 capacity=cfg.odometry.map_capacity)
+        # they count the scans' inserts only
+        insert_cloud.fallbacks, insert_cloud.incremental = counts
+        self._store_keyframe(state, self.odometry.downsample(cloud))
 
     # -- keyframe policy --------------------------------------------------
 
@@ -402,9 +495,8 @@ class SLAMSystem:
         def program(*a):
             return _store_program(*a, **static)
 
-        kf, rows, pose, cov = (
-            replay(_stores, program, args, static=tuple(static.items()))
-            if dev.type == "cuda" else program(*args))
+        kf, rows, pose, cov = compiled_call(_stores, program, args,
+                                            static=tuple(static.items()))
         kf_normals = state.kf_normals
         if loop.plane_verify:
             kf_normals = _set_row(kf_normals, k, normals_from_covariances(
@@ -443,7 +535,7 @@ class SLAMSystem:
             si, sj = propose_sc_candidates(
                 state.kf_desc[n - 1], state.kf_desc, n - 1, n,
                 cfg.loop.sc_max_distance, cfg.loop.min_index_gap,
-                cfg.loop.sc_top_k)
+                cfg.loop.sc_top_k, compiled=self.compiled)
             pairs = {(int(a), int(b)) for a, b in zip(ci, cj)}
             # appearance matches beyond the drift budget are place-aliases
             new = [(a, b) for a, b in zip(si, sj)
@@ -462,7 +554,8 @@ class SLAMSystem:
         cfg = self.config
         n = state.n_keyframes
         with self._stage("verify"):
-            ci, cj = self._candidates(state)
+            with self._sweep_stage("candidates"):
+                ci, cj = self._candidates(state)
             if ci.size == 0:
                 if self.collect_loop_debug:
                     self.loop_debug.append({"n": n, "pairs": []})
@@ -470,12 +563,14 @@ class SLAMSystem:
             # the batch holds the real pairs only: pairs are independent in
             # the batched solve, so the reference's padding to
             # max_candidates (there to avoid recompiles) changes nothing
-            res, accept = verify_candidates(
-                state.kf_points, state.kf_mask, state.graph.poses, ci, cj,
-                cfg.loop,
-                clouds_normals=(state.kf_normals if cfg.loop.plane_verify
-                                else None), compiled=self.compiled)
-            accept_np = accept.cpu().numpy()
+            with self._sweep_stage("verify"):
+                res, accept = verify_candidates(
+                    state.kf_points, state.kf_mask, state.graph.poses, ci,
+                    cj, cfg.loop,
+                    clouds_normals=(state.kf_normals
+                                    if cfg.loop.plane_verify else None),
+                    compiled=self.compiled)
+                accept_np = accept.cpu().numpy()
         tried = dict(state.tried_pairs)
         for a, b, ok in zip(ci, cj, accept_np):
             if not ok:
@@ -487,7 +582,7 @@ class SLAMSystem:
         if not accept_np.any():
             return state, 0
 
-        with self._stage("graph"):
+        with self._stage("graph"), self._sweep_stage("graph"):
             graph = state.graph
             accepted = np.nonzero(accept_np)[0]
             # edge capacity nearly full: the next keyframe store slides the
@@ -505,7 +600,8 @@ class SLAMSystem:
             state = dataclasses.replace(
                 state, graph=graph, loop_pairs=loop_pairs,
                 n_loop_closures=state.n_loop_closures + len(accepted))
-            if cfg.reanchor_after_loop:
+        if cfg.reanchor_after_loop:
+            with self._stage("graph"), self._sweep_stage("reanchor"):
                 state = self._reanchor(state)
         return state, len(accepted)
 
@@ -559,22 +655,28 @@ class SLAMSystem:
             # the cached NDT field is stale after a rebuild
             odom = dataclasses.replace(odom, vmap=vmap, field=None)
         elif self.config.rebuild_map_after_loop:
-            o = self.odometry
-            rebuild = dict(poses=graph.poses, kf_points=state.kf_points,
-                           kf_mask=state.kf_mask, n=n,
-                           center=new_pose[:3, 3], dims=o.dims)
-            grid = _rebuild_grid_batched(**rebuild, spec=o.map_spec,
-                                         align=o.factor)
-            wide = odom.wide
-            if wide is not None:
-                wide = _rebuild_grid_batched(**rebuild, spec=o.coarse_spec,
-                                             align=1)
+            grid, wide = self._rebuild_grids(state, n, new_pose[:3, 3],
+                                             odom.wide is not None)
             occ = odom.occ
             if occ is not None:
-                occ = empty_occupancy_grid(o.dims, grid.origin_cell)
+                occ = empty_occupancy_grid(self.odometry.dims,
+                                           grid.origin_cell)
             odom = dataclasses.replace(odom, grid=grid, wide=wide, occ=occ)
         return dataclasses.replace(state, odom=odom, last_kf_pose=new_kf,
                                    last_kf_pose_np=new_kf.cpu().numpy())
+
+    def _rebuild_grids(self, state: SLAMState, n, center, wide: bool):
+        """The dense engine's fine window (and the wide one when ``wide``,
+        else None) rebuilt from the first n keyframes, centred on
+        ``center``."""
+        o = self.odometry
+        rebuild = dict(poses=state.graph.poses, kf_points=state.kf_points,
+                       kf_mask=state.kf_mask, n=n, center=center,
+                       dims=o.dims, compiled=self.compiled)
+        grid = _rebuild_grid_batched(**rebuild, spec=o.map_spec,
+                                     align=o.factor)
+        return grid, (_rebuild_grid_batched(**rebuild, spec=o.coarse_spec,
+                                            align=1) if wide else None)
 
     # -- main entry -------------------------------------------------------
 
@@ -632,13 +734,13 @@ class SLAMSystem:
 
 
 class _StageTimer(Stopwatch):
-    """Adds a synchronised stage's wall time to ``system.stage_seconds``."""
+    """Adds a synchronised stage's wall time to ``table[name]``."""
 
-    def __init__(self, system: SLAMSystem, name: str):
-        super().__init__(system.device)
-        self.system, self.name = system, name
+    def __init__(self, device, table: Dict[str, float], name: str):
+        super().__init__(device)
+        self.table, self.name = table, name
 
     def __exit__(self, *exc):
         super().__exit__(*exc)
-        self.system.stage_seconds[self.name] += self.elapsed
+        self.table[self.name] += self.elapsed
         return False

@@ -3,8 +3,10 @@
 The port's counterpart of ``jax.jit`` for its compiled programs: the dense
 engine's step, the pose-graph solve, ``ndt_register`` (the host engine's
 registrations, config 3), ``JitLidarOdometry``'s step, ``icp_raster`` and
-the batched ``icp``, the map insert, the keyframe store and the live
-chain's scan line.
+the batched ``icp``, the map insert, the keyframe store, the live chain's
+scan line, the SLAM sweep's map and grid rebuilds and ``sc_distance``, and
+the host engine's options (``coarsen_map``, ``occupancy_maintain``,
+``deskew_cloud``).
 ``Captured(fn, device)`` runs ``fn`` once on a side stream (the warm-up
 PyTorch asks for: the libraries' handles and workspaces and the nvcc build
 of a kernel come up there), then records it into a ``torch.cuda.CUDAGraph``
@@ -19,10 +21,12 @@ returns copies of the outputs. ``replay(cache, fn, args, static)`` keeps
 one for each ``signature((args, static))``: the structure, each tensor's
 shape, strides, dtype and device (a kernel's choice, and so its bits, may
 follow the strides) and the other values (specs, parameters, window
-dims). ``CapturedStep(fn, state, args)`` is for a ``fn(state, *args)``
-that updates ``state``'s tensors in place (the aggregator's line): the
-graph's state is a static copy that each call returns, and a call copies
-a state in only when it is not the graph's own.
+dims); ``compiled_call`` is ``replay`` on a CUDA device and ``fn`` run
+eagerly elsewhere. ``CapturedStep(fn, state, args)`` is for a
+``fn(state, *args)`` that updates ``state``'s tensors in place (the
+aggregator's line): the graph's state is a static copy that each call
+returns, and a call copies a state in only when it is not the graph's
+own.
 
 A capture or a replay that fails raises; nothing falls back to running
 ``fn`` eagerly. The capture is ``thread_local``: another thread (the live
@@ -187,6 +191,16 @@ def replay(cache: Dict, fn: Callable, args: Sequence, static: Any = (),
     if cap is None:
         cap = cache[key] = CapturedCall(fn, args, counters=counters)
     return cap(*args)
+
+
+def compiled_call(cache: Dict, fn: Callable, args: Sequence,
+                  static: Any = (), counters: Sequence = ()):
+    """``fn(*args)``: ``replay``'s graph on a CUDA device; on another
+    device ``fn`` itself, run eagerly (the sync-free body the graph
+    records)."""
+    if tensors_of(args)[0].device.type != "cuda":
+        return fn(*args)
+    return replay(cache, fn, args, static=static, counters=counters)
 
 
 class CapturedStep:
