@@ -57,9 +57,9 @@ Phases, each printing one JSON line:
                through its first accepting sweep against the slam run
                there (poses and state bit-equal, stage seconds), and the
                sweep's and the final refinement's graph solves on the
-               run's final graph (seconds, launches a GN iteration,
-               bit-equal; the refinement's first 4 of its 40 GN
-               iterations)
+               run's final graph (seconds, bit-equal, the captured form's
+               launches a GN iteration; the refinement's first 4 of its
+               40 GN iterations)
   kernels      nn_search against its plain version: a verification batch
                of the slam run's own keyframes (6 pairs x 4,096 points), a
                seeded edge case (ties, padding, ragged sizes, one pair) and
@@ -180,7 +180,17 @@ Phases, each printing one JSON line:
                (the heartbeat, healthy and with a hung probe); every rank
                bit-identical; then dist_map, dist_icp and dist_graph at
                world size 1 on NCCL (bit-equality to the single device
-               recorded), and what NCCL says to two ranks on one card
+               recorded; its Schur solves captured, the default there);
+               the compiled programs (case "compiled"): compiled=True
+               refused on the gloo ranks, the sharded dense step and the
+               float32 Schur solve on the NCCL rank on both forms
+               (compiled=False and the captured default, its collectives
+               in the graph) and the single-process Schur solve on both
+               forms in this process: bit-equal, every replay under
+               sync-debug "error", one graph a signature, step and solve
+               seconds, launches, graph launches and reads of a step and
+               of a GN iteration; and what NCCL says to two ranks on one
+               card
   kernels      ndt_terms on rank 0's share of dist_map's terms pass and
                nn_search on rank 0's verification shard
   live         the rotating unit's live chain: an LMS100 (541 beams, 270
@@ -233,12 +243,20 @@ Phases, each printing one JSON line:
   kernels      ndt_terms on the survey's fine field, nn_search on its
                verification batch
   calibration  720 segments x 541 beams (389,520 raw points) in the
-               reference test's room with its TRUE_PARAMS, CalibConfig():
-               twiddle (2,000 evaluations at most), annealing (seed 0), the
-               gradient solver (200 Adam steps), each one's gauge error
+               reference test's room with its TRUE_PARAMS, CalibConfig(),
+               every program on both forms (compiled=False and the
+               captured default, every replay under sync-debug "error",
+               one graph a signature): overlap_cost at 6 vectors and alone
+               (ms, launches, graph launches, H2D copies and reads a call
+               and a twiddle evaluation), a gradient step alone and a
+               10-step solve profiled (reads a solve), two eager solves
+               bit-equal; twiddle (2,000 evaluations at most), annealing
+               (seed 0) and the gradient solver (200 Adam steps) on both
+               forms (the same path bit for bit), each one's gauge error
                against the truth (bars 0.04 and 0.025, annealing's cost no
-               higher than its start), evaluations/s, ms an overlap_cost and
-               a gradient step, the verification's matched fraction
+               higher than its start), seconds and evaluations/s, the
+               verification's matched fraction; the synthetic ray caster
+               on a city scan (65,536 rays x 321 patches) on both forms
 
 then the script's total seconds, the card's name and power limit
 (nvidia-smi), one JSON line with every kernel's numbers, and as the last
@@ -1433,10 +1451,11 @@ def compiled_config4(run, clouds, gt):
 def compiled_graph_solves(graph):
     """The config-4 sweep's solve and the final refinement on the run's
     final graph, eager and captured: seconds, the result bit-equal; the
-    launches of one GN iteration from the profiler (the runtime's kernel
-    and graph launches, the device's kernels). The refinement runs its
-    first COMPILED_REFINE_GN GN iterations here (the whole refinement runs
-    captured in the slam and slam_resume phases)."""
+    captured form's launches of one GN iteration from the profiler (the
+    runtime's kernel and graph launches, the device's kernels; PERF.md
+    holds the eager form's, which are not repeated here). The
+    refinement runs its first COMPILED_REFINE_GN GN iterations here (the
+    whole refinement runs captured in the slam and slam_resume phases)."""
     import dataclasses
 
     import torch
@@ -1458,6 +1477,11 @@ def compiled_graph_solves(graph):
                                              compiled=compiled)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
+            row[label] = dict(
+                seconds=secs,
+                seconds_per_gn_iteration=secs / params.gn_iterations)
+            if not compiled:
+                continue
             one = dataclasses.replace(params, gn_iterations=1)
             optimize_pose_graph(graph, one, compiled=compiled)
             torch.cuda.synchronize()
@@ -1466,15 +1490,12 @@ def compiled_graph_solves(graph):
                 optimize_pose_graph(graph, one, compiled=compiled)
                 torch.cuda.synchronize()
             ka = prof.key_averages()
-            row[label] = dict(
-                seconds=secs,
-                seconds_per_gn_iteration=secs / params.gn_iterations,
-                gn_iteration=dict(
-                    kernel_launches=sum(e.count for e in ka
-                                        if e.key in KERNEL_LAUNCHES),
-                    graph_launches=sum(e.count for e in ka
-                                       if e.key in GRAPH_LAUNCHES),
-                    device_kernels=device_kernel_count(ka)))
+            row[label]["gn_iteration"] = dict(
+                kernel_launches=sum(e.count for e in ka
+                                    if e.key in KERNEL_LAUNCHES),
+                graph_launches=sum(e.count for e in ka
+                                   if e.key in GRAPH_LAUNCHES),
+                device_kernels=device_kernel_count(ka))
         row["bit_equal"] = bool(
             torch.equal(res["eager"][0].poses, res["captured"][0].poses)
             and torch.equal(res["eager"][1], res["captured"][1]))
@@ -3074,7 +3095,9 @@ def compiled_jit_cases(c2_clouds, c2_gt):
 def compiled_config1(pairs):
     """Config 1's raster tier (coarse then fine icp_raster) at each size on
     both forms: results bit-equal, recovery errors, registrations/s (p50
-    of C1_TIMED), launches, host syncs and H2D copies a registration."""
+    of C1_TIMED), launches, host syncs and H2D copies a registration; the
+    captured form's icp_terms us a call in the graph (PERF.md holds the
+    eager form's)."""
     import torch
 
     from tpu_slam_torch.kernels.icp_terms import icp_terms_raster
@@ -3097,14 +3120,13 @@ def compiled_config1(pairs):
                 iterations=[int(r.iterations) for r in res[form]],
                 replays_checked=chk.calls,
                 icp_terms_calls=prof["counted_launches"],
-                icp_terms_us_per_call=terms_us_in_graph(
-                    lambda c=compiled: raster_register(src, tgt,
-                                                       compiled=c),
-                    "icp_terms", prof["counted_launches"]),
                 kernel_launches=prof["kernel_launches"],
                 host_syncs=prof["host_syncs"],
                 htod_copies=prof["htod_copies"],
                 device_idle_share=prof["device_idle_share"])
+        row["captured"]["icp_terms_us_per_call"] = terms_us_in_graph(
+            lambda: raster_register(src, tgt), "icp_terms",
+            row["captured"]["icp_terms_calls"])
         row["bit_equal"] = all(same_tensors(a, b) for a, b in
                                zip(res["eager"], res["captured"]))
         out[label] = row
@@ -5206,68 +5228,216 @@ def phase_compiled_host(survey, c2_clouds, c2_gt):
     return launches
 
 
+CALIB_PROGRAM_VECTORS = 6     # parameter vectors of overlap_cost, both forms
+CALIB_PROFILED_STEPS = 10      # steps of a gradient solve profiled, each form
+
+
+def calibration_programs(data, cfg, true):
+    """overlap_cost and a gradient step alone on both forms
+    (program_pair: bits, p50 ms, launches, graph launches, H2D copies and
+    reads a call), the cost at CALIB_PROGRAM_VECTORS vectors bit for bit,
+    one twiddle evaluation (the copy in, the cost, the read of its accept
+    test) profiled on each form, a captured gradient solve of
+    CALIB_PROFILED_STEPS steps profiled (its reads), two eager gradient
+    solves against each other."""
+    import torch
+
+    from tpu_slam_torch.ingest import calibration as cal
+
+    zero = np.zeros(5, np.float32)
+    rng = np.random.default_rng(0)
+    vecs = [true, zero] + [rng.normal(0, 0.02, 5).astype(np.float32)
+                           for _ in range(CALIB_PROGRAM_VECTORS - 2)]
+    before = cache_replays(cal._costs)
+    with replays_sync_checked() as chk:
+        got = [cal.overlap_cost(data, v, cfg) for v in vecs]
+    want = [cal.overlap_cost(data, v, cfg, compiled=False) for v in vecs]
+    costs = dict(vectors=len(vecs), costs=[int(c) for c in got],
+                 bit_equal=all(torch.equal(a, b) for a, b in zip(got, want)),
+                 replays_checked=chk.calls,
+                 use=cache_use(cal._costs, before),
+                 alone=program_pair(
+                     lambda: cal.overlap_cost(data, zero, cfg,
+                                              compiled=False),
+                     lambda: cal.overlap_cost(data, zero, cfg)),
+                 evaluation={form: run_profile(
+                     lambda c=c: int(cal.overlap_cost(data, zero, cfg,
+                                                      compiled=c)), 1)
+                     for form, c in (("eager", False), ("captured", True))})
+
+    def fresh():
+        p = torch.zeros(5, device=data.device)
+        return cal.GradientState(p, cal.adam_init(p), torch.zeros(
+            CALIB_GRADIENT_STEPS, device=data.device))
+
+    lr = 3e-3
+    before = cache_replays(cal._grad_steps)
+    held = dict(eager=fresh(), captured=fresh())
+    step = cal._captured_gradient_step(held["captured"], data, cfg, lr)
+
+    def eager_step():
+        held["eager"] = cal._gradient_step(held["eager"], data, cfg, lr)
+        return held["eager"]
+
+    def captured_step():
+        held["captured"] = step(held["captured"], data)
+        return held["captured"]
+
+    grad = dict(alone=program_pair(eager_step, captured_step),
+                use=cache_use(cal._grad_steps, before))
+    grad["solve_profile"] = dict(captured=run_profile(
+        lambda: cal.calibrate_gradient(data, cfg,
+                                       steps=CALIB_PROFILED_STEPS),
+        CALIB_PROFILED_STEPS))
+    twice = [cal.calibrate_gradient(data, cfg, steps=2, compiled=False)
+             for _ in range(2)]
+    grad["eager_repeats"] = bool(
+        np.array_equal(twice[0].params5, twice[1].params5)
+        and twice[0].history == twice[1].history)
+    return costs, grad
+
+
+def calibration_solves(data, cfg, true):
+    """Twiddle, annealing and the gradient solver on both forms
+    (compiled=False, then the captured default under sync-debug "error"):
+    seconds, evaluations and evaluations/s, costs, parameters and gauge
+    errors; the captured solve's path against the eager one's (parameters,
+    history, evaluations bit for bit)."""
+    import torch
+
+    from tpu_slam_torch.ingest.calibration import (calibrate_gradient,
+                                                   calibrate_sa,
+                                                   calibrate_twiddle)
+
+    out = {}
+    for name, solve in (
+            ("twiddle", lambda c: calibrate_twiddle(data, cfg, compiled=c)),
+            ("sa", lambda c: calibrate_sa(data, cfg, seed=0, compiled=c)),
+            ("gradient", lambda c: calibrate_gradient(
+                data, cfg, steps=CALIB_GRADIENT_STEPS, compiled=c))):
+        row, res = {}, {}
+        for form, compiled in (("eager", False), ("captured", True)):
+            with replays_sync_checked() as chk:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                r = res[form] = solve(compiled)
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t1
+            row[form] = dict(seconds=sec, evaluations=r.evaluations,
+                             evaluations_per_s=r.evaluations / sec,
+                             cost=r.cost, start_cost=r.history[0],
+                             params5=[float(v) for v in r.params5],
+                             gauge_error=gauge_error(r.params5, true),
+                             replays_checked=chk.calls)
+        e, c = res["eager"], res["captured"]
+        row["bit_equal"] = bool(np.array_equal(e.params5, c.params5)
+                                and e.history == c.history
+                                and e.evaluations == c.evaluations
+                                and e.cost == c.cost)
+        out[name] = row
+    return out
+
+
+def raycast_pair(device="cuda"):
+    """The synthetic ray caster on one city scan (config 2's first pose,
+    65,536 rays against dense_city's 321 patches) on both forms: the
+    ranges bit for bit, p50 ms a scan (inputs copied in, ranges read
+    back), the replays checked, the graph used (captured by the script's
+    city scans, or here when run alone)."""
+    from tpu_slam_torch.ingest import synthetic as syn
+
+    world = syn.dense_city(extent=200.0, seed=0)
+    T = city_route(N_SCANS)[0]
+    d = syn.vlp16_directions(4096) @ T[:3, :3].T
+    o = np.broadcast_to(T[:3, 3], d.shape)
+    before = cache_replays(syn._raycasts)
+    row, res = {}, {}
+    for form, compiled in (("eager", False), ("captured", True)):
+        def cast(c=compiled):
+            return world.raycast(o, d, 75.0, device=device, compiled=c)
+
+        with replays_sync_checked() as chk:
+            res[form] = cast()
+            row[form] = dict(ms_p50=host_ms(cast, 5),
+                             replays_checked=chk.calls)
+    row.update(rays=int(d.shape[0]), patches=len(world.patches),
+               hits=int(np.isfinite(res["eager"]).sum()),
+               bit_equal=bool(np.array_equal(res["eager"],
+                                             res["captured"])),
+               use=cache_use(syn._raycasts, before))
+    return row
+
+
 def phase_calibration():
     """The extrinsic calibration at full width on the card: 720 segments
     x 541 beams (389,520 raw points), CalibConfig() at its defaults;
-    twiddle, annealing, the gradient solver and the verification."""
-    import torch
-
+    overlap_cost, the gradient step, twiddle, annealing and the gradient
+    solver each on both forms (the captured default and compiled=False:
+    bit-equal, no read inside a replay, one capture each), the solves to
+    the reference tests' bars, the verification; then the synthetic ray
+    caster's two forms on a city scan."""
     from tpu_slam_torch.ingest.calibration import (CalibConfig,
-                                                   calibrate_gradient,
-                                                   calibrate_sa,
-                                                   calibrate_twiddle,
                                                    export_verification,
-                                                   overlap_cost,
-                                                   soft_overlap_cost)
+                                                   overlap_cost)
 
+    parts = PartTimer()
     t0 = time.perf_counter()
     data = calibration_capture("cuda")
     capture_s = time.perf_counter() - t0
     cfg = CalibConfig()
     true = np.asarray(CALIB_TRUE, np.float32)
     zero = np.zeros(5, np.float32)
-    cost_ms = time_ms(lambda: overlap_cost(data, zero, cfg), 20)
-
-    def grad_step():
-        p = torch.zeros(5, device="cuda", requires_grad=True)
-        soft_overlap_cost(data, p, cfg).backward()
-        return p.grad
-
-    grad_ms = time_ms(grad_step, 10)
-    out = {}
-    for name, solve in (
-            ("twiddle", lambda: calibrate_twiddle(data, cfg)),
-            ("sa", lambda: calibrate_sa(data, cfg, seed=0)),
-            ("gradient", lambda: calibrate_gradient(
-                data, cfg, steps=CALIB_GRADIENT_STEPS))):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        res = solve()
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t1
-        out[name] = dict(seconds=sec, evaluations=res.evaluations,
-                         evaluations_per_s=res.evaluations / sec,
-                         cost=res.cost, start_cost=res.history[0],
-                         params5=[float(v) for v in res.params5],
-                         gauge_error=gauge_error(res.params5, true))
-    verify = export_verification(data, out["gradient"]["params5"], cfg)
+    costs, grad = parts("programs", calibration_programs, data, cfg, true)
+    out = parts("solves", calibration_solves, data, cfg, true)
+    verify = export_verification(data, out["gradient"]["captured"]["params5"],
+                                 cfg)
     verify_true = export_verification(data, true, cfg)
+    raycast = parts("raycast", raycast_pair)
     emit("calibration", segments=int(data.points.shape[0]),
          beams=int(data.points.shape[1]),
          raw_points=int(data.valid.numel()),
          valid_points=int(data.valid.sum()), capture_seconds=capture_s,
-         overlap_cost_ms=cost_ms, gradient_step_ms=grad_ms,
+         overlap_cost=costs, gradient_step=grad,
          cost_at_truth=int(overlap_cost(data, true, cfg)),
          cost_at_zero=int(overlap_cost(data, zero, cfg)),
          solvers=out, verification=verify,
-         verification_at_truth=verify_true,
-         bars=dict(twiddle=CALIB_TWIDDLE_BAR, gradient=CALIB_GRADIENT_BAR))
-    if not out["twiddle"]["gauge_error"] < CALIB_TWIDDLE_BAR:
-        raise AssertionError(f"twiddle gauge error {out['twiddle']}")
-    if not out["gradient"]["gauge_error"] < CALIB_GRADIENT_BAR:
-        raise AssertionError(f"gradient gauge error {out['gradient']}")
-    if not out["sa"]["cost"] <= out["sa"]["start_cost"]:
-        raise AssertionError(f"annealing raised the cost {out['sa']}")
+         verification_at_truth=verify_true, raycast=raycast,
+         bars=dict(twiddle=CALIB_TWIDDLE_BAR, gradient=CALIB_GRADIENT_BAR),
+         part_seconds=parts.seconds)
+    failed = []
+    if not (costs["bit_equal"] and costs["alone"]["bit_equal"]):
+        failed.append("overlap_cost: captured and eager differ")
+    if not (grad["alone"]["bit_equal"] and grad["eager_repeats"]):
+        failed.append("gradient step: captured and eager differ, or two "
+                      "eager solves do")
+    # the city scans at the script's start captured the ray caster's graph
+    # for this signature already (none of this phase's calls captures it
+    # again); a call alone captures it here
+    ray = raycast["use"]
+    if (costs["use"]["captured"] != 1 or grad["use"]["captured"] != 1
+            or ray["captured"] > 1
+            or ray["replays"] != [raycast["captured"]["replays_checked"]]):
+        failed.append("a calibration or ray-caster program captured other "
+                      "than once a signature")
+    if grad["solve_profile"]["captured"]["dtoh_reads"] * (
+            CALIB_PROFILED_STEPS) > 1:
+        failed.append(f"calibrate_gradient read back more than once: "
+                      f"{grad['solve_profile']['captured']}")
+    for name, row in out.items():
+        if not row["bit_equal"]:
+            failed.append(f"{name}: the captured solve left the eager "
+                          "one's path")
+    if not raycast["bit_equal"]:
+        failed.append("the captured ray caster differs from the eager one")
+    tw, gr, sa = (out[k]["captured"] for k in ("twiddle", "gradient", "sa"))
+    if not tw["gauge_error"] < CALIB_TWIDDLE_BAR:
+        failed.append(f"twiddle gauge error {tw}")
+    if not gr["gauge_error"] < CALIB_GRADIENT_BAR:
+        failed.append(f"gradient gauge error {gr}")
+    if not sa["cost"] <= sa["start_cost"]:
+        failed.append(f"annealing raised the cost {sa}")
+    if failed:
+        raise AssertionError("; ".join(failed))
 
 
 def phase_live_kernels(terms_args, nn_args):
@@ -5464,22 +5634,11 @@ def dist_map_rank(mesh, job):
 def dist_dense_rank(mesh, job):
     """dense_step_sharded over config 2's scans through the turn from this
     rank's x-chunk of the engine's first window."""
-    import torch
-
     from tpu_slam_torch.distributed.dense_shard import dense_step_sharded
     from tpu_slam_torch.kernels.ndt_terms import ndt_terms, ndt_terms_plain
 
-    dev = mesh.device
     dims = job["dims"]
-    per = dims[0] // mesh.size * dims[1] * dims[2]
-    rows0 = np.load(job["rows"], mmap_mode="r")
-    rows = torch.as_tensor(np.array(rows0[mesh.rank * per:
-                                          (mesh.rank + 1) * per]),
-                           device=dev)
-    oc = torch.as_tensor(job["origin_cell"], device=dev)
-    pose = torch.as_tensor(job["pose"], device=dev)
-    delta = torch.as_tensor(job["delta"], device=dev)
-    scans = [_cloud(s, dev) for s in job["scans"]]
+    rows, oc, pose, delta, scans = _dense_rank_inputs(mesh, job)
     poses, metrics, step_s = [], [], []
     plain_before = ndt_terms_plain.launches
     _sync()
@@ -5527,12 +5686,17 @@ def dist_icp_rank(mesh, job):
                 converged=res.converged.cpu().numpy())
 
 
-def _rank_launches(mesh, fn):
+def _rank_launches(mesh, fn, warm=False):
     """Kernel launches and host syncs of one call of ``fn`` on rank 0,
-    under torch.profiler; the other ranks make the same call unprofiled."""
+    under torch.profiler, with ``warm`` after a call unprofiled (a
+    captured form's capture); the other ranks make the same calls
+    unprofiled."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    if warm:
+        fn()
+        _sync()
     if mesh.rank != 0:
         fn()
         _sync()
@@ -5551,11 +5715,14 @@ def _rank_launches(mesh, fn):
 
 def dist_graph_rank(mesh, job):
     """The edge-sharded PCG and the Schur solves on the slam run's graph,
-    each timed; then one GN iteration of each float32 solve with rank 0
-    under the profiler (kernel launches an iteration; a whole PCG solve,
-    ~70,000 launches, takes the profiler minutes)."""
+    each timed (the Schur solve in its default form: eager on gloo,
+    captured on NCCL, its first call the capture); then one GN iteration
+    of each float32 solve with rank 0 under the profiler (kernel launches
+    an iteration; a whole PCG solve, ~70,000 launches, takes the profiler
+    minutes)."""
     import dataclasses
 
+    from tpu_slam_torch.distributed.mesh import captured_form
     from tpu_slam_torch.distributed.pose_graph_dist import \
         optimize_pose_graph_sharded
     from tpu_slam_torch.distributed.schur import optimize_pose_graph_schur
@@ -5570,13 +5737,122 @@ def dist_graph_rank(mesh, job):
         t0 = time.perf_counter()
         g, chi2 = solvers[solver](mesh, graph, params)
         _sync()
+        captured = solver == "schur" and captured_form(mesh, None)
         out[name] = dict(seconds=time.perf_counter() - t0,
                          collectives=mesh.stats.as_dict(),
-                         poses=g.poses.cpu().numpy(), chi2=float(chi2))
+                         poses=g.poses.cpu().numpy(), chi2=float(chi2),
+                         form="captured" if captured else "eager")
         if dtype == "float32":
             one = dataclasses.replace(params, gn_iterations=1)
             out[name]["per_gn_iteration"] = _rank_launches(
-                mesh, lambda: solvers[solver](mesh, graph, one))
+                mesh, lambda: solvers[solver](mesh, graph, one),
+                warm=captured)
+    return out
+
+
+def _dense_rank_inputs(mesh, job):
+    """This rank's x-chunk of the dense job's first window, its origin,
+    pose and delta, and the scans, on the rank's device."""
+    import torch
+
+    dev = mesh.device
+    dims = job["dims"]
+    per = dims[0] // mesh.size * dims[1] * dims[2]
+    rows0 = np.load(job["rows"], mmap_mode="r")
+    rows = torch.as_tensor(np.array(rows0[mesh.rank * per:
+                                          (mesh.rank + 1) * per]),
+                           device=dev)
+    return (rows, torch.as_tensor(job["origin_cell"], device=dev),
+            torch.as_tensor(job["pose"], device=dev),
+            torch.as_tensor(job["delta"], device=dev),
+            [_cloud(sc, dev) for sc in job["scans"]])
+
+
+def dist_compiled_rank(mesh, job):
+    """The layer's compiled programs on this rank. On gloo: compiled=True
+    raises for the sharded dense step and the Schur solve (gloo runs their
+    eager forms). On NCCL: the dense job's steps and the graph job's
+    float32 Schur solve on both forms (compiled=False, then the captured
+    default, every replay under sync-debug "error"): the results, the
+    seconds of each step (the first captured one with its capture) and
+    solve (captured by the graph job), ndt_terms launches, one step's and
+    one GN iteration's launches, graph launches and reads (run_profile),
+    the graphs held."""
+    import dataclasses
+
+    from tpu_slam_torch.distributed import dense_shard, schur
+    from tpu_slam_torch.distributed.mesh import captured_form
+    from tpu_slam_torch.kernels.ndt_terms import ndt_terms
+
+    dense, gjob = job["dense"], job["graph"]
+    rows0, oc, pose0, delta0, scans = _dense_rank_inputs(mesh, dense)
+    _, _, gparams, dtype = [x for x in gjob["solves"]
+                            if x[0] == "schur"][0]
+    graph = _graph_torch(gjob["graph"], mesh.device, dtype)
+    spec, dims, params = dense["spec"], dense["dims"], dense["params"]
+
+    def step(args, compiled):
+        return dense_shard.dense_step_sharded(
+            mesh, *args, spec, dims, params, compiled=compiled,
+            **dense["gates"])
+
+    def solve(p, compiled):
+        return schur.optimize_pose_graph_schur(mesh, graph, p,
+                                               compiled=compiled)
+
+    if not captured_form(mesh, None):
+        raised = []
+        for fn in (lambda: step((rows0, oc, pose0, delta0, scans[0]), True),
+                   lambda: solve(gparams, True)):
+            try:
+                fn()
+                raised.append(False)
+            except ValueError:
+                raised.append(True)
+        return dict(form="eager", compiled_true_raises=raised)
+
+    out, kept = dict(form="captured"), {}
+    for form, compiled in (("eager", False), ("captured", None)):
+        reset_launches(ndt_terms)
+        rows, pose, delta = rows0, pose0, delta0
+        results, step_s, solve_s = [], [], []
+        with replays_sync_checked() as chk:
+            for scan in scans:
+                args = (rows, oc, pose, delta, scan)
+                _sync()
+                t0 = time.perf_counter()
+                rows, pose, delta, m = res = step(args, compiled)
+                _sync()
+                step_s.append(time.perf_counter() - t0)
+                results.append(res)
+            launches = launches_of(ndt_terms)
+            for _ in range(2):
+                _sync()
+                t0 = time.perf_counter()
+                results.append(solve(gparams, compiled))
+                _sync()
+                solve_s.append(time.perf_counter() - t0)
+        kept[form] = results
+        one = dataclasses.replace(gparams, gn_iterations=1)
+        out[form] = dict(
+            poses=np.stack([r[1].cpu().numpy() for r in results[:-2]]),
+            metrics=np.stack([r[3].cpu().numpy() for r in results[:-2]]),
+            step_s=step_s, ndt_terms_launches=launches,
+            step_profile=run_profile(lambda: step(args, compiled), 1),
+            schur_poses=results[-1][0].poses.cpu().numpy(),
+            schur_chi2=[float(c) for _, c in results[-2:]],
+            schur_s=solve_s,
+            schur_chi2_on_device=all(c.is_cuda for _, c in results[-2:]),
+            gn_iteration_profile=run_profile(lambda: solve(one, compiled),
+                                             1),
+            replays_checked=chk.calls)
+    out["bit_equal"] = all(same_tensors(a, b) for a, b in
+                           zip(kept["eager"], kept["captured"]))
+    # the graphs this rank holds: the step's, and the Schur solve's for
+    # each params and dtype it ran (the graph job's float32 and float64
+    # solves and one-iteration profile, which this job replays)
+    out["graphs"] = dict(dense_step=len(dense_shard._steps),
+                         schur=len(schur._solves))
     return out
 
 
@@ -5603,7 +5879,8 @@ def dist_rank_body(mesh, jobs):
     for name in sorted(p.stem for p in _build.CSRC.glob("*.cu")):
         _build.load(name)
     run = dict(map=dist_map_rank, dense=dist_dense_rank, icp=dist_icp_rank,
-               graph=dist_graph_rank, health=dist_health_rank)
+               graph=dist_graph_rank, health=dist_health_rank,
+               compiled=dist_compiled_rank)
     out = dict(device=str(mesh.device), backend=mesh.backend)
     for name, job in jobs:
         torch.cuda.reset_peak_memory_stats()
@@ -5887,6 +6164,56 @@ def _bit_identical(got, key, fields):
                                for out in got])
 
 
+def schur_single(graph_job, graph_ref):
+    """optimize_pose_graph_schur(None, ...) on the slam run's graph in
+    float32 (dist_graph's "schur" params) on both forms (compiled=False,
+    then the captured default, its replays under sync-debug "error"):
+    poses and chi^2 bit for bit and against the dense solve, the seconds
+    of a solve (the capture apart), the captured form's launches, graph
+    launches and reads a GN iteration (run_profile; the NCCL rank
+    profiles the eager form's, the same program), the captures made."""
+    import dataclasses
+
+    from tpu_slam_torch.distributed import schur
+
+    _, _, params, dtype = [x for x in graph_job["solves"]
+                           if x[0] == "schur"][0]
+    graph = _graph_torch(graph_job["graph"], "cuda", dtype)
+    one = dataclasses.replace(params, gn_iterations=1)
+    n = graph_ref["n_nodes"]
+    before = cache_replays(schur._solves)
+    row, res = {}, {}
+    for form, compiled in (("eager", False), ("captured", None)):
+        t0 = time.perf_counter()
+        schur.optimize_pose_graph_schur(None, graph, params,
+                                        compiled=compiled)
+        _sync()
+        first_s = time.perf_counter() - t0
+        with replays_sync_checked() as chk:
+            t0 = time.perf_counter()
+            res[form] = schur.optimize_pose_graph_schur(
+                None, graph, params, compiled=compiled)
+            _sync()
+            solve_s = time.perf_counter() - t0
+        g, chi2 = res[form]
+        want = graph_ref["schur"]
+        row[form] = dict(
+            first_call_s=first_s, solve_s=solve_s,
+            solve_s_per_gn_iteration=solve_s / params.gn_iterations,
+            replays_checked=chk.calls, chi2_on_device=chi2.is_cuda,
+            pose_err_vs_dense=float(np.abs(g.poses.cpu().numpy()[:n]
+                                           - want["poses"][:n]).max()),
+            chi2_rel_err_vs_dense=abs(float(chi2) - want["chi2"])
+            / max(want["chi2"], 1.0))
+        if compiled is None:
+            row[form]["gn_iteration"] = run_profile(
+                lambda: schur.optimize_pose_graph_schur(None, graph, one),
+                1)
+    row["bit_equal"] = same_tensors(res["eager"], res["captured"])
+    row["use"] = cache_use(schur._solves, before)
+    return row
+
+
 def phase_distributed(run, w3, dense_job, dense_ref):
     """The distributed layer at full width: DIST_RANKS gloo ranks on this
     card (time-sharing it), then world size 1 on NCCL; every result against
@@ -5905,8 +6232,10 @@ def phase_distributed(run, w3, dense_job, dense_ref):
         graph_job, graph_ref = dist_graph_job(run)
         prep_s = time.perf_counter() - t0
         health = dict(timeout_s=DIST_HEARTBEAT_TIMEOUT_S)
+        compiled_job = dict(dense=dense_job, graph=graph_job)
         jobs = [("map", map_job), ("dense", dense_job), ("icp", icp_job),
-                ("graph", graph_job), ("health", health)]
+                ("graph", graph_job), ("health", health),
+                ("compiled", compiled_job)]
         t0 = time.perf_counter()
         got = run_ranks(dist_rank_body, DIST_RANKS, jobs, backend="gloo",
                         device="cuda", threads=2, timeout_s=600)
@@ -5914,10 +6243,13 @@ def phase_distributed(run, w3, dense_job, dense_ref):
         t0 = time.perf_counter()
         nccl = run_ranks(dist_rank_body, 1,
                          [("map", map_job), ("icp", icp_job),
-                          ("graph", graph_job)],
+                          ("graph", graph_job), ("compiled", compiled_job)],
                          backend="nccl", device="cuda", threads=2,
                          timeout_s=600)
         nccl_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        single = schur_single(graph_job, graph_ref)
+        single_s = time.perf_counter() - t0
     # NCCL and two ranks on one card: what it says
     t0 = time.perf_counter()
     try:
@@ -6048,9 +6380,56 @@ def phase_distributed(run, w3, dense_job, dense_ref):
         raise AssertionError("; ".join(n_failed))
     if c["backend"] != "nccl" or c["map"]["collectives"]["staged_copies"]:
         raise AssertionError("nccl_world_1: not on NCCL or staged")
+    # the compiled programs: gloo's refusal of compiled=True, the NCCL
+    # rank's two forms, the single-process Schur solve's
+    cc = c["compiled"]
+    step_err = np.abs(cc["captured"]["poses"]
+                      - dense_ref["poses"]).max(axis=(1, 2))
+    emit("distributed", case="compiled",
+         gloo=dict(form=got[0]["compiled"]["form"],
+                   compiled_true_raises=[o["compiled"]["compiled_true_raises"]
+                                         for o in got]),
+         nccl=dict(form=cc["form"], bit_equal=cc["bit_equal"],
+                   graphs=cc["graphs"],
+                   pose_err_vs_single_by_step=step_err.tolist(),
+                   matched=cc["captured"]["metrics"][:, 1].tolist(),
+                   single_matched=dense_ref["metrics"][:, 1].tolist(),
+                   **{form: {k: v for k, v in cc[form].items()
+                             if k not in ("poses", "metrics",
+                                          "schur_poses")}
+                      for form in ("eager", "captured")}),
+         schur_single=single, graph_forms={
+             k: c["graph"][k]["form"] for k in ("pcg", "schur", "schur64")})
+    failed = []
+    if not all(all(o["compiled"]["compiled_true_raises"]) for o in got):
+        failed.append("compiled=True on gloo did not raise")
+    if not (cc["bit_equal"] and single["bit_equal"]):
+        failed.append(f"a captured distributed program differs from its "
+                      f"eager form: NCCL {cc['bit_equal']}, single-process "
+                      f"Schur {single['bit_equal']}")
+    if (cc["graphs"] != dict(dense_step=1, schur=3)
+            or single["use"]["captured"] != 2):
+        failed.append(f"captures: NCCL {cc['graphs']} (want the step's and "
+                      f"three Schur signatures'), single-process "
+                      f"{single['use']} (want the solve and its "
+                      "one-iteration profile)")
+    if not cc["captured"]["replays_checked"] or not single["captured"][
+            "replays_checked"]:
+        failed.append("no captured call was checked under sync-debug")
+    if not step_err.max() <= DIST_DENSE_POSE_TOL:
+        failed.append(f"nccl dense: pose error by step {step_err}")
+    if not (single["captured"]["pose_err_vs_dense"] <= DIST_SCHUR_POSE_TOL
+            and single["captured"]["chi2_rel_err_vs_dense"]
+            <= DIST_SCHUR_CHI2_RTOL):
+        failed.append(f"single-process Schur against the dense solve: "
+                      f"{single['captured']}")
+    if failed:
+        raise AssertionError("; ".join(failed))
     terms_launches = dict(dist_map=map_launches,
                           dist_dense=sum(d["launches"] for d in dd),
-                          nccl_map=c["map"]["launches"])
+                          nccl_map=c["map"]["launches"],
+                          nccl_dense=sum(cc[f]["ndt_terms_launches"]
+                                         for f in ("eager", "captured")))
     nn_launches = dict(dist_icp=sum(o["icp"]["launches"] for o in got),
                        nccl_icp=c["icp"]["launches"])
 
@@ -6079,7 +6458,10 @@ def phase_distributed(run, w3, dense_job, dense_ref):
     emit("kernels", kernels=["ndt_terms", "nn_search"],
          cases=terms_cases + nn_cases, rtol_of_max=RTOL_OF_MAX)
     emit("distributed_total", seconds=time.perf_counter() - t_phase,
-         prepare_s=prep_s, gloo_ranks_s=gloo_s, nccl_rank_s=nccl_s)
+         prepare_s=prep_s, gloo_ranks_s=gloo_s, nccl_rank_s=nccl_s,
+         part_seconds=dict(prepare=prep_s, gloo_ranks=gloo_s,
+                           nccl_rank=nccl_s, schur_single=single_s,
+                           nccl_two_ranks=nccl_two_s))
     return terms_launches, nn_launches, terms_cases, nn_cases
 
 

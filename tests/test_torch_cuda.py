@@ -1205,3 +1205,155 @@ def test_captured_host_options_match_eager(cuda):
     assert c0 == 0 and c1 > 0
     for u in use:
         assert u["captured"] == 0 and len(u["replays"]) == 1
+
+
+# ---------------------------------------------------------------------------
+# The reference's last compiled programs: the calibration's cost and
+# gradient step, the Schur solve, the sharded dense step, the ray caster
+# ---------------------------------------------------------------------------
+
+def test_captured_overlap_cost_matches_eager(cuda):
+    """overlap_cost's graph on chip_smoke's calibration capture (a quarter
+    of its segments) at six vectors against the eager count, bit for bit,
+    no read or synchronisation inside a call, one capture; a 20-evaluation
+    twiddle takes the eager form's path."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_slam_torch.ingest import calibration as cal
+
+    data = chip_smoke.calibration_capture(cuda, segments=180)
+    cfg = cal.CalibConfig()
+    rng = np.random.default_rng(0)
+    vecs = [np.asarray(chip_smoke.CALIB_TRUE, np.float32),
+            np.zeros(5, np.float32)] + [
+        rng.normal(0, 0.02, 5).astype(np.float32) for _ in range(4)]
+    before = chip_smoke.cache_replays(cal._costs)
+    with chip_smoke.replays_sync_checked() as chk:
+        got = [cal.overlap_cost(data, v, cfg) for v in vecs]
+    want = [cal.overlap_cost(data, v, cfg, compiled=False) for v in vecs]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    use = chip_smoke.cache_use(cal._costs, before)
+    assert chk.calls == len(vecs) and use["replays"] == [len(vecs)]
+    assert use["captured"] <= 1     # an earlier test may hold the graph
+    tw = [cal.calibrate_twiddle(data, cfg, max_evaluations=20, compiled=c)
+          for c in (True, False)]
+    assert np.array_equal(tw[0].params5, tw[1].params5)
+    assert tw[0].history == tw[1].history
+    assert tw[0].evaluations == tw[1].evaluations
+
+
+def test_captured_gradient_step_matches_eager(cuda):
+    """Five gradient steps as one CapturedStep (forward, autograd.grad,
+    Adam in place, the history slot) against the eager body: history,
+    parameters and final count bit for bit; two eager solves repeat bit
+    for bit (the backward's gather sums in a fixed order); one capture,
+    every replay free of reads."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_slam_torch.ingest import calibration as cal
+
+    data = chip_smoke.calibration_capture(cuda, segments=180)
+    cfg = cal.CalibConfig()
+    eager = [cal.calibrate_gradient(data, cfg, steps=5, compiled=False)
+             for _ in range(2)]
+    before = chip_smoke.cache_replays(cal._grad_steps)
+    with chip_smoke.replays_sync_checked() as chk:
+        got = cal.calibrate_gradient(data, cfg, steps=5)
+    for e in eager:
+        assert np.array_equal(got.params5, e.params5)
+        assert got.history == e.history and got.cost == e.cost
+    use = chip_smoke.cache_use(cal._grad_steps, before)
+    assert use["captured"] == 1 and use["replays"] == [5]
+    assert chk.calls == 5 + 1           # the steps and the final count
+
+
+def test_captured_schur_matches_eager(cuda):
+    """The single-process Schur solve (annealed robust widths, loops) as
+    one graph against compiled=False, in float32 and float64: poses and
+    chi^2 bit for bit at two replays, chi^2 on the card, one capture a
+    (structure, dtype), no read inside a replay."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_slam_torch.distributed import schur
+    from tpu_slam_torch.graph.pose_graph import GraphSolveParams
+    from test_torch_compiled_rest import _circle_graph
+
+    g32 = _circle_graph()
+    params = GraphSolveParams(gn_iterations=6, solver="dense",
+                              robust_delta=2.0, robust_kernel="cauchy",
+                              robust_anneal=4.0)
+    for dtype in (torch.float32, torch.float64):
+        g = chip_smoke._graph_torch(chip_smoke._graph_numpy(g32), cuda,
+                                    str(dtype).split(".")[1])
+        eager, chi_e = schur.optimize_pose_graph_schur(None, g, params,
+                                                       compiled=False)
+        before = chip_smoke.cache_replays(schur._solves)
+        with chip_smoke.replays_sync_checked() as chk:
+            runs = [schur.optimize_pose_graph_schur(None, g, params)
+                    for _ in range(2)]
+        for got, chi in runs:
+            assert torch.equal(got.poses, eager.poses)
+            assert torch.equal(chi, chi_e) and chi.device.type == "cuda"
+        use = chip_smoke.cache_use(schur._solves, before)
+        assert use["captured"] == 1 and use["replays"] == [2]
+        assert chk.calls == 2
+        assert np.isfinite(float(chi_e))
+
+
+def test_captured_sharded_step_and_schur_on_nccl(cuda):
+    """World size 1 on NCCL: the sharded dense step (two scans) and the
+    Schur solve captured with their collectives, against compiled=False on
+    the same rank: rows, pose, delta, metrics, poses and chi^2 bit for
+    bit, no read inside a replay, one capture each."""
+    import numpy as np
+
+    import chip_smoke
+    import test_torch_dist_ranks as R
+    from tpu_slam_torch.distributed import mesh as M
+    from tpu_slam_torch.graph.pose_graph import GraphSolveParams
+    from test_torch_compiled_rest import DIMS, _circle_graph, _dense_case
+
+    case = _dense_case()
+    scans = [(s.points.numpy(), s.mask.numpy()) for s in case["scans"]]
+    graph = chip_smoke._graph_numpy(_circle_graph())
+    (got,) = M.run_ranks(R.compiled_body, 1, case["rows"].numpy(),
+                         case["oc"].numpy(), case["pose"].numpy(), scans,
+                         case["spec"], DIMS, case["params"], graph,
+                         GraphSolveParams(gn_iterations=4, solver="dense"),
+                         backend="nccl", device="cuda")
+    e, c = got["eager"], got["captured"]
+    for k in ("steps", "poses", "chi2"):
+        assert np.array_equal(e[k], c[k]), k
+    assert e["checked"] == 0 and c["checked"] == len(scans) + 2
+    assert got["captures"] == 2
+
+
+def test_captured_raycast_matches_eager(cuda):
+    """The ray caster's graph on chip_smoke's city scans (16 x 4096 rays
+    from two poses of its route) against compiled=False: the ranges bit
+    for bit, the replays free of reads, one capture for both poses."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu_slam_torch.ingest import synthetic as syn
+
+    world = syn.dense_city(extent=200.0, seed=0)
+    dirs = syn.vlp16_directions(4096)
+    before = chip_smoke.cache_replays(syn._raycasts)
+    out = {}
+    for compiled in (False, True):
+        out[compiled] = []
+        with chip_smoke.replays_sync_checked() as chk:
+            for T in chip_smoke.city_route(24)[::12]:
+                d = dirs @ T[:3, :3].T
+                out[compiled].append(world.raycast(
+                    np.broadcast_to(T[:3, 3], d.shape), d, 75.0,
+                    device=cuda, compiled=compiled))
+        assert chk.calls == (2 if compiled else 0)
+    for a, b in zip(out[False], out[True]):
+        assert np.array_equal(a, b) and np.isfinite(a).any()
+    use = chip_smoke.cache_use(syn._raycasts, before)
+    assert use["captured"] <= 1 and use["replays"] == [2]

@@ -184,3 +184,44 @@ def dense_body(mesh, rows, origin_cell, pose, scans, spec, dims, cases):
         out[name] = dict(poses=torch.stack(poses),
                          metrics=torch.stack(metrics), rows=r)
     return out
+
+
+def compiled_body(mesh, rows, origin_cell, pose, scans, spec, dims, params,
+                  graph, graph_params):
+    """The sharded dense step over ``scans`` and the Schur solve of
+    ``graph`` on both forms (``compiled=False``, then the default: on NCCL
+    the captured one), every captured call under sync-debug "error": each
+    form's results, the captures made, the calls checked."""
+    import chip_smoke
+    from chip_smoke import _graph_torch
+    from tpu_slam_torch.core.pointcloud import PointCloud
+    from tpu_slam_torch.distributed import dense_shard, schur
+
+    dev = mesh.device
+    s = dims[0] // mesh.size
+    per = s * dims[1] * dims[2]
+    g = _graph_torch(graph, dev)
+    out = dict(captures_before=len(dense_shard._steps) + len(schur._solves))
+    for form, compiled in (("eager", False), ("captured", None)):
+        r = _t(rows[mesh.rank * per:(mesh.rank + 1) * per], device=dev)
+        oc = _t(origin_cell, torch.int32, dev)
+        T, delta = _t(pose, device=dev), torch.eye(4, device=dev)
+        steps = []
+        with chip_smoke.replays_sync_checked() as chk:
+            for pts, mask in scans:
+                scan = PointCloud(points=_t(pts, device=dev),
+                                  mask=_t(mask, torch.bool, dev))
+                r, T, delta, m = dense_shard.dense_step_sharded(
+                    mesh, r, oc, T, delta, scan, spec, dims, params,
+                    compiled=compiled)
+                steps.append(torch.cat([r.reshape(-1), T.reshape(-1),
+                                        delta.reshape(-1), m]))
+            solves = [schur.optimize_pose_graph_schur(
+                mesh, g, graph_params, compiled=compiled) for _ in range(2)]
+        out[form] = dict(steps=torch.stack(steps),
+                         poses=torch.stack([p.poses for p, _ in solves]),
+                         chi2=torch.stack([c for _, c in solves]),
+                         checked=chk.calls)
+    out["captures"] = (len(dense_shard._steps) + len(schur._solves)
+                       - out["captures_before"])
+    return out

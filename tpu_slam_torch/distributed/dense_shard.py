@@ -17,6 +17,16 @@ global lattice.
     point's cell and moments computed in the whole window's frame
     (``dense_map.insert_rows``).
 
+The step is the reference's compiled program. On NCCL (``compiled=None``,
+the default, or True) it is one CUDA graph for each signature of its
+inputs and its static arguments, its collectives captured with the rest:
+the sync-free LM (``lm_schedule(sync_free=True)``, fixed trips frozen by
+the reference's condition) and metrics that stay on the card. On gloo,
+whose collectives go through host memory, it runs the eager form: the
+host-exit LM and the iteration count read back (``compiled=False``
+everywhere; the same bits). ``compiled=True`` on gloo raises
+(``mesh.captured_form``).
+
 The step mirrors ``DenseLidarOdometry.step`` at ``pyramid_factor=1`` with
 the window inside its deadband (no scroll): the clamped constant-velocity
 prediction, the staged re-binned LM, the acceptance gate, the polar-Newton
@@ -29,7 +39,8 @@ implemented, as in the reference.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -38,9 +49,15 @@ from tpu_slam_torch.core.pointcloud import PointCloud
 from tpu_slam_torch.distributed import mesh as mesh_mod
 from tpu_slam_torch.distributed.map_shard import (chunk_field_rows,
                                                   kernel_tier_fns)
+from tpu_slam_torch.kernels.ndt_terms import ndt_terms
 from tpu_slam_torch.kernels.voxel_hash import VoxelGridSpec
 from tpu_slam_torch.mapping.dense_map import insert_rows
 from tpu_slam_torch.registration.ndt import NDTParams, lm_schedule
+from tpu_slam_torch.utils.capture import compiled_call
+
+# the captured steps, one for each (inputs' signature, mesh, static
+# arguments)
+_steps: Dict = {}
 
 
 def dense_step_sharded(mesh: mesh_mod.Mesh, rows: torch.Tensor,
@@ -52,7 +69,8 @@ def dense_step_sharded(mesh: mesh_mod.Mesh, rows: torch.Tensor,
                        min_accept_fraction: float = 0.3,
                        min_insert_fraction: float = 0.4,
                        max_pred_translation: float = 0.7,
-                       max_pred_rotation: float = 0.3):
+                       max_pred_rotation: float = 0.3,
+                       compiled: Optional[bool] = None):
     """One sharded dense-window odometry step.
 
     Args:
@@ -63,6 +81,7 @@ def dense_step_sharded(mesh: mesh_mod.Mesh, rows: torch.Tensor,
       min_accept_fraction, min_insert_fraction, max_pred_translation,
       max_pred_rotation: ``OdometryConfig``'s fields of the same names
       (their defaults).
+      compiled: the captured step or the eager one (module docstring).
 
     Returns (rows', pose', delta', metrics (5,) [iterations, matched
     fraction, accepted, inserted, 1]), every rank the same pose.
@@ -74,7 +93,32 @@ def dense_step_sharded(mesh: mesh_mod.Mesh, rows: torch.Tensor,
     if wx % n or (wx // n) % 8 or wz % 8:
         raise ValueError(f"dims {dims} not shardable over {n} ranks "
                          "(x-chunk and Wz must be multiples of 8)")
-    s = wx // n
+    gates = dict(min_accept_fraction=min_accept_fraction,
+                 min_insert_fraction=min_insert_fraction,
+                 max_pred_translation=max_pred_translation,
+                 max_pred_rotation=max_pred_rotation)
+    args = (rows, origin_cell, pose, last_delta, scan)
+    if not mesh_mod.captured_form(mesh, compiled):
+        return _step_body(mesh, *args, spec=spec, dims=dims, params=params,
+                          sync_free=False, **gates)
+    body = functools.partial(_step_body, mesh, spec=spec, dims=dims,
+                             params=params, sync_free=True, **gates)
+    return compiled_call(_steps, body, args, static=(
+        mesh_mod.program_key(mesh), spec, dims, params,
+        tuple(gates.items())), counters=(ndt_terms,))
+
+
+def _step_body(mesh: mesh_mod.Mesh, rows: torch.Tensor,
+               origin_cell: torch.Tensor, pose: torch.Tensor,
+               last_delta: torch.Tensor, scan: PointCloud,
+               spec: VoxelGridSpec, dims: Tuple[int, int, int],
+               params: NDTParams, sync_free: bool,
+               min_accept_fraction: float, min_insert_fraction: float,
+               max_pred_translation: float, max_pred_rotation: float):
+    """The step; with ``sync_free`` it reads nothing back (the captured
+    step's body), else its LM exits on host reads (the eager form)."""
+    wx, wy, wz = dims
+    s = wx // mesh.size
     dev = rows.device
     f32 = torch.float32
 
@@ -100,7 +144,8 @@ def dense_step_sharded(mesh: mesh_mod.Mesh, rows: torch.Tensor,
     raw_terms, bin_raster, yaw_cost = kernel_tier_fns(
         mesh, src, rows16, origin_cell, dims, spec, params)
     T, iters, frac, _, _ = lm_schedule(init_T, params, True, raw_terms,
-                                       bin_raster, yaw_cost)
+                                       bin_raster, yaw_cost,
+                                       sync_free=sync_free)
     del rows16
 
     accepted = frac >= min_accept_fraction
@@ -110,7 +155,9 @@ def dense_step_sharded(mesh: mesh_mod.Mesh, rows: torch.Tensor,
     rows_new = insert_rows(rows.clone(), origin_cell, dims,
                            scan.transform(T), spec, weight,
                            x_range=(mesh.rank * s, (mesh.rank + 1) * s))
+    iterations = (iters.to(f32) if sync_free
+                  else torch.full((), float(iters), device=dev))
     metrics = torch.stack([
-        torch.full((), float(iters), device=dev), frac,
-        accepted.to(f32), weight, torch.ones((), dtype=f32, device=dev)])
+        iterations, frac, accepted.to(f32), weight,
+        torch.ones((), dtype=f32, device=dev)])
     return rows_new, T, delta, metrics

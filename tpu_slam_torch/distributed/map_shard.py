@@ -53,6 +53,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from tpu_slam_torch.core.consts import const
 from tpu_slam_torch.core.pointcloud import PointCloud
 from tpu_slam_torch.distributed import mesh as mesh_mod
 from tpu_slam_torch.kernels.voxel_hash import INVALID_KEY, VoxelGridSpec
@@ -178,8 +179,8 @@ def chunk_field_rows(mesh: mesh_mod.Mesh, chunk: torch.Tensor,
                                          chunk[-2:].contiguous())
     ext = torch.cat([left, chunk, right], dim=0)
     dev = chunk.device
-    oc = origin_cell + torch.tensor([mesh.rank * s - 2, 0, 0],
-                                    dtype=origin_cell.dtype, device=dev)
+    oc = origin_cell + const((mesh.rank * s - 2, 0, 0), origin_cell.dtype,
+                             dev)
     rows = field_rows(ext[..., :10].reshape(-1, 10),
                       ext[..., 10].reshape(-1) > 0.5, oc, (s + 4, wy, wz),
                       spec, min_voxel_count, evec_floor_ratio, count_floor)

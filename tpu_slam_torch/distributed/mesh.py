@@ -26,6 +26,12 @@ each collective copies its buffer to the host and back here, explicitly,
 and counts the copies and their bytes in ``Mesh.stats``. That is the
 backend's transport; the compute and the kernels stay on the card.
 
+A program of the layer that the reference compiles (the Schur solve, the
+sharded dense step) is one CUDA graph on NCCL, its collectives captured
+with the rest; gloo's staging through host memory cannot be captured, so
+on a gloo mesh it runs its eager form. ``captured_form`` decides, and
+``program_key`` names the mesh in a graph's cache key.
+
 ``run_ranks`` runs a function on N spawned ranks (a ``FileStore`` in a
 fresh temporary directory, so concurrent runs never contend for a port)
 and returns every rank's result.
@@ -134,6 +140,33 @@ def make_mesh_2d(data: int, graph: int, device=None) -> Dict[str, Mesh]:
             out["data"] = Mesh(grp, ranks.index(rank), data, "data",
                                backend, dev)
     return out
+
+
+def captured_form(mesh: Optional[Mesh], compiled: Optional[bool]) -> bool:
+    """Whether a compiled program of the layer runs captured on ``mesh``
+    (None: one process alone). ``compiled=None`` captures where the
+    backend allows it (NCCL, or no mesh) and runs the eager form on gloo;
+    ``compiled=True`` on gloo raises rather than run another form than
+    the one asked for."""
+    staged = mesh is not None and mesh.backend != "nccl"
+    if compiled is None:
+        return not staged
+    if compiled and staged:
+        raise ValueError(
+            f"compiled=True needs NCCL: a CUDA graph cannot hold the "
+            f"{mesh.backend} backend's collectives (compiled=None runs the "
+            "eager form there)")
+    return compiled
+
+
+def program_key(mesh: Optional[Mesh]) -> Any:
+    """The part of a captured program's cache key that names its mesh: a
+    graph holds its communicator, so another group is another graph."""
+    if mesh is None:
+        return None
+    group = dist.group.WORLD if mesh.group is None else mesh.group
+    return (mesh.rank, mesh.size, mesh.axis_name, mesh.backend,
+            mesh.device, id(group))
 
 
 # ---------------------------------------------------------------------------

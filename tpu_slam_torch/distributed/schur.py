@@ -18,18 +18,30 @@ range's assembled block rows, one all-reduce of the separator system and
 its rhs, one all-gather of the (N, 6) update.
 
 The reference's elimination and back-substitution are ``lax.scan``s of
-6x6 ops; here they are host loops over the rank's N/D poses, and since
-the separator flags are host values (numpy) each step runs only its own
-branch. That is launch-bound on the card (a dozen small ops a pose). The
-linear solve runs in float64 (``_schur_gn``). The edge linearisation is
+6x6 ops; here they are loops over the rank's N/D poses unrolled on the
+host, and since the separator flags are host values (numpy) each step
+runs only its own branch: a dozen small ops a pose. The linear solve runs
+in float64 (``_schur_gn``). The edge linearisation is
 ``graph.pose_graph._edge_residual_jac``, so the solve agrees with
 ``optimize_pose_graph`` to float tolerance.
+
+The whole solve is the reference's compiled program: every GN iteration,
+the elimination, the separator solve, back-substitution and the retract
+are one CUDA graph for each separator structure, node count, params and
+inputs' signature, χ² left on the card (``compiled=None``, the default:
+captured with no mesh or on NCCL, whose collectives are captured with the
+rest; eager on gloo, whose collectives go through host memory;
+``compiled=True`` on gloo raises, ``mesh.captured_form``). The structure
+is read from the edges on the host before it (the key), and the index
+tensors it implies are made there too (``_index_tensors``): a copy from
+host memory cannot run inside a capture.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +52,11 @@ from tpu_slam_torch.distributed import mesh as mesh_mod
 from tpu_slam_torch.distributed.pose_graph_dist import edge_shard
 from tpu_slam_torch.graph.pose_graph import (GraphSolveParams, PoseGraph,
                                              _edge_residual_jac)
+from tpu_slam_torch.utils.capture import compiled_call
+
+# the captured solves, one for each (inputs' signature, mesh, structure,
+# node count, params)
+_solves: Dict = {}
 
 
 def separator_mask(n_cap: int, range_size: int, edge_i: np.ndarray,
@@ -87,16 +104,33 @@ class _Elimination:
     """What the forward pass emits onto the separator system, and the
     factors back-substitution needs (one entry per interior pose)."""
 
-    diag_slot: List[int]
-    diag_blk: List[torch.Tensor]
+    diag_blk: List[torch.Tensor]      # at _elimination_slots' diag
     rhs: List[torch.Tensor]
-    cpl_prev: List[int]               # separator-separator fill couplings
-    cpl_slot: List[int]
-    cpl_blk: List[torch.Tensor]       # block at S[prev, slot]
+    cpl_blk: List[torch.Tensor]       # block at S[prev, slot], each cpl
     Ainv: dict
     b_eff: dict
     G: dict
     prev: dict
+
+
+def _elimination_slots(is_sep: np.ndarray, slot: np.ndarray,
+                       sentinel: int) -> Tuple[List[int], List[Tuple]]:
+    """Where ``_eliminate`` writes on the separator system, from the
+    structure alone: each pose's diagonal slot (its own for a separator,
+    the previous separator's for an interior pose; ``sentinel`` before
+    the first), and each separator's coupling (previous separator, its
+    slot)."""
+    diag, cpl, prev = [], [], sentinel
+    for k in range(len(is_sep)):
+        if is_sep[k]:
+            s = int(slot[k])
+            diag.append(s)
+            if prev != sentinel:
+                cpl.append((prev, s))
+            prev = s
+        else:
+            diag.append(prev)
+    return diag, cpl
 
 
 def _eliminate(A, b, B, is_sep: np.ndarray, slot: np.ndarray,
@@ -120,26 +154,22 @@ def _eliminate(A, b, B, is_sep: np.ndarray, slot: np.ndarray,
     K = A.shape[0]
     zero6 = torch.zeros((6, 6), dtype=A.dtype, device=A.device)
     M, m, G, prev = zero6, torch.zeros_like(b[0]), zero6, sentinel
-    out = _Elimination([], [], [], [], [], [], {}, {}, {}, {})
+    out = _Elimination([], [], [], {}, {}, {}, {})
     for k in range(K):
         A_eff = A[k] + M
         b_eff = b[k] + m
         B_k = B[k]
         if is_sep[k]:
             s = int(slot[k])
-            out.diag_slot.append(s)
             out.diag_blk.append(A_eff)
             out.rhs.append(b_eff)
             if prev != sentinel:
-                out.cpl_prev.append(prev)
-                out.cpl_slot.append(s)
                 out.cpl_blk.append(G.T)
             M, m, G, prev = zero6, torch.zeros_like(m), B_k.T, s
         else:
             Ainv = torch.linalg.inv_ex(A_eff)[0]
             GtAinv = G.T @ Ainv
             BtAinv = B_k.T @ Ainv
-            out.diag_slot.append(prev)
             out.diag_blk.append(-GtAinv @ G)
             out.rhs.append(-GtAinv @ b_eff)
             out.Ainv[k], out.b_eff[k], out.G[k], out.prev[k] = (
@@ -166,12 +196,35 @@ def _backsubstitute(el: _Elimination, B, is_sep: np.ndarray,
     return torch.stack(xs)
 
 
-def _schur_gn(mesh: Optional[mesh_mod.Mesh], graph: PoseGraph,
-              edges, sep: np.ndarray, slots: np.ndarray,
-              slot_node: np.ndarray, params: GraphSolveParams,
-              nsep_cap: int, range_size: int):
+def _index_tensors(sep_l: np.ndarray, slot_l: np.ndarray,
+                   slots: np.ndarray, slot_node: np.ndarray, n_nodes: int,
+                   nsep_cap: int, device):
+    """The device tensors a solve's structure implies: each pose's
+    separator slot, the live slots (of nodes below ``n_nodes``) and the
+    separator system's unit diagonal of the others, and the flat
+    separator-system rows of the forward pass's blocks (diagonals, then
+    each coupling and its transpose) and of its rhs."""
+    n_sys = nsep_cap + 1
+    diag, cpl = _elimination_slots(sep_l, slot_l, nsep_cap)
+    blk_rows = [a * n_sys + a for a in diag]
+    for p, q in cpl:
+        blk_rows += [p * n_sys + q, q * n_sys + p]
+    live_slot = slot_node < n_nodes
+    return (torch.as_tensor(slots, dtype=torch.long, device=device),
+            torch.as_tensor(live_slot, device=device),
+            torch.as_tensor(np.repeat(~live_slot, 6), dtype=torch.float64,
+                            device=device),
+            torch.as_tensor(blk_rows, dtype=torch.long, device=device),
+            torch.as_tensor(diag, dtype=torch.long, device=device))
+
+
+def _schur_gn(mesh: Optional[mesh_mod.Mesh], poses: torch.Tensor, edges,
+              index, sep: np.ndarray, slots: np.ndarray,
+              params: GraphSolveParams, nsep_cap: int, range_size: int,
+              n_nodes: int):
     """One full GN solve on this rank's edge shard (the whole graph's
-    edges when ``mesh`` is None); poses replicated.
+    edges when ``mesh`` is None); poses replicated. ``index``:
+    ``_index_tensors``. Reads nothing back (the captured solve's body).
 
     The linear solve (block rows, elimination, separator system,
     back-substitution) runs in float64 whatever the poses' type: the
@@ -181,7 +234,7 @@ def _schur_gn(mesh: Optional[mesh_mod.Mesh], graph: PoseGraph,
     for the same reason). The blocks are tiny.
     """
     ei, ej, eT, einfo, emask = edges
-    poses = graph.poses
+    slots_t, live_slot, pad_diag, blk_rows, rhs_rows = index
     dev, dtype = poses.device, poses.dtype
     n_cap = poses.shape[0]
     K = range_size
@@ -192,7 +245,6 @@ def _schur_gn(mesh: Optional[mesh_mod.Mesh], graph: PoseGraph,
     eye6 = torch.eye(6, dtype=wdt, device=dev)
     sep_l = sep[off:off + K]
     slot_l = slots[off:off + K]
-    slots_t = torch.as_tensor(slots, dtype=torch.long, device=dev)
     n_sys = nsep_cap + 1
 
     def psum(x):
@@ -202,9 +254,7 @@ def _schur_gn(mesh: Optional[mesh_mod.Mesh], graph: PoseGraph,
     direct = emask & ~chain
     si = torch.where(direct, slots_t[ei], sentinel)
     sj = torch.where(direct, slots_t[ej], sentinel)
-    live_slot = torch.as_tensor(slot_node < graph.n_nodes, device=dev)
-    pad_diag = live_slot.logical_not().repeat_interleave(6).to(wdt)
-    live = (torch.arange(n_cap, device=dev) < graph.n_nodes)[:, None]
+    live = (torch.arange(n_cap, device=dev) < n_nodes)[:, None]
 
     for delta in _anneal_deltas(params):
         r, Jj = _edge_residual_jac(poses[ei], poses[ej], eT)
@@ -239,17 +289,12 @@ def _schur_gn(mesh: Optional[mesh_mod.Mesh], graph: PoseGraph,
 
         # the separator system (padded by one sentinel row and column)
         S = JtWJ.new_zeros((n_sys * n_sys, 6, 6))
-        idx = [a * n_sys + a for a in el.diag_slot]
         blks = list(el.diag_blk)
-        for p, q, blk in zip(el.cpl_prev, el.cpl_slot, el.cpl_blk):
-            idx += [p * n_sys + q, q * n_sys + p]
+        for blk in el.cpl_blk:
             blks += [blk, blk.T]
-        accumulate_rows(S, torch.as_tensor(idx, dtype=torch.long,
-                                           device=dev), torch.stack(blks))
+        accumulate_rows(S, blk_rows, torch.stack(blks))
         rhs = JtWr.new_zeros((n_sys, 6))
-        accumulate_rows(rhs, torch.as_tensor(el.diag_slot, dtype=torch.long,
-                                             device=dev),
-                        torch.stack(el.rhs))
+        accumulate_rows(rhs, rhs_rows, torch.stack(el.rhs))
         # direct separator-separator edges: loops and range-crossing chain
         # edges (off-diagonal blocks; their diagonals went through A)
         neg = torch.where(direct[:, None, None], -JtWJ, 0.0)
@@ -284,7 +329,8 @@ def _schur_gn(mesh: Optional[mesh_mod.Mesh], graph: PoseGraph,
 def optimize_pose_graph_schur(mesh: Optional[mesh_mod.Mesh],
                               graph: PoseGraph,
                               params: GraphSolveParams = GraphSolveParams(),
-                              axis_name: Optional[str] = None
+                              axis_name: Optional[str] = None,
+                              compiled: Optional[bool] = None
                               ) -> Tuple[PoseGraph, torch.Tensor]:
     """GN over the graph with the range-sharded Schur elimination.
 
@@ -292,6 +338,8 @@ def optimize_pose_graph_schur(mesh: Optional[mesh_mod.Mesh],
     separator structure still applies). Every rank passes the whole graph.
     Node capacity must divide the ranks, and edge capacity too; the
     separator system's capacity is bucketed to multiples of 16.
+    ``compiled``: the captured solve or the eager one (module docstring);
+    on the CPU the captured form's body runs eagerly.
     """
     if mesh is not None and axis_name is not None \
             and axis_name != mesh.axis_name:
@@ -304,6 +352,7 @@ def optimize_pose_graph_schur(mesh: Optional[mesh_mod.Mesh],
     K = n_cap // n_dev
     edges = ((graph.edge_i, graph.edge_j, graph.edge_T, graph.edge_info,
               graph.edge_mask) if mesh is None else edge_shard(mesh, graph))
+    captured = mesh_mod.captured_form(mesh, compiled)
     ei = graph.edge_i.cpu().numpy()
     ej = graph.edge_j.cpu().numpy()
     em = graph.edge_mask.cpu().numpy()
@@ -314,6 +363,18 @@ def optimize_pose_graph_schur(mesh: Optional[mesh_mod.Mesh],
     slots[sep] = np.arange(nsep)
     slot_node = np.full((nsep_cap,), n_cap, np.int64)
     slot_node[:nsep] = np.nonzero(sep)[0]
-    poses, chi2 = _schur_gn(mesh, graph, edges, sep, slots, slot_node,
-                            params, nsep_cap, K)
+    off = (0 if mesh is None else mesh.rank) * K
+    index = _index_tensors(sep[off:off + K], slots[off:off + K], slots,
+                           slot_node, graph.n_nodes, nsep_cap,
+                           graph.poses.device)
+    body = functools.partial(_schur_gn, mesh, sep=sep, slots=slots,
+                             params=params, nsep_cap=nsep_cap, range_size=K,
+                             n_nodes=graph.n_nodes)
+    args = (graph.poses, edges, index)
+    if captured:
+        poses, chi2 = compiled_call(_solves, body, args, static=(
+            mesh_mod.program_key(mesh), sep.tobytes(), nsep_cap, K,
+            graph.n_nodes, params))
+    else:
+        poses, chi2 = body(*args)
     return dataclasses.replace(graph, poses=poses), chi2

@@ -8,17 +8,23 @@ office, grid-city, outdoor-block and ring-corridor worlds, and the
 corridor and loop routes. The numpy chunk path is the
 reference's, unchanged, so small scenes are bit-identical to it; the large
 single-origin ray-plane pass runs the same algebra in torch on the given
-device (CUDA by default).
+device (CUDA by default): the reference's jitted ``run``, on the card one
+CUDA graph for each (rays, patches, device), its inputs copied into the
+graph's and the ranges read back once (``compiled=False``: the same pass
+eagerly, the same bits).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from tpu_slam_torch.core.consts import const
+from tpu_slam_torch.utils.capture import compiled_call
 
 
 @dataclasses.dataclass
@@ -50,12 +56,14 @@ class World:
         return o, u, v, n
 
     def raycast(self, origins: np.ndarray, dirs: np.ndarray,
-                max_range: float = 130.0, device=None) -> np.ndarray:
+                max_range: float = 130.0, device=None,
+                compiled: bool = True) -> np.ndarray:
         """Cast rays; returns (N,) ranges, inf where nothing was hit.
 
         origins: (N, 3), dirs: (N, 3) unit vectors, world frame. Large
         single-origin workloads (>= 4M ray-patch pairs) run one torch pass
-        on ``device``; the rest run chunked float32 numpy.
+        on ``device`` (``compiled``: a graph replay on the card, module
+        docstring); the rest run chunked float32 numpy.
         """
         o, u, v, n = (a.astype(np.float32) for a in self._arrays())
         uu = np.sum(u * u, axis=1)
@@ -70,7 +78,7 @@ class World:
                                   vv.astype(np.float32),
                                   origins[0].astype(np.float32),
                                   dirs.astype(np.float32),
-                                  float(max_range), device)
+                                  float(max_range), device, compiled)
         for s in range(0, N, chunk):
             d = dirs[s:s + chunk].astype(np.float32)
             og = origins[s:s + chunk].astype(np.float32)
@@ -94,26 +102,22 @@ class World:
         return np.where(out <= max_range, out, np.inf).astype(np.float32)
 
 
-def _raycast_accel(o, u, v, n, uu, vv, origin, dirs, max_range, device):
-    """Single-origin ray-plane intersection as one torch pass.
+# the ray caster's graphs, one for each (rays, patches, device)
+_raycasts: Dict = {}
+
+
+def _raycast_program(o, u, v, n, uu, vv, origin, dirs):
+    """The single-origin pass: (N,) the nearest hit's parameter, inf where
+    no patch is hit. Reads nothing back.
 
     With t the plane-hit parameter, the patch coordinates are
     a = (ou + t*du)/uu (and likewise b), where ou/du are dot products, so
     everything is (N, K) element-wise math plus three small matmuls.
     """
-    from tpu_slam_torch import default_device
-
-    dev = default_device(device)
-
-    def t_(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-
-    o, u, v, n, uu, vv, origin, dirs = map(t_, (o, u, v, n, uu, vv, origin,
-                                                dirs))
+    inf = const(math.inf, torch.float32, dirs.device)
     denom = dirs @ n.T                                  # (N, K)
     num = torch.sum((o - origin) * n, dim=1)[None, :]
     t = num / denom
-    inf = torch.tensor(math.inf, dtype=torch.float32, device=dev)
     t = torch.where(denom.abs() < 1e-9, inf, t)
     t = torch.where(t <= 1e-6, inf, t)
     du = dirs @ u.T
@@ -124,7 +128,21 @@ def _raycast_accel(o, u, v, n, uu, vv, origin, dirs, max_range, device):
     b = (ov + t * dv) / vv[None, :]
     inside = (a >= 0) & (a <= 1) & (b >= 0) & (b <= 1)
     t = torch.where(inside, t, inf)
-    out = torch.min(t, dim=1).values.cpu().numpy()
+    return torch.min(t, dim=1).values
+
+
+def _raycast_accel(o, u, v, n, uu, vv, origin, dirs, max_range, device,
+                   compiled=True):
+    """Single-origin ray-plane intersection as one torch pass on
+    ``device`` (``_raycast_program``), the ranges read back once."""
+    from tpu_slam_torch import default_device
+
+    dev = default_device(device)
+    args = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                 for x in (o, u, v, n, uu, vv, origin, dirs))
+    t = (compiled_call(_raycasts, _raycast_program, args) if compiled
+         else _raycast_program(*args))
+    out = t.cpu().numpy()
     return np.where(out <= max_range, out, np.inf).astype(np.float32)
 
 
