@@ -86,10 +86,12 @@ Phases, each printing one JSON line:
   probes       the ports of the three gather probes (tpu_slam_torch/
                benchmarks) at their original sizes, then gather_rows,
                gather_row_sum and onehot_gather against their plain
-               versions at the probes' shapes, and gather_rows on a
-               misaligned table view and a 7-column table (its scalar
-               path): bit-equal, times, bound and the one PyTorch call that
-               computes the same function (its ms and device us)
+               versions at the probes' shapes, each on a misaligned table
+               view (the scalar path), gather_rows on a 7-column table,
+               the row sum and the one-hot at 200 columns: bit-equal, the
+               float4 or scalar path by the profiler's kernel names,
+               times, bound and the one PyTorch call that computes the
+               same function (its ms and device us)
   options      the dense engine with each option on: the dynamic-object
                room with occupancy eviction (box cells before and after,
                all cells), a moving 65,536-ray capture deskewed (median
@@ -2284,6 +2286,8 @@ def phase_probes():
     tab4k_off = big[1:].view(4096, 16)
     tab7 = t(rng.normal(size=(4096, 7)).astype(np.float32))
     lane7 = t(rng.integers(0, 4096, (32768, 7)).astype(np.int32))
+    tab200 = t(rng.normal(size=(2048, 200)).astype(np.float32))
+    idx8k = t(rng.integers(0, 2048, 8192).astype(np.int32))
     cases = [
         check_gather_case("row4_take_32k_of_4k", G.gather_rows,
                           G.gather_rows_plain, (tab4k, idx32k),
@@ -2318,21 +2322,30 @@ def phase_probes():
                           G.gather_rows_plain, (tab7, lane7),
                           library=lambda l=lane7.long(): torch.take_along_dim(
                               tab7, l, 0), per_element=True),
+        # the row sum and the one-hot on the scalar path (the misaligned
+        # table) and at 200 columns (float4s, lanes walking two units)
+        check_gather_case("row_sum_misaligned_32k_of_4k", G.gather_row_sum,
+                          G.gather_row_sum_plain, (tab4k_off, idx32k)),
+        check_gather_case("row_sum_200_cols_8k_of_2k", G.gather_row_sum,
+                          G.gather_row_sum_plain, (tab200, idx8k)),
+        check_gather_case("onehot_bf16_misaligned_32k_of_4k", G.onehot_gather,
+                          G.onehot_gather_plain, (tab4k_off, idx32k, True)),
+        check_gather_case("onehot_f32_200_cols_8k_of_2k", G.onehot_gather,
+                          G.onehot_gather_plain, (tab200, idx8k),
+                          library=lambda: tab200.index_select(0, idx8k)),
     ]
     emit("kernels", kernels=[k.__name__ for k in kernels], cases=cases,
          check="bit-equal to the plain version")
-    # gather_rows takes its float4 path on the probes' aligned tables and
-    # its scalar path on the others (the profiler's kernel names, where it
-    # saw the kernel)
-    vector_cases = ("row4_take_32k_of_4k", "row6_per_lane_8k_x128",
-                    "row7_sub_4k_of_8k_x128")
+    # each kernel takes its float4 path on the aligned tables of widths a
+    # multiple of 4 and its scalar path on the others (the profiler's
+    # kernel names, where it saw the kernel)
     for c in cases:
-        if c["kernel"] == "gather_rows" and c["kernel_names"]:
-            vec = c["case"] in vector_cases
-            if not all(("kernel<true," in k) == vec
-                       for k in c["kernel_names"]):
-                raise AssertionError(f"gather_rows {c['case']}: path "
-                                     f"{c['kernel_names']}")
+        if not c["kernel_names"]:
+            continue
+        vec = c["table"][1] % 4 == 0 and c["table_offset_bytes"] == 0
+        if not all(("_kernel<true" in k) == vec for k in c["kernel_names"]):
+            raise AssertionError(f"{c['kernel']} {c['case']}: path "
+                                 f"{c['kernel_names']}")
     return launches, cases
 
 
@@ -6641,7 +6654,8 @@ def main() -> int:
         kernel_entry("gather_row_sum", src + "gather.cu",
                      "benchmarks/_gather_probe.py:127 (gk)",
                      gather_launches["gather_row_sum"],
-                     [by_case["row5_row_sum_32k_of_32k"]],
+                     [c for c in gather_cases
+                      if c["kernel"] == "gather_row_sum"],
                      by_case["row5_row_sum_32k_of_32k"]),
         kernel_entry("onehot_gather", src + "gather.cu",
                      "benchmarks/_pallas_gather_probe.py:81 (k_onehot); "

@@ -6,12 +6,14 @@ The earlier versions are not kept in the tree. ``nn_search.cu`` and
 ``gather.cu`` of commit 966dd32 (whose ``nn_search_launch`` takes no split
 plan), ``ndt_terms.cu`` and ``icp_terms.cu`` of commit 00c6537 (one thread
 a slot, a grid of ceil(n / 256) blocks writing per-block partials that the
-wrapper sums); each comparison runs when its old source is in the
-directory given:
+wrapper sums), ``gather.cu`` of commit 3191f90 (``gather_row_sum`` one
+thread a row, ``onehot_gather`` one thread an element); each comparison
+runs when its old source is in the directory given:
 
     mkdir -p _checkout/old
     git show 966dd32:tpu_slam_torch/csrc/nn_search.cu > _checkout/old/nn_search.cu
     git show 966dd32:tpu_slam_torch/csrc/gather.cu > _checkout/old/gather.cu
+    git show 3191f90:tpu_slam_torch/csrc/gather.cu > _checkout/old/gather_3191f90.cu
     git show 00c6537:tpu_slam_torch/csrc/ndt_terms.cu > _checkout/old/ndt_terms.cu
     git show 00c6537:tpu_slam_torch/csrc/icp_terms.cu > _checkout/old/icp_terms.cu
     python3 compare_kernels.py _checkout/old [--config4] [--sweep] [--orders]
@@ -25,6 +27,12 @@ tensors:
                a 300 x 200,000 case that the new kernel splits;
   gather_rows  the gather probes' rows 4, 6 and 7, a misaligned view and a
                7-column table;
+  gather_row_sum, onehot_gather
+               row 5 (32,768 keys into a (32,768, 16) table), row 4's
+               k_onehot (bf16, 32,768 of 4,096 x 16; gather_rows beside
+               it), row 8 (256 of 2,048 x 128; index_select beside it),
+               each on a misaligned view and at 200 columns, with the
+               empty-kernel floor at the new kernel's grid;
   ndt_terms    config 2's fine (Q = 4) and wide (Q = 8) cases and config
                4's, each on its odometry engine warmed on the first scans;
   icp_terms    config 1's coarse and fine stage inputs at 8k and 32k and
@@ -34,14 +42,17 @@ For each case one JSON line: the device us of each turn (all of a call's
 device work: the profiler's mean over the events it saw, summed over the
 kernels), the CUDA-event us of each turn (the wrapper's host work
 included), the SM clock after each, the events seen, and whether old, new
-(and the plain version) agree: bit for bit for NN and gathers; for the
+(and the plain version) agree: bit for bit for NN and gathers (the row
+sum's new order only against its plain version, with the largest
+difference from the old order beside); for the
 terms the matched count exactly, each block of the sums within 1e-4 of
 its largest magnitude, and for ICP each slot's chosen target. For the
 gathers also the wrapper's and the library call's ms, in turns.
 
-``--sweep`` times other lane splits and grid sizes of the terms kernels on
-the main cases (device us and the per-call time of a replayed CUDA graph
-of 20 calls): each a build of the shipped source with -D NDT_TERMS_LANES,
+``--sweep`` times other block sizes of the gathers (-D GATHER_THREADS; see
+``sweep_gather``), and other lane splits and grid sizes of the terms
+kernels on the main cases (device us and the per-call time of a replayed
+CUDA graph of 20 calls): each a build of the shipped source with -D NDT_TERMS_LANES,
 ICP_TERMS_LANES and TERMS_MAX_BLOCKS, its matched count held to the plain
 version's. ``--orders`` runs config 4 end to end (chip_smoke's
 ``phase_slam``) with other summation orders of the NDT sums: 4 and 32
@@ -77,6 +88,7 @@ VP, CI, CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 TERMS_RTOL = 1e-4         # of each block's largest magnitude, as chip_smoke
 SWEEP_LANES = (1, 4, 8, 32)
 SWEEP_BLOCKS = (132, 264, 512)
+SWEEP_GATHER_THREADS = (32, 64, 128, 256, 512, 1024)
 NDT_ARGTYPES = [VP, VP, VP, CI, VP, VP, CI, CI, CI, CF, CF, VP, VP]
 ICP_ARGTYPES = [VP, VP, VP, CI, VP, VP, CI, CI, CI, CI, CF, CF, VP, VP, VP]
 EMPTY_SOURCE = r"""
@@ -106,9 +118,10 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def turns(label, old, new, reps, **extra):
-    """Time ``old`` and ``new`` in turns (old, new, new, old); prints and
-    returns the JSON line."""
+def turns(label, old, new, reps, graph=False, **extra):
+    """Time ``old`` and ``new`` in turns (old, new, new, old), with the
+    per-call us of a replayed CUDA graph of 20 calls if ``graph``; prints
+    and returns the JSON line."""
     from torch.autograd import DeviceType
 
     res = {"case": label}
@@ -117,6 +130,9 @@ def turns(label, old, new, reps, **extra):
         res.setdefault(tag + "_device_us", []).append(sum(per.values()))
         res.setdefault(tag + "_event_us", []).append(
             cs.time_ms(fn, reps) * 1e3)
+        if graph:
+            res.setdefault(tag + "_graph_us", []).append(
+                cs.graph_time_us(fn)[0])
         res.setdefault(tag + "_clock", []).append(cs.clocks_now())
         res[tag + "_events_seen"] = {
             e.key[:60]: e.count for e in prof.key_averages()
@@ -231,6 +247,177 @@ def compare_gather(old_lib, dev):
               wrapper_ms=wrapper, library_ms=lib)
         if not same:
             raise AssertionError(f"gather_rows {label}: results differ")
+
+
+def walker_blocks(cols, m, vec, unit, threads=256):
+    """The grid of csrc/gather.cu's ``plan``: blocks of ``threads``, the
+    row's units (float4s, or ``unit`` floats on the scalar path) rounded up
+    to a power of two lanes, at most 32, at most 4,224 x 256 threads."""
+    units = cols // 4 if vec else -(-cols // unit)
+    lanes = 1
+    while lanes < units and lanes < 32:
+        lanes *= 2
+    return min(-(-m // (threads // lanes)), 4224 * 256 // threads)
+
+
+def row_sum_onehot_cases(dev):
+    """(kernel, label, bf16, table, idx, yardstick) of the row sum's and the
+    one-hot's comparison."""
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    tab4k = t(rng.normal(size=(4096, 16)).astype(np.float32))
+    idx32k = t(rng.integers(0, 4096, 32768).astype(np.int32))
+    tab32k = t(rng.normal(size=(32768, 16)).astype(np.float32))
+    key32k = t(rng.integers(0, 32768, 32768).astype(np.int32))
+    tab2k = t(rng.normal(size=(2048, 128)).astype(np.float32))
+    idx256 = t(rng.integers(0, 2048, 256).astype(np.int32))
+    off = t(rng.normal(size=4096 * 16 + 1).astype(np.float32))[1:].view(
+        4096, 16)
+    tab200 = t(rng.normal(size=(2048, 200)).astype(np.float32))
+    idx8k = t(rng.integers(0, 2048, 8192).astype(np.int32))
+    s, o = "gather_row_sum", "onehot_gather"
+    return [(s, "row5", False, tab32k, key32k, "gather_rows"),
+            (s, "misaligned", False, off, idx32k, "gather_rows"),
+            (s, "cols200", False, tab200, idx8k, "gather_rows"),
+            (o, "row4_k_onehot", True, tab4k, idx32k, "gather_rows"),
+            (o, "row8", False, tab2k, idx256, "index_select"),
+            (o, "misaligned_bf16", True, off, idx32k, None),
+            (o, "cols200", False, tab200, idx8k, "index_select")]
+
+
+def compare_row_sum_onehot(old_lib, dev, empty):
+    """The parent's gather_row_sum and onehot_gather against the row
+    walker's, in turns, on the probes' rows 5, 4 (k_onehot) and 8, a
+    misaligned view and 200 columns; beside each, an empty kernel launched
+    at the new kernel's grid after a torch.empty of the result, and the
+    yardstick of the same call (gather_rows at row 4's shape, index_select
+    for the float32 one-hot and at 200 columns, gather_rows on the row
+    sum's tables)."""
+    launch = {"gather_row_sum": old_lib.gather_row_sum_launch,
+              "onehot_gather": old_lib.onehot_gather_launch}
+    launch["gather_row_sum"].argtypes = [VP, CI, CI, VP, CI, VP, VP]
+    launch["onehot_gather"].argtypes = [VP, CI, CI, VP, CI, CI, VP, VP]
+    index = torch.cuda.current_device()
+    for kind, label, bf16, table, idx, yardstick in row_sum_onehot_cases(dev):
+        rows, cols = table.shape
+        m = idx.shape[0]
+        row_sum = kind == "gather_row_sum"
+        shape = (m,) if row_sum else (m, cols)
+        flag = () if row_sum else (int(bf16),)
+        extra_args = () if row_sum else (bf16,)
+
+        def old(table=table, idx=idx, shape=shape, fn=launch[kind],
+                flag=flag):
+            out = torch.empty(shape, device=dev)
+            _build.launch("old " + kind, fn, index, table.data_ptr(), rows,
+                          cols, idx.data_ptr(), *flag, m, out.data_ptr())
+            return out
+
+        def new(table=table, idx=idx, fn=getattr(G, kind), a=extra_args):
+            return fn(table, idx, *a)
+
+        got, was = new(), old()
+        plain = getattr(G, kind + "_plain")(table, idx, *extra_args)
+        torch.cuda.synchronize()
+        vec = cols % 4 == 0 and table.data_ptr() % 16 == 0
+        blocks = walker_blocks(cols, m, vec, 4 if row_sum else 1)
+
+        def floor(shape=shape, blocks=blocks):
+            out = torch.empty(shape, device=dev)
+            _build.launch("empty", empty, index, out.data_ptr(), blocks, 256)
+            return out
+
+        extra = dict(
+            shape=[rows, cols, m], bf16=bf16, vector_path=vec,
+            new_blocks=blocks, new_equals_plain=torch.equal(got, plain),
+            old_equals_new=torch.equal(was, got),
+            max_abs_old_new=float((was - got).abs().max()),
+            floor_device_us=cs.device_us_total(floor, 50),
+            floor_graph_us=cs.graph_time_us(floor)[0])
+        if yardstick == "gather_rows":
+            def lib(table=table, idx=idx):
+                return G.gather_rows(table, idx)
+        else:
+            def lib(table=table, idx=idx):
+                return table.index_select(0, idx)
+        if yardstick:
+            extra[yardstick + "_device_us"] = cs.device_us_total(lib, 50)
+            extra[yardstick + "_graph_us"] = cs.graph_time_us(lib)[0]
+        turns(f"{kind} {label}", old, new, 50, graph=True, **extra)
+        if not extra["new_equals_plain"] or (
+                not row_sum and not extra["old_equals_new"]):
+            raise AssertionError(f"{kind} {label}: results differ")
+
+
+def sweep_gather(dev, empty):
+    """csrc/gather.cu built with -D GATHER_THREADS=t for each of
+    SWEEP_GATHER_THREADS, on the row sum's and the one-hot's cases and
+    gather_rows at row 4, on the misaligned view and per element at row
+    6's shape: device us and the
+    per-call us of a replayed CUDA graph, each result bit-equal to the plain
+    version, and an empty kernel at each build's grid. Every size twice,
+    in turns (up, then down)."""
+    with ThreadPoolExecutor(len(SWEEP_GATHER_THREADS)) as pool:
+        paths = list(pool.map(lambda t: _build.build(
+            "gather", {"GATHER_THREADS": t}), SWEEP_GATHER_THREADS))
+    libs = {t: ctypes.CDLL(str(path))
+            for t, path in zip(SWEEP_GATHER_THREADS, paths)}
+    index = torch.cuda.current_device()
+    cases = row_sum_onehot_cases(dev)
+    by_label = {c[1]: c for c in cases}
+    r = "gather_rows"
+    rng = np.random.default_rng(1)
+    tab8k = torch.as_tensor(rng.normal(size=(8192, 128)).astype(np.float32),
+                            device=dev)
+    lane = torch.as_tensor(rng.integers(0, 8192, (8192, 128)).astype(
+        np.int32), device=dev)
+    cases += [(r, "row4", False, *by_label["row4_k_onehot"][3:5], None),
+              (r, "misaligned", False, *by_label["misaligned"][3:5], None),
+              (r, "row6_per_element", False, tab8k, lane, None)]
+    order = SWEEP_GATHER_THREADS + SWEEP_GATHER_THREADS[::-1]
+    for kind, label, bf16, table, idx, _ in cases:
+        rows, cols = table.shape
+        m = idx.shape[0]
+        row_sum = kind == "gather_row_sum"
+        shape = (m,) if row_sum else (m, cols)
+        flag = {"gather_rows": (int(idx.dim() == 2),), "gather_row_sum": (),
+                "onehot_gather": (int(bf16),)}[kind]
+        plain = (G.onehot_gather_plain(table, idx, bf16)
+                 if kind == "onehot_gather"
+                 else getattr(G, kind + "_plain")(table, idx))
+        vec = cols % 4 == 0 and table.data_ptr() % 16 == 0
+        for threads in order:
+            fn = getattr(libs[threads], kind + "_launch")
+            fn.argtypes = G._ARGTYPES[kind + "_launch"]
+
+            def call(fn=fn, shape=shape, flag=flag):
+                out = torch.empty(shape, device=dev)
+                _build.launch(kind, fn, index, table.data_ptr(), rows, cols,
+                              idx.data_ptr(), *flag, m, out.data_ptr())
+                return out
+            blocks = walker_blocks(cols, m, vec, 4 if row_sum else 1,
+                                   threads)
+
+            def floor(shape=shape, blocks=blocks, threads=threads):
+                out = torch.empty(shape, device=dev)
+                _build.launch("empty", empty, index, out.data_ptr(), blocks,
+                              threads)
+                return out
+            equal = torch.equal(call(), plain)
+            print(json.dumps({
+                "sweep": f"{kind} {label}", "threads": threads,
+                "blocks": blocks, "vector_path": vec, "bf16": bf16,
+                "device_us": cs.device_us_total(call, 50),
+                "graph_us": cs.graph_time_us(call)[0],
+                "floor_device_us": cs.device_us_total(floor, 50),
+                "floor_graph_us": cs.graph_time_us(floor)[0],
+                "equal": equal}), flush=True)
+            if not equal:
+                raise AssertionError(f"{kind} {label} at {threads} threads: "
+                                     f"differs from the plain version")
 
 
 def old_ndt_terms(lib):
@@ -478,17 +665,22 @@ def slam_orders(old_lib):
                           "error": error}), flush=True)
 
 
-def empty_floor(dev):
+def empty_launch():
+    """The bound launch function of an empty kernel: (out, blocks,
+    threads, stream)."""
+    src = _build.BUILD_DIR / "empty.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(EMPTY_SOURCE)
+    fn = build_old(src, "empty").empty_launch
+    fn.argtypes = [VP, CI, CI, VP]
+    return fn
+
+
+def empty_floor(dev, fn):
     """Empty kernels launched as the terms wrappers launch theirs (a
     torch.empty of the result, then a ctypes call on the current stream):
     one block, the terms grid's 264 blocks, and 264 blocks followed by one
     block of 1,024 threads (a kernel and its finalizer)."""
-    src = _build.BUILD_DIR / "empty.cu"
-    src.parent.mkdir(parents=True, exist_ok=True)
-    src.write_text(EMPTY_SOURCE)
-    lib = build_old(src, "empty")
-    fn = lib.empty_launch
-    fn.argtypes = [VP, CI, CI, VP]
     index = torch.cuda.current_device()
 
     def call(launches):
@@ -518,7 +710,8 @@ def main() -> int:
     dev = torch.device("cuda")
     print(cs.nvidia_smi_line(), flush=True)
     cs.phase_build()
-    empty_floor(dev)
+    empty = empty_launch()
+    empty_floor(dev, empty)
     if (old_dir / "ndt_terms.cu").exists():
         ndt, icp = ndt_cases(dev), icp_cases(dev)
         old_ndt = build_old(old_dir / "ndt_terms.cu", "ndt_terms")
@@ -535,6 +728,11 @@ def main() -> int:
                    "--config4" in sys.argv)
     if (old_dir / "gather.cu").exists():
         compare_gather(build_old(old_dir / "gather.cu", "gather"), dev)
+    if (old_dir / "gather_3191f90.cu").exists():
+        compare_row_sum_onehot(build_old(old_dir / "gather_3191f90.cu",
+                                         "gather_3191f90"), dev, empty)
+    if "--sweep" in sys.argv:
+        sweep_gather(dev, empty)
     print(cs.nvidia_smi_line(), flush=True)
     return 0
 

@@ -163,29 +163,88 @@ def test_icp_raster_on_the_card_matches_the_cpu(cuda):
                - float(res[1].matched_fraction)) <= 2.0 / 8192
 
 
-def test_gather_kernels_match_plain(cuda):
+def _bits_equal(got, ref):
+    """Bit-equal, the sign of zero included; NaN where the other is NaN."""
+    nan = ref.isnan()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got.view(torch.int32)[~nan],
+                       ref.view(torch.int32)[~nan])
+
+
+def _gather_call(fn, table, idx):
+    """The wrapper and its plain version for one of the gather cases, with
+    their arguments: gather_rows on row or per-element indices, the row
+    sum, the one-hot in float32 or bfloat16."""
     from tpu_slam_torch.kernels import gather as G
 
-    g = torch.Generator(device="cpu").manual_seed(0)
-    table = torch.randn(1000, 16, generator=g).to(cuda)
-    idx = torch.randint(-3, 1003, (5000,), generator=g,
+    rows, cols = table.shape
+    if fn == "gather_rows_per_element":
+        g = torch.Generator(device="cpu").manual_seed(idx.numel() + cols)
+        lane = torch.randint(-1, rows + 1, (idx.shape[0], cols), generator=g,
+                             dtype=torch.int32).to(idx.device)
+        return G.gather_rows, G.gather_rows_plain, (table, lane)
+    if fn == "onehot_gather_bf16":
+        return G.onehot_gather, G.onehot_gather_plain, (table, idx, True)
+    return getattr(G, fn), getattr(G, fn + "_plain"), (table, idx)
+
+
+# (cols, table offset in floats): the float4 path at 4, 16, 128 and 256
+# columns (lanes walk several units at 256); the scalar path on a table 4
+# bytes off 16-byte alignment (16, 200) and at an odd width
+GATHER_SHAPES = [(4, 0), (16, 0), (128, 0), (256, 0), (16, 1), (200, 1),
+                 (7, 0)]
+
+
+@pytest.mark.parametrize("fn", ["gather_rows", "gather_rows_per_element",
+                                "gather_row_sum", "onehot_gather",
+                                "onehot_gather_bf16"])
+@pytest.mark.parametrize("cols, offset", GATHER_SHAPES)
+@pytest.mark.parametrize("m", [1, 4999])
+def test_gather_kernels_match_plain(cuda, fn, cols, offset, m):
+    # m = 4999 fills no block's last row slot; indices outside the table
+    # give NaN rows (rows, row sum) and zero rows (one-hot)
+    g = torch.Generator(device="cpu").manual_seed(cols * 7 + offset + m)
+    rows = 1000
+    big = torch.randn(rows * cols + offset, generator=g).to(cuda)
+    table = big[offset:].view(rows, cols)
+    idx = torch.randint(-3, rows + 3, (m,), generator=g,
                         dtype=torch.int32).to(cuda)
-    lane = torch.randint(0, 1000, (777, 16), generator=g,
-                         dtype=torch.int32).to(cuda)
-    cases = ((G.gather_rows, G.gather_rows_plain, (table, idx)),
-             (G.gather_rows, G.gather_rows_plain, (table, lane)),
-             (G.gather_row_sum, G.gather_row_sum_plain, (table, idx)),
-             (G.onehot_gather, G.onehot_gather_plain, (table, idx)),
-             (G.onehot_gather, G.onehot_gather_plain, (table, idx, True)))
-    for kernel, plain, args in cases:
-        before = kernel.launches
-        got = kernel(*args)
+    if m > 1:
+        idx[:2] = torch.tensor([-1, rows], dtype=torch.int32)
+    kernel, plain, args = _gather_call(fn, table, idx)
+    before = kernel.launches
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _bits_equal(got, plain(*args))
+
+
+@pytest.mark.parametrize("cols, offset", [(16, 0), (16, 1), (7, 0)])
+def test_onehot_bf16_ties_and_non_finite_values(cuda, cols, offset):
+    # bfloat16 ties (to even, both ways), FLT_MAX (rounds to inf), a
+    # subnormal tie, -0.0, +-inf and NaN, on both paths
+    from tpu_slam_torch.kernels import gather as G
+
+    special = torch.tensor([0x3F808000, 0x3F818000, -0x407F8000, 0x7F7FFFFF,
+                            0x00008000, -0x80000000, 0x7F800000, -0x00800000,
+                            0x7FC00000], dtype=torch.int32).view(torch.float32)
+    g = torch.Generator(device="cpu").manual_seed(cols + offset)
+    rows = 64
+    host = torch.randn(rows * cols + offset, generator=g)
+    flat = host[offset:]
+    flat[:special.numel()] = special[:flat.numel()]
+    flat[5 * cols:5 * cols + 3] = special[-3:]
+    table = host.to(cuda)[offset:].view(rows, cols)
+    idx = torch.randint(-2, rows + 2, (777,), generator=g,
+                        dtype=torch.int32).to(cuda)
+    idx[:4] = torch.tensor([0, 1, 5, -1], dtype=torch.int32)
+    for bf16 in (True, False):
+        before = G.onehot_gather.launches
+        got = G.onehot_gather(table, idx, bf16)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1
-        # bit-equal, NaN rows (indices outside the table) included
-        assert torch.equal(got.isnan(), plain(*args).isnan())
-        assert torch.equal(torch.nan_to_num(got),
-                           torch.nan_to_num(plain(*args)))
+        assert G.onehot_gather.launches == before + 1
+        _bits_equal(got, G.onehot_gather_plain(table, idx, bf16))
+    assert torch.isinf(got[2, :2]).all() and got[3].eq(0).all()
 
 
 def test_nn_kernel_rejects_bad_inputs(cuda):

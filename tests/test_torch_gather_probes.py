@@ -116,6 +116,77 @@ def test_gather_probe_row_sum_body():
     assert np.all(np.abs(port - got) <= 2e-6 * scale)
 
 
+def _row_sum_in_stated_order(row):
+    """One row's sum in csrc/gather.cu's stated order, written out with
+    numpy float32 scalars: units of 4 columns, lanes the least power of two
+    at least the units (at most 32), lane l summing units l, l + lanes, ...
+    left to right from -0.0, then the lanes pairwise, neighbours first."""
+    cols = row.shape[0]
+    units = -(-cols // 4)
+    lanes = 1
+    while lanes < units and lanes < 32:
+        lanes *= 2
+    partial = []
+    for lane in range(lanes):
+        acc = np.float32(-0.0)
+        for u in range(lane, units, lanes):
+            for j in range(4 * u, min(4 * u + 4, cols)):
+                acc = np.float32(acc + row[j])
+        partial.append(acc)
+    while len(partial) > 1:
+        partial = [np.float32(partial[2 * k] + partial[2 * k + 1])
+                   for k in range(len(partial) // 2)]
+    return partial[0]
+
+
+@pytest.mark.parametrize("cols", [7, 16, 200, 256])
+def test_row_sum_plain_takes_the_stated_order(cols):
+    """gather_row_sum_plain sums in the kernel's stated order, bit for bit,
+    on a table (magnitudes over eight decades) where left to right rounds
+    differently."""
+    rng = np.random.default_rng(cols)
+    rows, n = 50, 64
+    table = (rng.normal(size=(rows, cols))
+             * 10.0 ** rng.uniform(-4, 4, (rows, cols))).astype(np.float32)
+    idx = rng.integers(0, rows, n).astype(np.int32)
+    got = gather_row_sum_plain(torch.as_tensor(table),
+                               torch.as_tensor(idx)).numpy()
+    want = np.array([_row_sum_in_stated_order(table[i]) for i in idx],
+                    dtype=np.float32)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    left_to_right = table[idx][:, 0].copy()
+    for j in range(1, cols):
+        left_to_right = left_to_right + table[idx][:, j]
+    assert not np.array_equal(got, left_to_right)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_onehot_plain_keeps_non_finite_values_and_ties(bf16):
+    """onehot_gather_plain is the gather of the product's one row: inf and
+    NaN stay in their own row (the literal product would spread NaN down
+    the column); bfloat16 ties round to even; zero rows outside the
+    table."""
+    ties = np.array([0x3F808000, 0x3F818000, 0xBF808000, 0x7F7FFFFF,
+                     0x00008000, 0x80000000], dtype=np.uint32).view(
+                         np.float32)
+    table = np.zeros((5, 8), dtype=np.float32)
+    table[0, :6] = ties
+    table[1, :3] = [np.inf, -np.inf, np.nan]
+    table[2] = np.arange(8, dtype=np.float32) / 3
+    idx = np.array([1, 0, 2, -1, 5, 1], dtype=np.int32)
+    got = onehot_gather_plain(torch.as_tensor(table), torch.as_tensor(idx),
+                              bf16=bf16).numpy()
+    rows = torch.as_tensor(table[np.clip(idx, 0, 4)])
+    if bf16:
+        rows = rows.to(torch.bfloat16).to(torch.float32)
+    want = np.where(((idx >= 0) & (idx < 5))[:, None], rows.numpy(), 0.0)
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(got[[0, 5], 2]).all() and not np.isnan(got[2:5]).any()
+    if bf16:       # ties to even: 1 + 2^-8 down, 1 + 3 * 2^-8 up, -1 -
+        # 2^-8 down; FLT_MAX up to inf
+        assert list(got[1, :4]) == [1.0, 1.015625, -1.0, np.inf]
+
+
 def test_dyngather_probe_bodies(interpret):
     """Rows 6-8: k_eq through the module-level ``make`` (broadcast and
     per-lane indices), and copies of k_sub and of the f32 one-hot body."""

@@ -34,7 +34,8 @@ Q = 4              # raster per-cell point capacity
 def main(device=None, n: int = N, wb: int = WB, q: int = Q,
          reps: int = 20) -> dict:
     """Time each form at n points in a (2^wb)^3 window; the kernel's row
-    sums are checked bit for bit against numpy's left-to-right sums."""
+    sums are checked bit for bit against numpy's sums in the kernel's
+    stated order."""
     dev = default_device(device)
     w = 1 << wb
     g = w ** 3
@@ -107,10 +108,12 @@ def main(device=None, n: int = N, wb: int = WB, q: int = Q,
                                                                 key_d),
              "e. one-hot product gather bf16": onehot}
     out = {name: dict(ms=call_ms(fn, reps, dev)) for name, fn in forms.items()}
+    # the kernel's order at 16 columns: 4 lanes of 4 columns, each left to
+    # right, then ((p0 + p1) + (p2 + p3))
     rows = rows16_h[:lim][key_d.cpu().numpy()]
-    want = rows[:, 0].copy()
-    for j in range(1, 16):
-        want = want + rows[:, j]
+    p = [((rows[:, 4 * k] + rows[:, 4 * k + 1]) + rows[:, 4 * k + 2])
+         + rows[:, 4 * k + 3] for k in range(4)]
+    want = (p[0] + p[1]) + (p[2] + p[3])
     got = gather_row_sum(table_d, key_d).cpu().numpy()
     out["d. kernel gather_row_sum"]["correct"] = bool(np.array_equal(got,
                                                                      want))

@@ -9,7 +9,7 @@
 //
 //   gather_rows     out[i, j] = table[idx[i, j], j], idx one index per row
 //                   (broadcast along j) or one per element;
-//   gather_row_sum  out[i] = sum_j table[idx[i], j], summed left to right;
+//   gather_row_sum  out[i] = sum_j table[idx[i], j], in the order below;
 //   onehot_gather   what the one-hot matrix product computes: table[idx[i]]
 //                   for an index inside the table, a zero row outside it,
 //                   each value rounded to bfloat16 (nearest even) first when
@@ -20,14 +20,31 @@
 // What bounds them on this card is bytes: the indices, the table rows they
 // touch and the output, each moved once, at 3.35 TB/s; there is no
 // arithmetic to speak of, and at the probes' sizes (under 10 MB) a launch
-// lasts a few microseconds. gather_rows moves 16 bytes a thread where the
-// shape and the pointers allow it: a few threads walk one row in float4s
-// (four threads a 16-column row, so a warp writes 512 contiguous bytes),
-// with 32-bit offsets and no division per element, the grid capped at a
-// few waves. onehot_gather keeps one thread per output element and the row
-// sum one thread per output row; neighbouring threads sit on neighbouring
-// columns of one row, so a warp's table reads fall in one or two 64-byte
-// rows and its writes coalesce.
+// lasts a few microseconds, most of it the launch itself. All three run on
+// one row walker (walk_rows): a few threads take one row and move 16 bytes
+// each where the shape and the pointers allow it (four threads a 16-column
+// row, so a warp reads 8 whole rows and writes 512 contiguous bytes), with
+// 32-bit offsets and no division per element, the grid capped at a few
+// waves. Each function is its own __global__ (the walker and an epilogue),
+// so that a profile names it.
+//
+// The one-hot product on the tensor cores would do `rows` multiply-adds for
+// every value it writes (2,048 at row 8, 4,096 at row 4) and read the whole
+// table, for the bytes that a gather moves with none: on this card the
+// product's operations, not the bytes, would bound it. A gather is exact
+// for every table, inf and NaN included (the product turns a column holding
+// one into NaN, 0 * inf).
+//
+// gather_row_sum's order (gather_row_sum_plain computes the same): the
+// row's columns fall into units of 4 (the last one short when cols % 4 !=
+// 0), units = ceil(cols / 4), and lanes = the least power of two >= units,
+// at most 32. Lane l sums, left to right from -0.0 (x + -0.0 == x for every
+// x), the columns of units l, l + lanes, l + 2 lanes, ... in that order;
+// the lanes then combine pairwise by a butterfly, offset 1, 2, 4, ...:
+// at 16 columns ((p0 + p1) + (p2 + p3)). IEEE addition commutes bit for
+// bit, so every lane of the row ends with the same value; lane 0 writes it.
+// The order depends on cols only: the scalar path (odd width, misaligned
+// table) walks the same units of 4 with scalar loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,114 +55,224 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-// gather_rows: at most this many blocks (about four waves of 8 blocks on
-// each of 132 SMs); each thread then walks several rows
-constexpr long long kMaxRowBlocks = 4224;
+// threads a block (-D GATHER_THREADS: compare_kernels.py --sweep times
+// other sizes)
+#ifndef GATHER_THREADS
+#define GATHER_THREADS 256
+#endif
+constexpr int kThreads = GATHER_THREADS;
+// at most this many blocks (about four waves of 2,048 threads on each of
+// 132 SMs); each thread then walks several rows
+constexpr long long kMaxRowBlocks = 4224LL * 256 / kThreads;
 
-// gather_rows: each thread walks whole units of one row (a float4 in the
-// vector path, a float in the scalar path): 2^lane_shift threads cover a
-// row, kThreads >> lane_shift rows a block, the grid strides over rows.
-// Offsets are 32-bit (the wrapper refuses m * cols >= 2^31) but for the
-// table's, and no thread divides by cols. Row mode (kPerElement false)
-// reads one index a row; per-element mode reads the row's indices as int4
+// The row walker. 2^lane_shift consecutive threads of a warp (lanes) take
+// one output row, kThreads >> lane_shift rows a block, and the grid
+// strides over rows. Lane l walks the row's units l, l + lanes, ...: a
+// float4 on the vector path, Epi::kScalarUnit floats on the scalar path.
+// With Epi::kWholeWarp every thread of a warp makes the same trips (a row
+// past m is dead: nothing loaded, nothing written), so that the epilogue
+// can shuffle with the whole warp's mask: a shuffle whose mask names only
+// the row's lanes makes each group of a warp wait for the others in turn
+// (row 5 took 2.43 us that way on the H100, 1.84 with the whole warp's
+// mask).
+// Offsets are 32-bit (the launchers refuse m * cols >= 2^31) but for the
+// table's. Row mode reads one index a row; per-element mode
+// (Epi::kPerElement, gather_rows only) reads the row's indices as int4
 // (vector path) and the table values one by one (the table is L2-resident).
-// The vector path needs cols % 4 == 0 and 16-byte aligned table, idx (per
-// element) and out; the launcher picks it from the shape and the pointers.
+// The vector path needs cols % 4 == 0 and a 16-byte aligned table (and
+// idx and out where the epilogue reads or writes them as vectors); the
+// launchers pick it from the shape and the pointers.
+//
+// The epilogue Epi takes what the walker loads: begin() before a row,
+// put4(e0, u, v) for a float4 at unit u of the row starting at element e0,
+// put(e, x) for one value at element e, end(i, lane, lanes, live) after
+// the row (live false only for a dead row of a kWholeWarp walk).
+// Epi::outside() is the value of an index outside the table.
+template <bool kVec, class Epi>
+__device__ __forceinline__ void walk_rows(const float* __restrict__ table,
+                                          int rows, int cols,
+                                          const int32_t* __restrict__ idx,
+                                          int m, int lane_shift, Epi& epi) {
+  constexpr int kW = Epi::kScalarUnit;
+  const int lanes = 1 << lane_shift;
+  const int lane = threadIdx.x & (lanes - 1);
+  const int rows_per_block = kThreads >> lane_shift;
+  const int units = kVec ? cols >> 2 : (cols + kW - 1) / kW;
+  const int stride = gridDim.x * rows_per_block;
+  // with kWholeWarp the warp walks on while its first row, i - group, is
+  // below m
+  const int group = Epi::kWholeWarp ? (threadIdx.x & 31) >> lane_shift : 0;
+  const float no = Epi::outside();
+  for (int i = blockIdx.x * rows_per_block + (threadIdx.x >> lane_shift);
+       i - group < m; i += stride) {
+    const bool live = i < m;
+    const int e0 = i * cols;
+    int r = 0;
+    if (!Epi::kPerElement && live) r = __ldg(idx + i);
+    const bool row_ok = r >= 0 && r < rows;
+    const float* src = table + static_cast<size_t>(row_ok ? r : 0) * cols;
+    epi.begin();
+    for (int u = lane; live && u < units; u += lanes) {
+      if (kVec) {
+        float4 v;
+        if (Epi::kPerElement) {
+          const int4 r4 = __ldg(reinterpret_cast<const int4*>(idx + e0) + u);
+          const int j = 4 * u;
+          v.x = (r4.x >= 0 && r4.x < rows)
+                    ? __ldg(table + static_cast<size_t>(r4.x) * cols + j)
+                    : no;
+          v.y = (r4.y >= 0 && r4.y < rows)
+                    ? __ldg(table + static_cast<size_t>(r4.y) * cols + j + 1)
+                    : no;
+          v.z = (r4.z >= 0 && r4.z < rows)
+                    ? __ldg(table + static_cast<size_t>(r4.z) * cols + j + 2)
+                    : no;
+          v.w = (r4.w >= 0 && r4.w < rows)
+                    ? __ldg(table + static_cast<size_t>(r4.w) * cols + j + 3)
+                    : no;
+        } else {
+          v = row_ok ? __ldg(reinterpret_cast<const float4*>(src) + u)
+                     : make_float4(no, no, no, no);
+        }
+        epi.put4(e0, u, v);
+      } else if (Epi::kPerElement) {
+        const int re = __ldg(idx + e0 + u);
+        epi.put(e0 + u, (re >= 0 && re < rows)
+                            ? __ldg(table + static_cast<size_t>(re) * cols + u)
+                            : no);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kW; ++k) {
+          const int j = u * kW + k;
+          if (kW == 1 || j < cols) epi.put(e0 + j, row_ok ? __ldg(src + j)
+                                                          : no);
+        }
+      }
+    }
+    epi.end(i, lane, lanes, live);
+  }
+}
+
+// gather_rows: the values as they are, NaN outside the table.
+template <bool kPerElementIdx>
+struct CopyRows {
+  static constexpr bool kPerElement = kPerElementIdx;
+  static constexpr int kScalarUnit = 1;
+  static constexpr bool kWholeWarp = false;
+  float* out;
+  static __device__ float outside() { return NAN; }
+  __device__ void begin() {}
+  __device__ void put4(int e0, int u, float4 v) {
+    reinterpret_cast<float4*>(out + e0)[u] = v;
+  }
+  __device__ void put(int e, float x) { out[e] = x; }
+  __device__ void end(int, int, int, bool) {}
+};
+
+// onehot_gather: a zero row outside the table; each value rounded to
+// bfloat16 (nearest even) in registers when kBf16.
+template <bool kBf16>
+struct OneHotRows {
+  static constexpr bool kPerElement = false;
+  static constexpr int kScalarUnit = 1;
+  static constexpr bool kWholeWarp = false;
+  float* out;
+  static __device__ float outside() { return 0.f; }
+  static __device__ float rounded(float x) {
+    return kBf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+  }
+  __device__ void begin() {}
+  __device__ void put4(int e0, int u, float4 v) {
+    reinterpret_cast<float4*>(out + e0)[u] =
+        make_float4(rounded(v.x), rounded(v.y), rounded(v.z),
+                    rounded(v.w));
+  }
+  __device__ void put(int e, float x) { out[e] = rounded(x); }
+  __device__ void end(int, int, int, bool) {}
+};
+
+// gather_row_sum: each lane's values summed left to right, then the lanes'
+// sums by a butterfly (the order of the header note); NaN outside the
+// table (every value of such a row is NaN).
+struct RowSum {
+  static constexpr bool kPerElement = false;
+  static constexpr int kScalarUnit = 4;
+  static constexpr bool kWholeWarp = true;
+  float* out;
+  float acc;
+  static __device__ float outside() { return NAN; }
+  __device__ void begin() { acc = -0.f; }
+  __device__ void put4(int, int, float4 v) {
+    acc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(acc, v.x), v.y), v.z),
+                    v.w);
+  }
+  __device__ void put(int, float x) { acc = __fadd_rn(acc, x); }
+  __device__ void end(int i, int lane, int lanes, bool live) {
+    // the whole warp is here (kWholeWarp); an offset below lanes stays in
+    // the row's lanes
+    for (int off = 1; off < lanes; off <<= 1) {
+      acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+    }
+    if (live && lane == 0) out[i] = acc;
+  }
+};
+
 template <bool kVec, bool kPerElement>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const float* __restrict__ table, int rows, int cols,
                    const int32_t* __restrict__ idx, int m, int lane_shift,
                    float* __restrict__ out) {
-  const int lanes = 1 << lane_shift;
-  const int lane = threadIdx.x & (lanes - 1);
-  const int rows_per_block = kThreads >> lane_shift;
-  const int units = kVec ? cols >> 2 : cols;
-  const int stride = gridDim.x * rows_per_block;
-  for (int i = blockIdx.x * rows_per_block + (threadIdx.x >> lane_shift);
-       i < m; i += stride) {
-    const int e0 = i * cols;
-    int r = 0;
-    if (!kPerElement) r = __ldg(idx + i);
-    const bool row_ok = r >= 0 && r < rows;
-    const float* src = table + static_cast<size_t>(row_ok ? r : 0) * cols;
-    for (int u = lane; u < units; u += lanes) {
-      if (kVec) {
-        float4 v;
-        if (kPerElement) {
-          const int4 r4 = __ldg(reinterpret_cast<const int4*>(idx + e0) + u);
-          const int j = 4 * u;
-          v.x = (r4.x >= 0 && r4.x < rows)
-                    ? __ldg(table + static_cast<size_t>(r4.x) * cols + j)
-                    : NAN;
-          v.y = (r4.y >= 0 && r4.y < rows)
-                    ? __ldg(table + static_cast<size_t>(r4.y) * cols + j + 1)
-                    : NAN;
-          v.z = (r4.z >= 0 && r4.z < rows)
-                    ? __ldg(table + static_cast<size_t>(r4.z) * cols + j + 2)
-                    : NAN;
-          v.w = (r4.w >= 0 && r4.w < rows)
-                    ? __ldg(table + static_cast<size_t>(r4.w) * cols + j + 3)
-                    : NAN;
-        } else {
-          v = row_ok ? __ldg(reinterpret_cast<const float4*>(src) + u)
-                     : make_float4(NAN, NAN, NAN, NAN);
-        }
-        reinterpret_cast<float4*>(out + e0)[u] = v;
-      } else if (kPerElement) {
-        const int re = __ldg(idx + e0 + u);
-        out[e0 + u] = (re >= 0 && re < rows)
-                          ? __ldg(table + static_cast<size_t>(re) * cols + u)
-                          : NAN;
-      } else {
-        out[e0 + u] = row_ok ? __ldg(src + u) : NAN;
-      }
-    }
-  }
+  CopyRows<kPerElement> epi{out};
+  walk_rows<kVec>(table, rows, cols, idx, m, lane_shift, epi);
 }
 
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 gather_row_sum_kernel(const float* __restrict__ table, int rows, int cols,
-                      const int32_t* __restrict__ idx, int m,
+                      const int32_t* __restrict__ idx, int m, int lane_shift,
                       float* __restrict__ out) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= m) return;
-  const int r = __ldg(idx + i);
-  if (r < 0 || r >= rows) {
-    out[i] = NAN;
-    return;
-  }
-  const float* row = table + static_cast<long long>(r) * cols;
-  float acc = __ldg(row);
-  for (int j = 1; j < cols; ++j) acc = __fadd_rn(acc, __ldg(row + j));
-  out[i] = acc;
+  RowSum epi{out, 0.f};
+  walk_rows<kVec>(table, rows, cols, idx, m, lane_shift, epi);
 }
 
+template <bool kVec, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 onehot_gather_kernel(const float* __restrict__ table, int rows, int cols,
-                     const int32_t* __restrict__ idx, int bf16,
-                     long long total, float* __restrict__ out) {
-  const long long e = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  if (e >= total) return;
-  const long long i = e / cols;
-  const int j = static_cast<int>(e - i * cols);
-  const int r = __ldg(idx + i);
-  float v = (r >= 0 && r < rows)
-                ? __ldg(table + static_cast<long long>(r) * cols + j)
-                : 0.f;
-  if (bf16) v = __bfloat162float(__float2bfloat16_rn(v));
-  out[e] = v;
+                     const int32_t* __restrict__ idx, int m, int lane_shift,
+                     float* __restrict__ out) {
+  OneHotRows<kBf16> epi{out};
+  walk_rows<kVec>(table, rows, cols, idx, m, lane_shift, epi);
 }
 
-int blocks_for(long long total) {
-  return static_cast<int>((total + kThreads - 1) / kThreads);
+// How a launch walks its rows: the vector path where cols % 4 == 0 and
+// every address in `addr` (or-ed) is 16-byte aligned; 2^lane_shift threads
+// a row, the row's units rounded up to a power of two, at most 32; the
+// blocks that cover m rows, at most kMaxRowBlocks.
+struct Plan {
+  bool vec;
+  int lane_shift;
+  int blocks;
+};
+
+Plan plan(int cols, int m, uintptr_t addr, int scalar_unit) {
+  Plan p;
+  p.vec = cols % 4 == 0 && addr % 16 == 0;
+  const int units = p.vec ? cols / 4 : (cols + scalar_unit - 1) / scalar_unit;
+  p.lane_shift = 0;
+  while (p.lane_shift < 5 && (1 << p.lane_shift) < units) ++p.lane_shift;
+  const int rows_per_block = kThreads >> p.lane_shift;
+  p.blocks = static_cast<int>(std::min<long long>(
+      (static_cast<long long>(m) + rows_per_block - 1) / rows_per_block,
+      kMaxRowBlocks));
+  return p;
 }
 
-bool bad_shape(int rows, int cols, long long total) {
-  return rows < 1 || cols < 1 || total < 1 ||
-         (total + kThreads - 1) / kThreads > 0x7fffffffLL;
+bool bad_shape(int rows, int cols, int m) {
+  return rows < 1 || cols < 1 || m < 1 ||
+         static_cast<long long>(m) * cols >= 0x7fffffffLL;
 }
+
+uintptr_t address(const void* p) { return reinterpret_cast<uintptr_t>(p); }
 
 }  // namespace
 
@@ -157,37 +284,29 @@ bool bad_shape(int rows, int cols, long long total) {
 extern "C" int gather_rows_launch(const void* table, int rows, int cols,
                                   const void* idx, int per_element, int m,
                                   void* out, void* stream) {
-  const long long total = static_cast<long long>(m) * cols;
-  if (bad_shape(rows, cols, total) || total >= 0x7fffffffLL) {
+  if (bad_shape(rows, cols, m)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(table) |
-                         reinterpret_cast<uintptr_t>(out) |
-                         (per_element ? reinterpret_cast<uintptr_t>(idx) : 0);
-  const bool vec = cols % 4 == 0 && addr % 16 == 0;
-  const int units = vec ? cols / 4 : cols;
-  int lane_shift = 0;  // 2^lane_shift threads a row: units rounded up to
-  while (lane_shift < 5 && (1 << lane_shift) < units) ++lane_shift;  // <= 32
-  const int rows_per_block = kThreads >> lane_shift;
-  const int blocks = static_cast<int>(
-      std::min<long long>((m + rows_per_block - 1) / rows_per_block,
-                          kMaxRowBlocks));
+  const Plan p = plan(cols, m,
+                      address(table) | address(out) |
+                          (per_element ? address(idx) : 0),
+                      1);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* t = static_cast<const float*>(table);
   const int32_t* ix = static_cast<const int32_t*>(idx);
   float* o = static_cast<float*>(out);
-  if (vec && per_element) {
-    gather_rows_kernel<true, true><<<blocks, kThreads, 0, s>>>(
-        t, rows, cols, ix, m, lane_shift, o);
-  } else if (vec) {
-    gather_rows_kernel<true, false><<<blocks, kThreads, 0, s>>>(
-        t, rows, cols, ix, m, lane_shift, o);
+  if (p.vec && per_element) {
+    gather_rows_kernel<true, true><<<p.blocks, kThreads, 0, s>>>(
+        t, rows, cols, ix, m, p.lane_shift, o);
+  } else if (p.vec) {
+    gather_rows_kernel<true, false><<<p.blocks, kThreads, 0, s>>>(
+        t, rows, cols, ix, m, p.lane_shift, o);
   } else if (per_element) {
-    gather_rows_kernel<false, true><<<blocks, kThreads, 0, s>>>(
-        t, rows, cols, ix, m, lane_shift, o);
+    gather_rows_kernel<false, true><<<p.blocks, kThreads, 0, s>>>(
+        t, rows, cols, ix, m, p.lane_shift, o);
   } else {
-    gather_rows_kernel<false, false><<<blocks, kThreads, 0, s>>>(
-        t, rows, cols, ix, m, lane_shift, o);
+    gather_rows_kernel<false, false><<<p.blocks, kThreads, 0, s>>>(
+        t, rows, cols, ix, m, p.lane_shift, o);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -199,10 +318,19 @@ extern "C" int gather_row_sum_launch(const void* table, int rows, int cols,
   if (bad_shape(rows, cols, m)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  gather_row_sum_kernel<<<blocks_for(m), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), rows, cols,
-      static_cast<const int32_t*>(idx), m, static_cast<float*>(out));
+  // units of 4 columns on both paths: the order is the same on both
+  const Plan p = plan(cols, m, address(table), 4);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* t = static_cast<const float*>(table);
+  const int32_t* ix = static_cast<const int32_t*>(idx);
+  float* o = static_cast<float*>(out);
+  if (p.vec) {
+    gather_row_sum_kernel<true><<<p.blocks, kThreads, 0, s>>>(
+        t, rows, cols, ix, m, p.lane_shift, o);
+  } else {
+    gather_row_sum_kernel<false><<<p.blocks, kThreads, 0, s>>>(
+        t, rows, cols, ix, m, p.lane_shift, o);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -210,14 +338,26 @@ extern "C" int gather_row_sum_launch(const void* table, int rows, int cols,
 extern "C" int onehot_gather_launch(const void* table, int rows, int cols,
                                     const void* idx, int bf16, int m,
                                     void* out, void* stream) {
-  const long long total = static_cast<long long>(m) * cols;
-  if (bad_shape(rows, cols, total)) {
+  if (bad_shape(rows, cols, m)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  onehot_gather_kernel<<<blocks_for(total), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), rows, cols,
-      static_cast<const int32_t*>(idx), bf16, total,
-      static_cast<float*>(out));
+  const Plan p = plan(cols, m, address(table) | address(out), 1);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* t = static_cast<const float*>(table);
+  const int32_t* ix = static_cast<const int32_t*>(idx);
+  float* o = static_cast<float*>(out);
+  if (p.vec && bf16) {
+    onehot_gather_kernel<true, true><<<p.blocks, kThreads, 0, s>>>(
+        t, rows, cols, ix, m, p.lane_shift, o);
+  } else if (p.vec) {
+    onehot_gather_kernel<true, false><<<p.blocks, kThreads, 0, s>>>(
+        t, rows, cols, ix, m, p.lane_shift, o);
+  } else if (bf16) {
+    onehot_gather_kernel<false, true><<<p.blocks, kThreads, 0, s>>>(
+        t, rows, cols, ix, m, p.lane_shift, o);
+  } else {
+    onehot_gather_kernel<false, false><<<p.blocks, kThreads, 0, s>>>(
+        t, rows, cols, ix, m, p.lane_shift, o);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,8 @@ functions (see ``csrc/gather.cu``):
     gather_rows(table, idx)      take_along_axis(table, idx, axis=0); idx
                                  (M,) is one index per row, broadcast over
                                  the columns, or (M, C) one per element
-    gather_row_sum(table, idx)   the gathered rows summed left to right
+    gather_row_sum(table, idx)   the gathered rows summed, in the order
+                                 that ``csrc/gather.cu``'s note states
     onehot_gather(table, idx)    the one-hot product's gather: table[idx],
                                  a zero row for an index outside the table,
                                  values rounded to bfloat16 first if asked
@@ -122,25 +123,38 @@ gather_rows.launches = 0
 
 def gather_row_sum_plain(table: torch.Tensor,
                          idx: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of ``gather_row_sum``: the gathered rows summed
-    column by column, left to right, as the kernel sums them."""
+    """Plain PyTorch version of ``gather_row_sum``, in the kernel's order:
+    the row's units of 4 columns go to lanes (the least power of two at
+    least the units, at most 32), lane l sums the columns of units l,
+    l + lanes, ... left to right from -0.0, then the lanes combine
+    pairwise, neighbours first: ((p0 + p1) + (p2 + p3)) at 16 columns. The
+    padding to whole units and trips is -0.0, which adds exactly nothing."""
     _check("gather_row_sum", table, idx, per_element_ok=False)
     gather_row_sum_plain.launches += 1
     ok, safe = _in_table(table, idx)
-    rows = table[safe]
-    acc = rows[:, 0]
-    for j in range(1, table.shape[1]):
-        acc = acc + rows[:, j]
-    return torch.where(ok, acc, float("nan"))
+    m, cols = idx.shape[0], table.shape[1]
+    units = -(-cols // 4)
+    lanes = min(32, 1 << (units - 1).bit_length())
+    trips = -(-cols // (4 * lanes))
+    x = table.new_full((m, trips * lanes * 4), -0.0)
+    x[:, :cols] = table[safe]
+    x = x.view(m, trips, lanes, 4)
+    acc = table.new_full((m, lanes), -0.0)
+    for t in range(trips):
+        for k in range(4):
+            acc = acc + x[:, t, :, k]
+    while acc.shape[1] > 1:
+        acc = acc[:, 0::2] + acc[:, 1::2]
+    return torch.where(ok, acc[:, 0], float("nan"))
 
 
 gather_row_sum_plain.launches = 0
 
 
 def gather_row_sum(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(M,) float32: sum_j table[idx[i], j], left to right. CUDA tensors run
-    the kernel of ``csrc/gather.cu`` and count one launch in
-    ``gather_row_sum.launches``."""
+    """(M,) float32: sum_j table[idx[i], j], in ``gather_row_sum_plain``'s
+    order. CUDA tensors run the kernel of ``csrc/gather.cu`` and count one
+    launch in ``gather_row_sum.launches``."""
     _check("gather_row_sum", table, idx, per_element_ok=False)
     if not _on_cuda("gather_row_sum", table):
         return gather_row_sum_plain(table, idx)
@@ -160,16 +174,17 @@ gather_row_sum.launches = 0
 
 def onehot_gather_plain(table: torch.Tensor, idx: torch.Tensor,
                         bf16: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of ``onehot_gather``: the literal product of
-    the (M, R) one-hot matrix and the table (rounded to bfloat16 first when
-    ``bf16``), in float32. Exact for a finite table: each output is one
-    product 1 * t plus zeros."""
+    """Plain PyTorch version of ``onehot_gather``: the row that the one-hot
+    product of the (M, R) one-hot matrix and the table (rounded to bfloat16
+    first when ``bf16``) selects, in float32, a zero row outside the table.
+    Equal to the literal product for a finite table, whose each output is
+    one product 1 * t plus zeros; for an inf or NaN in the table the
+    product makes its column NaN (0 * inf), the gather keeps it."""
     _check("onehot_gather", table, idx, per_element_ok=False)
     onehot_gather_plain.launches += 1
-    rows = torch.arange(table.shape[0], device=table.device)
-    onehot = (idx.long()[:, None] == rows[None, :]).to(torch.float32)
     tab = table.to(torch.bfloat16).to(torch.float32) if bf16 else table
-    return onehot @ tab
+    ok, safe = _in_table(table, idx)
+    return torch.where(ok[:, None], tab[safe], 0.0)
 
 
 onehot_gather_plain.launches = 0
