@@ -59,7 +59,11 @@ Phases, each printing one JSON line:
                sweep's and the final refinement's graph solves on the
                run's final graph (seconds, bit-equal, the captured form's
                launches a GN iteration; the refinement's first 4 of its
-               40 GN iterations)
+               40 GN iterations); the dense solver's one graph on that
+               graph and on it padded to 512 nodes, float32 and float64
+               (seconds of both forms and of the capture, bit-equal, a
+               replay under sync-debug "error", launches a GN iteration
+               on both forms, capture seconds and pool bytes)
   kernels      nn_search against its plain version: a verification batch
                of the slam run's own keyframes (6 pairs x 4,096 points), a
                seeded edge case (ties, padding, ragged sizes, one pair) and
@@ -177,7 +181,9 @@ Phases, each printing one JSON line:
                optimize_pose_graph's PCG and dense solves: 2e-3 / 1e-2;
                Schur 1e-4 / 1e-4, in float64 against the float64 dense
                solve and in float32 against both the float32 and the
-               float64 dense solve; ms and kernel launches a solve),
+               float64 dense solve, each dense solve captured and
+               bit-equal to compiled=False; ms and kernel launches a
+               solve),
                dist_health
                (the heartbeat, healthy and with a hung probe); every rank
                bit-identical; then dist_map, dist_icp and dist_graph at
@@ -1450,6 +1456,93 @@ def compiled_config4(run, clouds, gt):
         captured=run["snap_at"])
 
 
+def gn_iteration_profile(graph, params, compiled):
+    """One GN iteration of ``params``' solve of ``graph`` (after a warm
+    call, which captures it) under the profiler: the runtime's kernel and
+    graph launches, the device's kernels."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_slam_torch.graph.pose_graph import optimize_pose_graph
+
+    one = dataclasses.replace(params, gn_iterations=1)
+    optimize_pose_graph(graph, one, compiled=compiled)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        optimize_pose_graph(graph, one, compiled=compiled)
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    return dict(
+        kernel_launches=sum(e.count for e in ka if e.key in KERNEL_LAUNCHES),
+        graph_launches=sum(e.count for e in ka if e.key in GRAPH_LAUNCHES),
+        device_kernels=device_kernel_count(ka))
+
+
+def dense_solve_forms(graph, params):
+    """``params``' dense solve of ``graph`` on both forms: compiled=False,
+    then the first captured call (the capture) apart and one replay under
+    sync-debug "error". Returns (results by form, seconds, replays
+    checked)."""
+    import torch
+
+    from tpu_slam_torch.graph.pose_graph import optimize_pose_graph
+
+    res, secs = {}, {}
+    for label, compiled in (("eager", False), ("first_call", True),
+                            ("captured", True)):
+        with replays_sync_checked() as chk:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[label] = optimize_pose_graph(graph, params,
+                                             compiled=compiled)
+            torch.cuda.synchronize()
+            secs[label] = time.perf_counter() - t0
+    return res, secs, chk.calls
+
+
+DENSE_GN = 6                   # the dense solve's GN iterations compared
+DENSE_NODES = 512              # SLAMConfig()'s node capacity
+
+
+def compiled_dense(graph, params):
+    """The dense solve on config 4's final graph (288 nodes of capacity)
+    and on it padded to DENSE_NODES (identity poses), in float32 and
+    float64: seconds on both forms, bit-equal, replays checked, the
+    graphs' capture seconds and pool bytes (the 288-node float32 one's
+    one-iteration graph too: a pool that grew with the iterations would
+    hold one H each)."""
+    import torch
+
+    from tpu_slam_torch.graph import pose_graph as pg
+
+    gnp = _graph_numpy(graph)
+    pad = DENSE_NODES - graph.node_capacity
+    padded = dict(gnp, poses=np.concatenate(
+        [gnp["poses"], np.broadcast_to(np.eye(4, dtype=np.float32),
+                                       (pad, 4, 4))]))
+    out = {}
+    for nodes, g_np in ((graph.node_capacity, gnp), (DENSE_NODES, padded)):
+        for dtype in ("float32", "float64"):
+            g = _graph_torch(g_np, graph.poses.device, dtype)
+            before = cache_replays(pg._dense_solves)
+            res, secs, checked = dense_solve_forms(g, params)
+            row = dict(seconds=secs, replays_checked=checked,
+                       bit_equal=same_tensors(res["eager"],
+                                              res["captured"]),
+                       chi2_on_device=res["captured"][1].is_cuda)
+            if nodes == graph.node_capacity and dtype == "float32":
+                row["gn_iteration"] = {
+                    form: gn_iteration_profile(g, params, compiled)
+                    for form, compiled in (("eager", False),
+                                           ("captured", True))}
+            row["graphs"] = cache_use(pg._dense_solves, before)
+            out[f"{nodes}_{dtype}"] = row
+    return out
+
+
 def compiled_graph_solves(graph):
     """The config-4 sweep's solve and the final refinement on the run's
     final graph, eager and captured: seconds, the result bit-equal; the
@@ -1457,11 +1550,9 @@ def compiled_graph_solves(graph):
     runtime's kernel and graph launches, the device's kernels; PERF.md
     holds the eager form's, which are not repeated here). The
     refinement runs its first COMPILED_REFINE_GN GN iterations here (the
-    whole refinement runs captured in the slam and slam_resume phases)."""
-    import dataclasses
-
+    whole refinement runs captured in the slam and slam_resume phases).
+    Then the dense solve (``compiled_dense``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from tpu_slam_torch.graph.pose_graph import (GraphSolveParams,
                                                  optimize_pose_graph)
@@ -1482,26 +1573,15 @@ def compiled_graph_solves(graph):
             row[label] = dict(
                 seconds=secs,
                 seconds_per_gn_iteration=secs / params.gn_iterations)
-            if not compiled:
-                continue
-            one = dataclasses.replace(params, gn_iterations=1)
-            optimize_pose_graph(graph, one, compiled=compiled)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                optimize_pose_graph(graph, one, compiled=compiled)
-                torch.cuda.synchronize()
-            ka = prof.key_averages()
-            row[label]["gn_iteration"] = dict(
-                kernel_launches=sum(e.count for e in ka
-                                    if e.key in KERNEL_LAUNCHES),
-                graph_launches=sum(e.count for e in ka
-                                   if e.key in GRAPH_LAUNCHES),
-                device_kernels=device_kernel_count(ka))
+            if compiled:
+                row[label]["gn_iteration"] = gn_iteration_profile(
+                    graph, params, compiled)
         row["bit_equal"] = bool(
             torch.equal(res["eager"][0].poses, res["captured"][0].poses)
             and torch.equal(res["eager"][1], res["captured"][1]))
         out[name] = row
+    out["dense"] = compiled_dense(
+        graph, GraphSolveParams(gn_iterations=DENSE_GN, solver="dense"))
     return out
 
 
@@ -1533,9 +1613,19 @@ def phase_compiled(clouds, gt, run, c4_clouds, c4_gt):
         raise AssertionError(f"config 4: captured and eager differ: "
                              f"poses {c4['poses_bit_equal']}, state "
                              f"{c4['state_keys_differing']}")
+    dense = solves.pop("dense")
     if not all(s["bit_equal"] for s in solves.values()):
         raise AssertionError("a captured graph solve differs from the "
                              "eager one")
+    for case, row in dense.items():
+        # each case: its solve's graph (the 288-node float32 one also its
+        # one-iteration profile's), replayed once under sync-debug
+        want = 2 if "gn_iteration" in row else 1
+        if not (row["bit_equal"] and row["chi2_on_device"]
+                and row["replays_checked"] == 1
+                and row["graphs"]["captured"] == want):
+            raise AssertionError(f"the captured dense solve ({case}): "
+                                 f"{row}")
 
 
 def nn_work(q, t, q_mask, t_mask):
@@ -5122,8 +5212,9 @@ def host_options(clouds, gt):
     """LidarOdometry with host_options_cfg() over config 2's first
     HOST_OPTION_SCANS scans (65,536 rays) on both forms from fresh engines
     (the captured one warmed up): poses, metrics, the map and the
-    occupancy grid bit for bit; step p50, launches, graph launches and
-    reads a step, idle share (scans 5-8 replayed under the profiler); the
+    occupancy grid bit for bit; step p50; the captured form's launches,
+    graph launches and reads a step, idle share (scans 5-8 replayed under
+    the profiler; PERF.md holds the eager form's, not repeated here); the
     graphs of coarsen_map, occupancy_maintain and deskew_cloud (captured
     in the run: 0; their memory); then each of them alone on the state
     after scan 4, captured against eager."""
@@ -5151,7 +5242,8 @@ def host_options(clouds, gt):
             step_ms_p50=float(np.percentile(wall, 50)),
             matched=[r.matched_fraction for r in recs],
             field_builds=eng.field_builds, replays_checked=chk.calls,
-            profile=host_step_profile(eng, kept[a - 1], clouds[a:b]),
+            profile=(host_step_profile(eng, kept[a - 1], clouds[a:b])
+                     if compiled else None),
             graphs={k: cache_use(c, before[k]) for k, c in caches.items()})
     (pe, me, se), (pc, mc, sc) = keep["eager"], keep["captured"]
     out["bit_equal"] = dict(
@@ -6079,7 +6171,10 @@ def dist_icp_job(run):
 
 def dist_graph_job(run):
     """The slam run's final graph and the single-device solves of it: the
-    PCG, and the dense solve in float32 and float64."""
+    PCG, and the dense solve in float32 and float64 on both forms (the
+    captured one's capture apart, its replay under sync-debug "error",
+    bit-equal to compiled=False: raises if not); a solve's seconds are one
+    solve's, a replay's for the dense one."""
     from tpu_slam_torch.graph.pose_graph import optimize_pose_graph
 
     graph = run["state"].graph
@@ -6089,12 +6184,24 @@ def dist_graph_job(run):
         # the PCG against the single-device PCG, the Schur solves against
         # the dense solve (their params say solver="dense")
         g_in = _graph_torch(gnp, graph.poses.device, dtype)
-        _sync()
-        t0 = time.perf_counter()
-        g, chi2 = optimize_pose_graph(g_in, p)
-        _sync()
-        ref[name] = dict(poses=g.poses.cpu().numpy(), chi2=float(chi2),
-                         seconds=time.perf_counter() - t0, solver=p.solver)
+        if p.solver == "dense":
+            res, secs, checked = dense_solve_forms(g_in, p)
+            g, chi2 = res["captured"]
+            ref[name] = dict(seconds=secs["captured"], dense_forms=dict(
+                seconds=secs, replays_checked=checked,
+                bit_equal=same_tensors(res["eager"], res["captured"])))
+            if not (ref[name]["dense_forms"]["bit_equal"] and checked == 1):
+                raise AssertionError(f"dist_graph's {name} reference: the "
+                                     f"captured dense solve "
+                                     f"{ref[name]['dense_forms']}")
+        else:
+            _sync()
+            t0 = time.perf_counter()
+            g, chi2 = optimize_pose_graph(g_in, p)
+            _sync()
+            ref[name] = dict(seconds=time.perf_counter() - t0)
+        ref[name].update(poses=g.poses.cpu().numpy(), chi2=float(chi2),
+                         solver=p.solver)
     return dict(graph=gnp, solves=dist_graph_solves()), dict(
         ref, n_nodes=int(graph.n_nodes),
         node_capacity=graph.node_capacity,
@@ -6353,6 +6460,8 @@ def phase_distributed(run, w3, dense_job, dense_ref):
                    for k in ("pcg", "schur", "schur64")},
          single_solve_ms={k: graph_ref[k]["seconds"] * 1e3
                           for k in ("pcg", "schur", "schur64")},
+         single_dense_forms={k: graph_ref[k]["dense_forms"]
+                             for k in ("schur", "schur64")},
          launches_a_gn_iteration_rank0={
              k: got[0]["graph"][k]["per_gn_iteration"]
              for k in ("pcg", "schur")},

@@ -1,7 +1,7 @@
 """The reference's last compiled programs: the calibration's cost and
-gradient step, the Schur pose-graph solve, the sharded dense step and the
-synthetic ray caster, their compiled forms against their eager forms (CPU),
-bit for bit.
+gradient step, the Schur and the dense pose-graph solves, the sharded
+dense step and the synthetic ray caster, their compiled forms against
+their eager forms (CPU), bit for bit.
 
 On the CPU ``compiled=True`` (``compiled=None`` on a mesh) runs the body
 the card captures into a CUDA graph, eagerly; ``compiled=False`` runs the
@@ -10,14 +10,16 @@ inside the body: ``overlap_cost`` at two parameter vectors; a 3-step
 gradient solve (history, parameters, Adam's moments and count) against
 the same solve through ``.backward()`` into ``.grad``; a
 20-evaluation twiddle and an annealing run taking the eager form's path;
-the single-process Schur solve (one key for one structure); the sharded
-dense step on a 1-rank gloo mesh, its eager form against the sync-free
-body, and ``compiled=True`` on gloo raising; the ray caster. Nothing here
-runs JAX: each module's parity with the reference is in its own test
-file. The CUDA graphs themselves are held in ``test_torch_cuda.py``.
+the single-process Schur solve (one key for one structure);
+``optimize_pose_graph``'s dense solver (one key for every node count at
+the same capacities); the sharded dense step on a 1-rank gloo mesh, its
+eager form against the sync-free body, and ``compiled=True`` on gloo
+raising; the ray caster. Nothing here runs JAX: each module's parity with
+the reference is in its own test file. The CUDA graphs themselves are held in ``test_torch_cuda.py``.
 """
 
 import contextlib
+import dataclasses
 import math
 
 import numpy as np
@@ -212,11 +214,14 @@ def _circle_graph(seed=4, n=24, node_cap=32, edge_cap=64):
     return g
 
 
-@pytest.mark.parametrize("params", [
+DENSE_PARAMS = pytest.mark.parametrize("params", [
     pg.GraphSolveParams(gn_iterations=4, solver="dense"),
     pg.GraphSolveParams(gn_iterations=5, solver="dense", robust_delta=2.0,
                         robust_kernel="cauchy", robust_anneal=4.0)],
     ids=["plain", "robust"])
+
+
+@DENSE_PARAMS
 def test_schur_body_matches_eager(monkeypatch, params):
     """The single-process solve's body with reads raising against
     compiled=False: poses and χ² bit for bit, χ² a device scalar; a
@@ -234,6 +239,36 @@ def test_schur_body_matches_eager(monkeypatch, params):
     assert torch.equal(got.poses, eager.poses) and torch.equal(chi, echi)
     assert chi.shape == () and bool(torch.isfinite(chi))
     assert progs.keys[0] == progs.keys[1] != progs.keys[2]
+
+
+@DENSE_PARAMS
+def test_dense_solve_body_matches_eager(monkeypatch, params):
+    """optimize_pose_graph's dense solver: its body with reads raising
+    against compiled=False, poses and χ² bit for bit, χ² a () tensor; a
+    second solve of the graph and the graph with one node (and edge) more
+    at the same capacities (its solve bit-equal to its eager one, the new
+    node moved) have the first one's key, other params another key."""
+    g = _circle_graph()
+    bigger, k = pg.add_node(g, g.poses[g.n_nodes - 1])
+    bigger = pg.add_edge(bigger, k - 1, k, se3.exp(torch.tensor(
+        [0.5, 0.0, 0.0, 0.0, 0.0, 0.1])))
+    eager = [pg.optimize_pose_graph(x, params, compiled=False)
+             for x in (g, bigger)]
+    progs = _Programs()
+    monkeypatch.setattr(pg, "compiled_call", progs)
+    got, chi = pg.optimize_pose_graph(g, params)
+    pg.optimize_pose_graph(g, params, compiled=True)
+    got_b, chi_b = pg.optimize_pose_graph(bigger, params)
+    pg.optimize_pose_graph(g, dataclasses.replace(params, damping=1e-5))
+    assert torch.equal(got.poses, eager[0][0].poses)
+    assert torch.equal(chi, eager[0][1])
+    assert torch.equal(got_b.poses, eager[1][0].poses)
+    assert torch.equal(chi_b, eager[1][1])
+    assert not torch.equal(got_b.poses[k], bigger.poses[k])   # live
+    assert chi.shape == () and bool(torch.isfinite(chi))
+    assert got.n_nodes == g.n_nodes and got_b.n_nodes == g.n_nodes + 1
+    k = progs.keys
+    assert len(k) == 4 and k[0] == k[1] == k[2] != k[3]
 
 
 def test_compiled_true_on_gloo_raises(monkeypatch):

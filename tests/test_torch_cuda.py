@@ -1362,6 +1362,45 @@ def test_captured_schur_matches_eager(cuda):
         assert np.isfinite(float(chi_e))
 
 
+def test_captured_dense_solve_matches_eager(cuda):
+    """optimize_pose_graph's dense solver (annealed robust widths, loops)
+    as one graph against compiled=False, in float32 and float64: poses and
+    chi^2 bit for bit at two replays, chi^2 on the card, one capture a
+    (signature, params), no read inside a replay; the graph with one node
+    and edge more at the same capacities replays that capture, bit-equal
+    to its own eager solve."""
+    import chip_smoke
+    from tpu_slam_torch.core import se3
+    from tpu_slam_torch.graph import pose_graph as pg
+    from test_torch_compiled_rest import _circle_graph
+
+    g32 = _circle_graph()
+    bigger32, k = pg.add_node(g32, g32.poses[g32.n_nodes - 1])
+    bigger32 = pg.add_edge(bigger32, k - 1, k, se3.exp(torch.tensor(
+        [0.5, 0.0, 0.0, 0.0, 0.0, 0.1])))
+    params = pg.GraphSolveParams(gn_iterations=6, solver="dense",
+                                 robust_delta=2.0, robust_kernel="cauchy",
+                                 robust_anneal=4.0)
+    for dtype in ("float32", "float64"):
+        g, bigger = (chip_smoke._graph_torch(chip_smoke._graph_numpy(x),
+                                             cuda, dtype)
+                     for x in (g32, bigger32))
+        for graph, solves, captured in ((g, 2, 1), (bigger, 1, 0)):
+            eager, chi_e = pg.optimize_pose_graph(graph, params,
+                                                  compiled=False)
+            before = chip_smoke.cache_replays(pg._dense_solves)
+            with chip_smoke.replays_sync_checked() as chk:
+                runs = [pg.optimize_pose_graph(graph, params)
+                        for _ in range(solves)]
+            for got, chi in runs:
+                assert torch.equal(got.poses, eager.poses)
+                assert torch.equal(chi, chi_e) and chi.device.type == "cuda"
+            use = chip_smoke.cache_use(pg._dense_solves, before)
+            assert use["captured"] == captured
+            assert use["replays"] == [solves] and chk.calls == solves
+            assert bool(torch.isfinite(chi_e))
+
+
 def test_captured_sharded_step_and_schur_on_nccl(cuda):
     """World size 1 on NCCL: the sharded dense step (two scans) and the
     Schur solve captured with their collectives, against compiled=False on

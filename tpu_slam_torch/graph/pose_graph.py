@@ -26,13 +26,20 @@ for each (node capacity, edge capacity, params): a GN iteration replays
 its fixed work (the rhs and the preconditioner, the CG start) and then
 one chunk of CG_CHECK_EVERY masked CG iterations until the flag read
 after a chunk says the solve has stopped, then the retract; the live
-nodes come from a device count. The work and its order are the eager
-solve's, so the bits are too.
+nodes come from a device count. The dense solver is one CUDA graph, as
+the reference's one jit: every GN iteration (H built in a fixed order,
+``solve_ex``, the retract of the live nodes) and the final chi^2, keyed
+on the graph's tensors' signature and the params (``utils/capture.py``
+``compiled_call``), the live node count a () device tensor, so one
+capture serves every node count at the same capacities; on the CPU that
+body runs eagerly. The work and its order are the eager solve's, so the
+bits are too.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -40,6 +47,7 @@ import torch
 
 from tpu_slam_torch.core import se3
 from tpu_slam_torch.core.scatter import accumulate_rows
+from tpu_slam_torch.utils.capture import compiled_call
 
 CG_CHECK_EVERY = 16
 
@@ -50,7 +58,8 @@ class PoseGraph:
 
     Attributes:
       poses: (N, 4, 4) world<-node transforms; slots >= n_nodes are identity.
-      n_nodes: number of live nodes (a host int).
+      n_nodes: number of live nodes (a host int; a () device tensor inside
+        the dense solver's captured program).
       edge_i, edge_j: (E,) int64 endpoint indices (i < j for odometry edges).
       edge_T: (E, 4, 4) measured relative transform Z = T_i^-1 T_j.
       edge_info: (E, 6, 6) information matrices (Lambda).
@@ -288,6 +297,37 @@ def _robust_deltas(params: GraphSolveParams):
     return [float(np.float32(d)) for d in ds]
 
 
+def _live(graph: PoseGraph, n_nodes) -> torch.Tensor:
+    """(N, 1): the slots below ``n_nodes`` (a host int or a device
+    count)."""
+    return (torch.arange(graph.node_capacity, device=graph.poses.device)
+            < n_nodes)[:, None]
+
+
+def _gn(graph: PoseGraph, params: GraphSolveParams, solve,
+        live: torch.Tensor) -> PoseGraph:
+    """The GN iterations: each builds the rhs at its robust width, solves
+    and retracts the ``live`` nodes."""
+    for delta in _robust_deltas(params):
+        b, diag, edge_terms = _build_rhs_and_diag(graph, params, delta)
+        xi = solve(graph, params, b, diag, edge_terms)
+        xi = torch.where(live, xi, 0.0)       # freeze padding nodes
+        graph = dataclasses.replace(graph,
+                                    poses=se3.retract(graph.poses, xi))
+    return graph
+
+
+def _dense_program(graph: PoseGraph, params: GraphSolveParams
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense solver's whole solve, sync-free: ``graph.n_nodes`` is a
+    () device tensor. Returns the poses and chi^2 (a device scalar)."""
+    graph = _gn(graph, params, _solve_dense, _live(graph, graph.n_nodes))
+    return graph.poses, graph_error(graph)
+
+
+_dense_solves: Dict = {}
+
+
 def optimize_pose_graph(graph: PoseGraph,
                         params: GraphSolveParams = GraphSolveParams(),
                         compiled: bool = True
@@ -296,21 +336,23 @@ def optimize_pose_graph(graph: PoseGraph,
 
     With a robust kernel active, its width is annealed from
     robust_anneal x the target down to the target over the iterations.
-    ``compiled`` with the PCG solver on a CUDA device: the captured solve
-    (module docstring); the dense solver and the CPU run eagerly.
+    ``compiled`` (module docstring): the PCG solver's captured solve on a
+    CUDA device, eager elsewhere; the dense solver's one graph a (graph
+    signature, params) on a CUDA device, its sync-free body run eagerly
+    elsewhere. ``compiled=False`` runs the eager loop, which reads the
+    PCG's stop flag and takes the node count as a host int.
     """
-    if (compiled and params.solver != "dense"
-            and graph.poses.device.type == "cuda"):
+    dev = graph.poses.device
+    if compiled and params.solver == "dense":
+        n = torch.full((), graph.n_nodes, dtype=torch.long, device=dev)
+        poses, chi2 = compiled_call(
+            _dense_solves, functools.partial(_dense_program, params=params),
+            (dataclasses.replace(graph, n_nodes=n),), static=params)
+        return dataclasses.replace(graph, poses=poses), chi2
+    if compiled and dev.type == "cuda":
         return captured_solve(graph, params).run(graph)
     solve = _solve_dense if params.solver == "dense" else _solve_pcg
-    live = (torch.arange(graph.node_capacity, device=graph.poses.device)
-            < graph.n_nodes)[:, None]
-    for delta in _robust_deltas(params):
-        b, diag, edge_terms = _build_rhs_and_diag(graph, params, delta)
-        xi = solve(graph, params, b, diag, edge_terms)
-        xi = torch.where(live, xi, 0.0)       # freeze padding nodes
-        graph = dataclasses.replace(graph,
-                                    poses=se3.retract(graph.poses, xi))
+    graph = _gn(graph, params, solve, _live(graph, graph.n_nodes))
     return graph, graph_error(graph)
 
 

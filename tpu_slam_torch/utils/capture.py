@@ -1,14 +1,15 @@
 """A sync-free body captured once into a CUDA graph and replayed.
 
 The port's counterpart of ``jax.jit`` for its compiled programs: the dense
-engine's step, the pose-graph solve, ``ndt_register`` (the host engine's
-registrations, config 3), ``JitLidarOdometry``'s step, ``icp_raster`` and
-the batched ``icp``, the map insert, the keyframe store, the live chain's
-scan line, the SLAM sweep's map and grid rebuilds and ``sc_distance``, the
-host engine's options (``coarsen_map``, ``occupancy_maintain``,
-``deskew_cloud``), the calibration's ``overlap_cost`` and gradient step,
-the Schur pose-graph solve, the sharded dense step and the synthetic ray
-caster.
+engine's step, the pose-graph PCG solve, ``ndt_register`` (the host
+engine's registrations, config 3), ``JitLidarOdometry``'s step,
+``icp_raster`` and the batched ``icp``, the map insert, the keyframe
+store, the live chain's scan line, the SLAM sweep's map and grid rebuilds
+and ``sc_distance``, the host engine's options (``coarsen_map``,
+``occupancy_maintain``, ``deskew_cloud``), the calibration's
+``overlap_cost`` and gradient step, the Schur pose-graph solve and
+``optimize_pose_graph``'s dense solver, the sharded dense step and the
+synthetic ray caster.
 ``Captured(fn, device)`` runs ``fn`` once on a side stream (the warm-up
 PyTorch asks for: the libraries' handles and workspaces and the nvcc build
 of a kernel come up there), then records it into a ``torch.cuda.CUDAGraph``
