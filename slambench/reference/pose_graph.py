@@ -1,0 +1,289 @@
+"""Frozen copy of ``tpu_slam_torch.graph.pose_graph``'s eager solve.
+
+Gauss-Newton over SE(3) with a matrix-free PCG. The graph is flat tensors
+padded to static capacities with a validity mask: edge residuals
+r_e = log(Z_e^-1 T_i^-1 T_j) and their Jacobians (SE(3) adjoints + the
+second-order inverse left Jacobian) are built for all edges at once; H @ v
+is two gathers, batched 6x6 products and two scatter-adds
+(``accumulate_rows``); block-Jacobi preconditioned CG solves each GN step
+(a dense solve is kept for small graphs); the gauge is fixed by a prior on
+pose 0. PCG runs as masked iterations: an iteration updates the solve only
+while dot(r, r) > cg_tolerance holds, and the host reads that flag once
+every ``CG_CHECK_EVERY`` iterations to stop early.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from slambench.reference import se3
+from slambench.reference.scatter import accumulate_rows
+
+CG_CHECK_EVERY = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class PoseGraph:
+    """Flat pose graph (static capacities).
+
+    Attributes:
+      poses: (N, 4, 4) world<-node transforms; slots >= n_nodes are identity.
+      n_nodes: number of live nodes (a host int; a () device tensor inside
+        the dense solver's captured program).
+      edge_i, edge_j: (E,) int64 endpoint indices (i < j for odometry edges).
+      edge_T: (E, 4, 4) measured relative transform Z = T_i^-1 T_j.
+      edge_info: (E, 6, 6) information matrices (Lambda).
+      edge_mask: (E,) bool — live edges, packed in a prefix.
+    """
+
+    poses: torch.Tensor
+    n_nodes: int
+    edge_i: torch.Tensor
+    edge_j: torch.Tensor
+    edge_T: torch.Tensor
+    edge_info: torch.Tensor
+    edge_mask: torch.Tensor
+
+    @property
+    def node_capacity(self) -> int:
+        return self.poses.shape[0]
+
+    @property
+    def edge_capacity(self) -> int:
+        return self.edge_i.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphSolveParams:
+    """Static solver configuration (the reference's fields and defaults)."""
+
+    gn_iterations: int = 10
+    cg_iterations: int = 50
+    cg_tolerance: float = 1e-8
+    damping: float = 1e-6          # Levenberg diagonal damping
+    prior_weight: float = 1e6      # gauge prior on pose 0
+    solver: str = "pcg"            # 'pcg' | 'dense'
+    robust_delta: float = 0.0      # robust IRLS width on edge chi (0 = off)
+    robust_kernel: str = "cauchy"  # 'huber' | 'cauchy' (redescending)
+    robust_anneal: float = 1.0     # first-iteration delta multiplier,
+                                   # decayed geometrically to robust_delta
+    trust_loops: bool = False      # exempt loop edges (j - i > 1) from the
+                                   # robust weight (loops verified upstream
+                                   # by the symmetric cycle gate)
+
+
+# ---------------------------------------------------------------------------
+# Residuals and Jacobians (batched over edges)
+# ---------------------------------------------------------------------------
+
+def _edge_residual_jac(Ti, Tj, Z):
+    """Residual r = log(Z^-1 Ti^-1 Tj) and the Jacobian wrt a left
+    perturbation of Tj: with B = (Ti Z)^-1, J_j = Jl^-1(r) Ad(B) and
+    J_i = -J_j."""
+    E = se3.inverse(Z) @ se3.inverse(Ti) @ Tj
+    r = se3.log(E)
+    B = se3.inverse(Ti @ Z)
+    Jj = se3.left_jacobian_inv_approx(r) @ se3.adjoint(B)
+    return r, Jj
+
+
+def _gather_edge_terms(graph: PoseGraph):
+    """Per-edge (r, J_j, weighted information). Masked edges give zeros."""
+    r, Jj = _edge_residual_jac(graph.poses[graph.edge_i],
+                               graph.poses[graph.edge_j], graph.edge_T)
+    w = graph.edge_mask.to(r.dtype)
+    return r, Jj, graph.edge_info * w[:, None, None]
+
+
+def _build_rhs_and_diag(graph: PoseGraph, params: GraphSolveParams,
+                        delta: Optional[float] = None):
+    """-J^T W r (the GN rhs) and the block diagonal of H (preconditioner).
+
+    ``delta`` is the robust width for this iteration (annealed across GN
+    iterations when ``robust_anneal`` > 1).
+    """
+    n = graph.node_capacity
+    r, Jj, info = _gather_edge_terms(graph)
+    if params.robust_delta > 0.0:
+        d = params.robust_delta if delta is None else delta
+        chi = torch.sqrt(torch.clamp(
+            torch.einsum("ea,eab,eb->e", r, info, r), min=1e-12))
+        if params.robust_kernel == "huber":
+            w = torch.where(chi <= d, 1.0, d / chi)
+        else:  # cauchy (redescending)
+            w = 1.0 / (1.0 + (chi / d) ** 2)
+        if params.trust_loops:
+            w = torch.where(graph.edge_j - graph.edge_i > 1, 1.0, w)
+        info = info * w[:, None, None]
+    WJ = info @ Jj                                    # (E, 6, 6)
+    Wr = torch.einsum("eab,eb->ea", info, r)
+    JtWr_j = torch.einsum("eba,eb->ea", Jj, Wr)       # J_j^T W r
+    # rhs = -J^T W r with J_i = -J_j
+    b = r.new_zeros((n, 6))
+    accumulate_rows(b, graph.edge_i, JtWr_j)
+    accumulate_rows(b, graph.edge_j, -JtWr_j)
+
+    JtWJ = torch.einsum("eba,ebc->eac", Jj, WJ)       # J_j^T W J_j
+    diag = r.new_zeros((n, 6, 6))
+    accumulate_rows(diag, graph.edge_i, JtWJ)
+    accumulate_rows(diag, graph.edge_j, JtWJ)
+    eye6 = torch.eye(6, dtype=r.dtype, device=r.device)
+    diag[0] += params.prior_weight * eye6             # gauge prior
+    diag = diag + params.damping * eye6
+    return b, diag, (r, Jj, info)
+
+
+def _hv(graph: PoseGraph, params: GraphSolveParams, edge_terms,
+        v: torch.Tensor) -> torch.Tensor:
+    """H @ v without materializing H. v: (N, 6)."""
+    _, Jj, info = edge_terms
+    # u_e = J_i v_i + J_j v_j = J_j (v_j - v_i)
+    u = torch.einsum("eab,eb->ea", Jj, v[graph.edge_j] - v[graph.edge_i])
+    Wu = torch.einsum("eab,eb->ea", info, u)
+    JtWu = torch.einsum("eba,eb->ea", Jj, Wu)
+    out = torch.zeros_like(v)
+    accumulate_rows(out, graph.edge_i, -JtWu)
+    accumulate_rows(out, graph.edge_j, JtWu)
+    out[0] += params.prior_weight * v[0]
+    return out + params.damping * v
+
+
+def _dot(a, c):
+    return torch.sum(a * c)
+
+
+def _cg_active(r, params: GraphSolveParams) -> torch.Tensor:
+    """The reference loop's condition: dot(r, r) > cg_tolerance."""
+    return _dot(r, r) > params.cg_tolerance
+
+
+def _pcg_start(graph, params, b, diag, edge_terms):
+    """The block-Jacobi preconditioner and the CG start at x = 0:
+    (Minv, x, r, p, rz)."""
+    # inv_ex: no error check, so no host sync (the damped diagonal blocks
+    # are positive definite)
+    Minv = torch.linalg.inv_ex(diag)[0]                # (N, 6, 6)
+    x = torch.zeros_like(b)
+    r = b - _hv(graph, params, edge_terms, x)
+    z = torch.einsum("nab,nb->na", Minv, r)
+    return Minv, x, r, z, _dot(r, z)
+
+
+def _pcg_iterations(graph, params, edge_terms, Minv, x, r, p, rz, n: int):
+    """``n`` masked CG iterations: each updates (x, r, p, rz) only while
+    the loop's condition holds."""
+    for _ in range(n):
+        active = _cg_active(r, params)
+        Hp = _hv(graph, params, edge_terms, p)
+        alpha = rz / torch.clamp(_dot(p, Hp), min=1e-30)
+        x_new = x + alpha * p
+        r_new = r - alpha * Hp
+        z = torch.einsum("nab,nb->na", Minv, r_new)
+        rz_new = _dot(r_new, z)
+        beta = rz_new / torch.clamp(rz, min=1e-30)
+        p_new = z + beta * p
+        x = torch.where(active, x_new, x)
+        r = torch.where(active, r_new, r)
+        p = torch.where(active, p_new, p)
+        rz = torch.where(active, rz_new, rz)
+    return x, r, p, rz
+
+
+def _chunks(params: GraphSolveParams):
+    """The CG iterations in chunks of CG_CHECK_EVERY (the last one
+    shorter); the host reads the flag before each."""
+    n = params.cg_iterations
+    return [min(CG_CHECK_EVERY, n - s) for s in range(0, n, CG_CHECK_EVERY)]
+
+
+def _solve_pcg(graph, params, b, diag, edge_terms):
+    """Block-Jacobi preconditioned CG for H x = b (masked iterations)."""
+    Minv, x, r, p, rz = _pcg_start(graph, params, b, diag, edge_terms)
+    for n in _chunks(params):
+        if not bool(_cg_active(r, params)):
+            break
+        x, r, p, rz = _pcg_iterations(graph, params, edge_terms, Minv, x, r,
+                                      p, rz, n)
+    return x
+
+
+def _solve_dense(graph, params, b, diag, edge_terms):
+    """Exact dense solve (small graphs and tests)."""
+    n = graph.node_capacity
+    _, Jj, info = edge_terms
+    JtWJ = torch.einsum("eba,ebc->eac", Jj, info @ Jj)        # (E, 6, 6)
+    # the blocks H[ei, :, ej, :] as flat indices into the (6n, 6n) matrix
+    a = torch.arange(6, device=b.device)
+
+    def flat(ri, ci):
+        rows = ri[:, None, None] * 6 + a[None, :, None]
+        cols = ci[:, None, None] * 6 + a[None, None, :]
+        return (rows * (6 * n) + cols).reshape(-1)
+
+    ei, ej = graph.edge_i, graph.edge_j
+    H = b.new_zeros(36 * n * n)
+    for ri, ci, sign in ((ei, ei, 1.0), (ej, ej, 1.0), (ei, ej, -1.0),
+                         (ej, ei, -1.0)):
+        accumulate_rows(H, flat(ri, ci), sign * JtWJ.reshape(-1))
+    Hd = H.reshape(6 * n, 6 * n)
+    Hd = Hd + params.damping * torch.eye(6 * n, dtype=b.dtype,
+                                         device=b.device)
+    Hd[a, a] += params.prior_weight
+    x = torch.linalg.solve_ex(Hd, b.reshape(-1))[0]
+    return x.reshape(n, 6)
+
+
+def graph_error(graph: PoseGraph) -> torch.Tensor:
+    """Total weighted squared residual over live edges (chi^2)."""
+    r, _, info = _gather_edge_terms(graph)
+    return torch.sum(torch.einsum("ea,eab,eb->e", r, info, r))
+
+
+def _robust_deltas(params: GraphSolveParams):
+    """Per-GN-iteration robust widths, rounded to float32 as the
+    reference's array of them is."""
+    K = params.gn_iterations
+    if params.robust_delta > 0.0 and K > 1:
+        ratio = params.robust_anneal ** (1.0 / (K - 1))
+        ds = [params.robust_delta * params.robust_anneal / ratio ** i
+              for i in range(K)]
+    else:
+        ds = [params.robust_delta] * K
+    return [float(np.float32(d)) for d in ds]
+
+
+def _live(graph: PoseGraph, n_nodes) -> torch.Tensor:
+    """(N, 1): the slots below ``n_nodes`` (a host int or a device
+    count)."""
+    return (torch.arange(graph.node_capacity, device=graph.poses.device)
+            < n_nodes)[:, None]
+
+
+def _gn(graph: PoseGraph, params: GraphSolveParams, solve,
+        live: torch.Tensor) -> PoseGraph:
+    """The GN iterations: each builds the rhs at its robust width, solves
+    and retracts the ``live`` nodes."""
+    for delta in _robust_deltas(params):
+        b, diag, edge_terms = _build_rhs_and_diag(graph, params, delta)
+        xi = solve(graph, params, b, diag, edge_terms)
+        xi = torch.where(live, xi, 0.0)       # freeze padding nodes
+        graph = dataclasses.replace(graph,
+                                    poses=se3.retract(graph.poses, xi))
+    return graph
+
+
+def optimize_pose_graph(graph: PoseGraph,
+                        params: GraphSolveParams = GraphSolveParams()
+                        ) -> Tuple[PoseGraph, torch.Tensor]:
+    """Run GN iterations; returns (optimized graph, final chi^2).
+
+    With a robust kernel active, its width is annealed from
+    robust_anneal x the target down to the target over the iterations.
+    """
+    solve = _solve_dense if params.solver == "dense" else _solve_pcg
+    graph = _gn(graph, params, solve, _live(graph, graph.n_nodes))
+    return graph, graph_error(graph)
