@@ -666,6 +666,43 @@ def test_captured_step_matches_eager_step(cuda, options):
         assert int(runs[0][1].n_evicted) == int(eng.n_evicted)
 
 
+def test_stage_marks_in_the_captured_step(cuda):
+    """The dense step's stage marks (csrc/span_mark.cu) inside its graph:
+    with enable() the recorder keeps each replay's slots and reads each
+    step's stage times at flush; under the profiler every mark kernel
+    shows by its stage's name; the LM counters count in the graph."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_slam_torch.pipeline.odometry_dense import DenseLidarOdometry
+    from tpu_slam_torch.registration.ndt import lm_trips
+    from tpu_slam_torch.utils import tracing
+
+    cfg, clouds, gt = _office_case(cuda)
+    eng = DenseLidarOdometry(cfg())
+    state = eng.init_state(clouds[0], gt[0])
+    state = eng.step(state, clouds[1])          # the capture
+    with tracing.enable():
+        for c in clouds[2:4]:
+            state = eng.step(state, c)
+        counts = tracing.counters()
+        steps = tracing.flush_marks()
+    assert len(steps) == 2 and tracing.flush_marks() == []
+    for by in steps:
+        assert set(by) == {"prep", "map", "field", "raster", "solve"}
+        assert all(0 < v < 1.0 for v in by.values())
+    trips = lm_trips(eng.config.ndt) + lm_trips(eng.coarse_params)
+    assert counts["ndt_lm_iters_run"] == 2 * trips
+    assert 0 < counts["ndt_lm_iters_used"] <= 2 * trips
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step(state, clouds[4])
+        torch.cuda.synchronize()
+    marks = [e.name() for e in prof.profiler.kineto_results.events()
+             if "span_mark<stage_" in e.name()]
+    assert {m[m.index("<stage_") + 7:m.index(">")] for m in marks} == set(
+        tracing.STAGES)
+
+
 def test_captured_pose_graph_solve_matches_eager(cuda):
     """optimize_pose_graph's captured PCG solve against the eager one on a
     noisy chain with loops: poses and chi^2 bit for bit, under annealing

@@ -9,7 +9,7 @@ import torch
 from tpu_slam.utils.logging import JsonFormatter as JJsonFormatter
 from tpu_slam_torch.utils import get_logger, profile_trace, time_jitted
 from tpu_slam_torch.utils.logging import JsonFormatter, log_fields
-from tpu_slam_torch.utils.tracing import KernelTimer, block_until_ready
+from tpu_slam_torch.utils.tracing import block_until_ready
 
 
 def test_time_jitted_measures():
@@ -17,20 +17,6 @@ def test_time_jitted_measures():
     stats = time_jitted(lambda a: (a @ a.T).sum(), x, reps=5, warmup=1)
     assert stats["mean_ms"] > 0 and stats["reps"] == 5
     assert stats["min_ms"] <= stats["p50_ms"] <= stats["mean_ms"] * 5
-
-
-def test_kernel_timer_accumulates():
-    t = KernelTimer(sync=False)
-    with t("a"):
-        pass
-    with t("a"):
-        pass
-    with t("b", result=torch.zeros(2)):
-        pass
-    s = t.summary()
-    assert s["a"]["count"] == 2 and s["b"]["count"] == 1
-    t.reset()
-    assert t.summary() == {}
 
 
 def test_block_until_ready_walks_results():

@@ -47,6 +47,7 @@ import torch
 
 from tpu_slam_torch.core import se3
 from tpu_slam_torch.core.scatter import accumulate_rows
+from tpu_slam_torch.utils import tracing
 from tpu_slam_torch.utils.capture import compiled_call
 
 CG_CHECK_EVERY = 16
@@ -216,9 +217,12 @@ def _pcg_start(graph, params, b, diag, edge_terms):
 
 def _pcg_iterations(graph, params, edge_terms, Minv, x, r, p, rz, n: int):
     """``n`` masked CG iterations: each updates (x, r, p, rz) only while
-    the loop's condition holds."""
+    the loop's condition holds. Those that did are summed on the device
+    into the counter ``cg_iters_used`` (``utils.tracing``)."""
+    held = []
     for _ in range(n):
         active = _cg_active(r, params)
+        held.append(active)
         Hp = _hv(graph, params, edge_terms, p)
         alpha = rz / torch.clamp(_dot(p, Hp), min=1e-30)
         x_new = x + alpha * p
@@ -231,6 +235,7 @@ def _pcg_iterations(graph, params, edge_terms, Minv, x, r, p, rz, n: int):
         r = torch.where(active, r_new, r)
         p = torch.where(active, p_new, p)
         rz = torch.where(active, rz_new, rz)
+    tracing.device_count("cg_iters_used", torch.stack(held).sum())
     return x, r, p, rz
 
 
@@ -249,6 +254,7 @@ def _solve_pcg(graph, params, b, diag, edge_terms):
             break
         x, r, p, rz = _pcg_iterations(graph, params, edge_terms, Minv, x, r,
                                       p, rz, n)
+        tracing.count("cg_iters_run", n)
     return x
 
 
@@ -431,9 +437,12 @@ class CapturedSolve:
         for delta in _robust_deltas(self.params):
             self.fixed[delta].replay()
             for k in _chunks(self.params):
-                if not bool(self.bufs["active"]):
+                with tracing.span("cg.flag_read"):
+                    live = bool(self.bufs["active"])
+                if not live:
                     break
                 self.chunk[k].replay()
+                tracing.count("cg_iters_run", k)
             self.retract.replay()
         out = dataclasses.replace(graph, poses=g.poses.clone())
         return out, graph_error(out)

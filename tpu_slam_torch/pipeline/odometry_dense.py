@@ -50,7 +50,8 @@ from tpu_slam_torch.mapping.dense_map import (DenseMomentGrid,
 from tpu_slam_torch.mapping.voxel_map import coarse_spec_of
 from tpu_slam_torch.pipeline.config import OdometryConfig
 from tpu_slam_torch.pipeline.metrics import MetricsLog, ScanMetrics, Stopwatch
-from tpu_slam_torch.registration.ndt import ndt_register
+from tpu_slam_torch.registration.ndt import lm_trips, ndt_register
+from tpu_slam_torch.utils import tracing
 from tpu_slam_torch.utils.capture import replay
 
 
@@ -175,13 +176,16 @@ class DenseLidarOdometry:
         docstring); the state and the cloud are copied into the graph's
         inputs and the returned state's tensors are copies of its outputs.
         """
-        if not self.compiled:
-            nxt, n_ev = self._step_body(state, cloud, sync_free=False)
-        elif self.device.type != "cuda":
-            nxt, n_ev = self._step_impl(state, cloud)
-        else:
-            nxt, n_ev = replay(self.graphs, self._step_impl, (state, cloud),
-                               counters=(ndt_terms,))
+        with tracing.span("odometry.step", step=True):
+            if not self.compiled:
+                nxt, n_ev = self._step_body(state, cloud, sync_free=False)
+            elif self.device.type != "cuda":
+                nxt, n_ev = self._step_impl(state, cloud)
+            else:
+                nxt, n_ev = replay(self.graphs, self._step_impl,
+                                   (state, cloud), counters=(ndt_terms,))
+            if self.device.type == "cuda":
+                tracing.keep_marks(self.device)
         if n_ev is not None:
             self.n_evicted = self.n_evicted + n_ev
         return nxt
@@ -194,7 +198,18 @@ class DenseLidarOdometry:
 
     def _step_body(self, state: DenseOdomState, cloud: PointCloud,
                    sync_free: bool):
+        """The step in five stages, each opened by its mark
+        (``utils.tracing.mark``; ``ndt_register`` marks its rasters and
+        solves): prep (prediction, deskew, both downsamples, range gate),
+        map (the windows' scrolls and inserts), field (both NDT fields),
+        raster and solve (the registrations)."""
+        with tracing.stage_marks(self.device):
+            return self._stages(state, cloud, sync_free)
+
+    def _stages(self, state: DenseOdomState, cloud: PointCloud,
+                sync_free: bool):
         cfg = self.config
+        tracing.mark("prep")
         pred = self._clamped_delta(state.last_delta)
         if cfg.deskew:
             # the scan moved by pred during its sweep: carry every point to
@@ -204,6 +219,9 @@ class DenseLidarOdometry:
                                  T_end=torch.eye(4, dtype=torch.float32,
                                                  device=self.device))
         scan = self.downsample(cloud)
+        if self.factor > 1:
+            cscan = voxel_downsample(cloud, self.coarse_scan_spec,
+                                     capacity=self.coarse_scan_capacity)
         if cfg.scan_max_range > 0:
             rng2 = torch.sum(scan.points[:, :2] ** 2, dim=1)
             scan = PointCloud(
@@ -212,7 +230,8 @@ class DenseLidarOdometry:
                 attrs=scan.attrs).sanitize()
         init_T = state.pose @ pred
 
-        # scroll the window when the predicted pose leaves its core
+        # scroll the windows when the predicted pose leaves their core
+        tracing.mark("map")
         shift = grid_recenter_shift(state.grid, init_T[:3, 3], self.map_spec,
                                     align=self.factor,
                                     deadband_fraction=cfg.rebase_fraction)
@@ -220,39 +239,51 @@ class DenseLidarOdometry:
         occ = state.occ
         if occ is not None:
             occ = grid_scroll(occ, shift)   # stays aligned with the window
-
-        # coarse capture on the WIDE window's field, then the fine polish
-        coarse_frac = torch.ones((), dtype=torch.float32, device=self.device)
-        T1 = init_T
         wide = state.wide
-        far_kw = {}
         if self.factor > 1:
             wshift = grid_recenter_shift(wide, init_T[:3, 3],
                                          self.coarse_spec, align=1,
                                          deadband_fraction=cfg.rebase_fraction)
             wide = grid_scroll(wide, wshift)
+
+        tracing.mark("field")
+        if self.factor > 1:
             cfield = grid_ndt_field(wide, self.coarse_spec,
                                     min_voxel_count=cfg.ndt.min_voxel_count,
                                     evec_floor_ratio=cfg.ndt.evec_floor_ratio)
-            cscan = voxel_downsample(cloud, self.coarse_scan_spec,
-                                     capacity=self.coarse_scan_capacity)
-            rc = ndt_register(cscan, cfield, self.coarse_spec, init_T=init_T,
-                              params=self.coarse_params, sync_free=sync_free)
-            T1, coarse_frac = rc.T, rc.matched_fraction
-            # far tier: scan points beyond the fine window register against
-            # the wide field
-            far_kw = dict(far_field=cfield, far_spec=self.coarse_spec)
         field = grid_ndt_field(grid, self.map_spec,
                                min_voxel_count=cfg.ndt.min_voxel_count,
                                evec_floor_ratio=cfg.ndt.evec_floor_ratio)
+
+        # coarse capture on the WIDE window's field, then the fine polish
+        coarse_frac = torch.ones((), dtype=torch.float32, device=self.device)
+        T1 = init_T
+        far_kw = {}
+        iters_used, trips = 0, lm_trips(cfg.ndt)
+        if self.factor > 1:
+            rc = ndt_register(cscan, cfield, self.coarse_spec, init_T=init_T,
+                              params=self.coarse_params, sync_free=sync_free)
+            T1, coarse_frac = rc.T, rc.matched_fraction
+            iters_used, trips = rc.iterations, trips + lm_trips(
+                self.coarse_params)
+            # far tier: scan points beyond the fine window register against
+            # the wide field
+            far_kw = dict(far_field=cfield, far_spec=self.coarse_spec)
         res = ndt_register(scan, field, self.map_spec, init_T=T1,
                            params=cfg.ndt, sync_free=sync_free, **far_kw)
+        iters_used = iters_used + res.iterations
+        # LM iterations whose loop condition held against the trips run
+        # (the host-exit form runs only those)
+        tracing.device_count("ndt_lm_iters_used", iters_used, self.device)
+        tracing.device_count("ndt_lm_iters_run",
+                             trips if sync_free else iters_used, self.device)
 
         accepted = res.matched_fraction >= cfg.min_accept_fraction
         # one polar-Newton step per scan keeps the rotation orthonormal
         T = se3.orthonormalize(torch.where(accepted, res.T, init_T))
         delta = se3.inverse(state.pose) @ T
 
+        tracing.mark("map")
         do_insert = accepted & (res.matched_fraction
                                 >= cfg.min_insert_fraction)
         weight = do_insert.to(torch.float32)

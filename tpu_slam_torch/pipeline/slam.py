@@ -17,7 +17,10 @@ and their outcomes to ``loop_debug``.
 (odometry, keyframe store, loop verification, graph solve), each closed by
 a device synchronisation so the time lands in the stage that spent it;
 ``sweep_seconds`` splits a loop sweep's share the same way (candidates,
-verify, graph, re-anchor).
+verify, graph, re-anchor). While the recorder records
+(``utils.tracing``), each such stage is also a span (``stage.<name>``,
+``sweep.<name>``) between the same synchronisations, under the step's
+span ``slam.step``, and a whole loop sweep is the span ``sweep``.
 
 With ``compiled`` (the default) the reference's compiled programs run as
 CUDA graph replays on a CUDA device and in their sync-free forms on the
@@ -74,6 +77,7 @@ from tpu_slam_torch.pipeline.odometry_dense import (DenseLidarOdometry,
 from tpu_slam_torch.registration.normals import (estimate_normals,
                                                  normal_covariances,
                                                  normals_from_covariances)
+from tpu_slam_torch.utils import tracing
 from tpu_slam_torch.utils.capture import CapturedCall, compiled_call
 
 STAGES = ("odometry", "keyframe", "verify", "graph")
@@ -299,10 +303,12 @@ class SLAMSystem:
         return self.config.odometry_engine == "dense"
 
     def _stage(self, name: str) -> "_StageTimer":
-        return _StageTimer(self.device, self.stage_seconds, name)
+        return _StageTimer(self.device, self.stage_seconds, name,
+                           f"stage.{name}")
 
     def _sweep_stage(self, name: str) -> "_StageTimer":
-        return _StageTimer(self.device, self.sweep_seconds, name)
+        return _StageTimer(self.device, self.sweep_seconds, name,
+                           f"sweep.{name}")
 
     # -- state ------------------------------------------------------------
 
@@ -683,7 +689,8 @@ class SLAMSystem:
     def step(self, state: SLAMState, cloud: PointCloud
              ) -> Tuple[SLAMState, ScanMetrics]:
         cfg = self.config
-        with Stopwatch(self.device) as sw:
+        with Stopwatch(self.device) as sw, tracing.span("slam.step",
+                                                         step=True):
             with self._stage("odometry"):
                 if not self._dense:
                     odom_state, m = self.odometry.step(state.odom, cloud)
@@ -718,7 +725,8 @@ class SLAMSystem:
                 m.is_keyframe = True
                 if (state.n_keyframes % cfg.loop_every == 0
                         and state.n_keyframes > cfg.loop.min_index_gap):
-                    state, n_loops = self._close_loops(state)
+                    with tracing.span("sweep"):
+                        state, n_loops = self._close_loops(state)
         m.wall_time_s = sw.elapsed
         m.n_loop_closures = n_loops
         self.metrics.append(m)
@@ -734,13 +742,23 @@ class SLAMSystem:
 
 
 class _StageTimer(Stopwatch):
-    """Adds a synchronised stage's wall time to ``table[name]``."""
+    """Adds a synchronised stage's wall time to ``table[name]``; while the
+    recorder records (``utils.tracing``), the same stretch, between the
+    same synchronisations, is its span ``span_name``."""
 
-    def __init__(self, device, table: Dict[str, float], name: str):
+    def __init__(self, device, table: Dict[str, float], name: str,
+                 span_name: str):
         super().__init__(device)
         self.table, self.name = table, name
+        self.span = tracing.span(span_name)
+
+    def __enter__(self):
+        super().__enter__()
+        self.span.__enter__()
+        return self
 
     def __exit__(self, *exc):
         super().__exit__(*exc)
+        self.span.__exit__(*exc)
         self.table[self.name] += self.elapsed
         return False

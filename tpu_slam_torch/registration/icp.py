@@ -43,6 +43,7 @@ from tpu_slam_torch.kernels.ndt_terms import (build_terms_raster,
                                               raster_to_slots)
 from tpu_slam_torch.kernels.nn_search import nearest_neighbors
 from tpu_slam_torch.registration.robust import huber_weight
+from tpu_slam_torch.utils import tracing
 from tpu_slam_torch.utils.capture import CapturedCall, replay
 
 # icp_auto's default: the brute tier below this many points, the raster tier
@@ -128,17 +129,21 @@ def icp(source: PointCloud, target: PointCloud,
     if params.point_to_plane and target_normals is None:
         raise ValueError("point_to_plane ICP requires target_normals")
     if not compiled or source.points.device.type != "cuda":
-        return _icp_body(source, target, init_T, target_normals, params,
-                         sync_free=compiled)
+        res = _icp_body(source, target, init_T, target_normals, params,
+                        sync_free=compiled)
+    else:
+        def body(src, tgt, T0, nrm):
+            return _icp_body(src, tgt, T0, nrm, params, sync_free=True)
 
-    def body(src, tgt, T0, nrm):
-        return _icp_body(src, tgt, T0, nrm, params, sync_free=True)
-
-    return replay(_batches, body,
-                  (PointCloud(source.points, source.mask),
-                   PointCloud(target.points, target.mask), init_T,
-                   target_normals),
-                  static=(params,), counters=(nearest_neighbors,))
+        res = replay(_batches, body,
+                     (PointCloud(source.points, source.mask),
+                      PointCloud(target.points, target.mask), init_T,
+                      target_normals),
+                     static=(params,), counters=(nearest_neighbors,))
+    if compiled:
+        pairs = 1 if source.points.dim() == 2 else source.points.shape[0]
+        tracing.count("icp_trips_run", pairs * params.max_iterations)
+    return res
 
 
 def _icp_body(source: PointCloud, target: PointCloud,
@@ -148,7 +153,10 @@ def _icp_body(source: PointCloud, target: PointCloud,
     """``icp``'s solve. Both forms gate every update on the per-pair
     ``active`` mask; the host-exit form reads it back after each iteration
     and stops once no pair is active, the sync-free form runs all
-    max_iterations trips."""
+    max_iterations trips. The iterations summed over the pairs go to the
+    device counter ``icp_trips_used``, and the host-exit form's trips
+    times the pairs to the host counter ``icp_trips_run`` (``icp`` counts
+    the sync-free form's)."""
     single = source.points.dim() == 2
     src = source.sanitize()
     src_pts = src.points[None] if single else src.points
@@ -196,8 +204,11 @@ def _icp_body(source: PointCloud, target: PointCloud,
         frac = torch.where(active, inlier.sum(dim=-1, dtype=dtype) / n_valid,
                            frac)
         active = active & (dx > params.tolerance)
-        if not sync_free and not bool(active.any()):
-            break
+        if not sync_free:
+            tracing.count("icp_trips_run", B)
+            if not bool(active.any()):
+                break
+    tracing.device_count("icp_trips_used", it.sum())
     res = ICPResult(T=T, iterations=it, error=err, matched_fraction=frac,
                     converged=dx <= params.tolerance)
     if single:

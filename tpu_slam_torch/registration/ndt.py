@@ -54,6 +54,7 @@ from tpu_slam_torch.kernels.voxel_hash import (INVALID_KEY, VoxelGridSpec,
                                                cell_coords,
                                                neighbor_offsets_keys,
                                                pack_key)
+from tpu_slam_torch.utils import tracing
 from tpu_slam_torch.utils.capture import CapturedCall, replay
 
 TERMS_IMPLS = ("auto", "xla")
@@ -392,7 +393,9 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
     terms added to the same H and b. A sparse field takes the sparse path
     (``far_field`` and ``yaw_candidates`` are kernel-path options and are
     not used there). ``sync_free`` runs ``lm_schedule``'s sync-free form
-    (``iterations`` is then a device tensor).
+    (``iterations`` is then a device tensor). Inside a step's
+    ``utils.tracing.stage_marks`` it marks its rasters ("raster") and the
+    rest ("solve").
     """
     from tpu_slam_torch.kernels.ndt_terms import build_terms_raster, ndt_terms
 
@@ -405,6 +408,7 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
         raise ValueError("the dense kernel path needs use_neighborhood")
     if not use_kernel:
         _require_sparse_views(field, "ndt_register")
+    tracing.mark("solve")
     dev = source.points.device
     f32 = torch.float32
     if init_T is None:
@@ -423,6 +427,7 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
         far_corr = params.max_corr_dist * (far_spec.leaf / spec.leaf)
 
     def bin_raster(T0, with_far=True):
+        tracing.mark("raster")
         fine, _ = build_terms_raster(src.points, src.mask, T0, origin_w,
                                      spec.leaf, dims, q)
         if not (use_far and with_far):
@@ -435,6 +440,7 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
         return fine, far
 
     def kernel_terms(T, gamma, raster):
+        tracing.mark("solve")
         fine, far = raster
         H, b, cost, cnt = ndt_terms(fine, field.rows, T, gamma,
                                     params.max_corr_dist, dims)
@@ -450,6 +456,7 @@ def ndt_register(source: PointCloud, field: NDTField, spec: VoxelGridSpec,
 
     def yaw_cost(Ty, gamma_y):
         fine, _ = bin_raster(Ty, with_far=False)
+        tracing.mark("solve")
         return ndt_terms(fine, field.rows, Ty, gamma_y, params.max_corr_dist,
                          dims)[2]
 
@@ -506,6 +513,16 @@ def compiled_register(source: PointCloud, field: NDTField,
                   (PointCloud(source.points, source.mask), field, init_T,
                    far_field),
                   static=(spec, far_spec, params), counters=(ndt_terms,))
+
+
+def lm_trips(params: NDTParams) -> int:
+    """The LM trips of ``lm_schedule``'s sync-free form on the kernel path
+    (the coarse stage's and the staged fine solve's; each counts as an
+    iteration only while its loop's condition holds)."""
+    coarse = (params.coarse_iterations if params.coarse_iterations > 0
+              and params.coarse_temperature_scale > 1.0 else 0)
+    per = max(1, params.rebin_iters)
+    return coarse + -(-params.max_iterations // per) * per
 
 
 def lm_schedule(init_T: torch.Tensor, params: NDTParams, use_kernel: bool,
