@@ -64,6 +64,13 @@ Phases, each printing one JSON line:
                (seconds of both forms and of the capture, bit-equal, a
                replay under sync-debug "error", launches a GN iteration
                on both forms, capture seconds and pool bytes)
+  kernels      pcg_chunk against the plain CG iterations (one chunk of
+               16 from the CG start) on the slam run's final graph at
+               1e-8 and with a tolerance that stops it early, and on that
+               graph padded to SLAMConfig()'s 512 and 2,048 slots: x, r, p
+               within PCG_RTOL_OF_MAX, iterations equal, two launches
+               bit-equal, times, bound; config 4's sweep solve of both
+               graphs, captured, with the kernel and the plain iterations
   kernels      nn_search against its plain version: a verification batch
                of the slam run's own keyframes (6 pairs x 4,096 points), a
                seeded edge case (ties, padding, ragged sizes, one pair) and
@@ -337,6 +344,12 @@ C1_SLOPE_K = {("raster", "8k"): (5, 55), ("brute", "8k"): (3, 23),
 # another order); matched count exactly equal, since both round the
 # transform and the gate distance op by op
 RTOL_OF_MAX = 1e-4
+# the PCG's chunk kernel vs the plain masked iterations: x, r, p after a
+# chunk within this fraction of each one's largest magnitude (float32 sums
+# in another order, 16 iterations on an ill-conditioned H; the H100 read
+# at most 1.5e-4 on the card tests' graphs)
+PCG_RTOL_OF_MAX = 5e-4
+PCG_CHUNK = 16                 # the CG iterations a chunk runs
 # Config 3 of bench.py (bench_ndt_register) and its reference results
 # (BENCH_r05.json); the map is numpy from a seeded sample, so its voxel
 # count is exact
@@ -1116,9 +1129,11 @@ def phase_slam(clouds, gt):
     snapshot of the state after the first sweep that accepts a loop."""
     import torch
 
+    from tpu_slam_torch.graph import pose_graph as pg
     from tpu_slam_torch.kernels.ndt_terms import ndt_terms, ndt_terms_plain
     from tpu_slam_torch.kernels.nn_search import (nearest_neighbors,
                                                   nearest_neighbors_plain)
+    from tpu_slam_torch.kernels.pcg import pcg_chunk
     from tpu_slam_torch.pipeline.metrics import ate_rmse
     from tpu_slam_torch.pipeline.slam import SLAMSystem
     from tpu_slam_torch.pipeline.state import slam_state_to_numpy
@@ -1129,7 +1144,7 @@ def phase_slam(clouds, gt):
                     ndt_terms_plain.launches)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(nearest_neighbors, ndt_terms)
+    reset_launches(nearest_neighbors, ndt_terms, pcg_chunk)
     t0 = time.perf_counter()
     state = slam.init_state(gt[0])
     poses, kf_scan, snap, sweeps, snap_s = [], [], None, 0, 0.0
@@ -1156,6 +1171,7 @@ def phase_slam(clouds, gt):
     dt = time.perf_counter() - t0 - snap_s
     nn_launches = launches_of(nearest_neighbors)
     terms_launches = launches_of(ndt_terms)
+    pcg_launches = launches_of(pcg_chunk)
     peak = torch.cuda.max_memory_allocated()
     plain_after = (nearest_neighbors_plain.launches,
                    ndt_terms_plain.launches)
@@ -1172,7 +1188,7 @@ def phase_slam(clouds, gt):
         scans_per_s=len(clouds) / dt, kf_ate_m=kf_ate, odometry_ate_m=odom_ate,
         loops=state.n_loop_closures, keyframes=n, sweeps=sweeps,
         nn_search_launches=nn_launches, ndt_terms_launches=terms_launches,
-        stage_seconds=stages, final_refine_seconds=refine_s,
+        pcg_chunk_launches=pcg_launches, stage_seconds=stages, final_refine_seconds=refine_s,
         other_seconds=dt - sum(stages.values()) - refine_s,
         first_accepting_sweep_after_scan=None if snap is None else snap[0],
         peak_memory_bytes=peak)
@@ -1182,6 +1198,11 @@ def phase_slam(clouds, gt):
     if nn_launches <= 0 or terms_launches <= 0:
         raise AssertionError("the SLAM path launched no nn_search or no "
                              "ndt_terms kernel")
+    # (a comparison may swap the PCG's chunk kernel for the plain
+    # iterations; pg._chunk_kernel then says so)
+    if pg._chunk_kernel(state.graph) and pcg_launches <= 0:
+        raise AssertionError("the SLAM path's graph solves launched no "
+                             "pcg_chunk kernel")
     if not kf_ate <= C4_KF_ATE_BAR_M:
         raise AssertionError(f"optimized-keyframe ATE {kf_ate} m above "
                              f"{C4_KF_ATE_BAR_M} m")
@@ -1193,7 +1214,8 @@ def phase_slam(clouds, gt):
     if snap is None:
         raise AssertionError("no sweep accepted a loop")
     return dict(poses=poses, state=state, graph=graph, snap=snap,
-                snap_at=snap_at, nn_launches=nn_launches, fields=fields)
+                snap_at=snap_at, nn_launches=nn_launches,
+                pcg_launches=pcg_launches, fields=fields)
 
 
 def profile_step(slam, state, cloud):
@@ -1798,6 +1820,189 @@ def phase_nn_kernels(run):
              check_nn_case("split_ties_300_x_200k", *nn_split_case(dev))]
     emit("kernels", kernels=["nn_search"], cases=cases,
          check="indices equal, squared distances bit-equal")
+    return cases
+
+
+def pcg_work(graph, iters):
+    """Bytes and float32 operations ``iters`` CG iterations need on this
+    graph: each live edge's J_j and W_e (288 B), its two ends (16 B) and
+    its two incidence entries (8 B), each live node's Minv block (144 B),
+    list offset (4 B) and x, r, p read and written (144 B), once a chunk;
+    an iteration does, a live edge, the difference and the three 6 x 6
+    products (222) and its two signed adds into the nodes' sums (12), and,
+    a live node, z = Minv r (72) and 84 more for the prior, the damping,
+    the three dot products and the updates of x, r and p."""
+    edges = int(graph.edge_mask.sum())
+    nodes = int(graph.n_nodes)
+    nbytes = edges * (288 + 16 + 8) + nodes * (144 + 4 + 144)
+    flops = iters * (edges * (222 + 12) + nodes * (72 + 84))
+    return nbytes, flops, dict(live_edges=edges, live_nodes=nodes)
+
+
+def padded_graph(graph, nodes, edges):
+    """``graph`` at ``nodes`` node and ``edges`` edge slots: identity poses
+    and masked identity edges (index 0) added as padding."""
+    gnp = _graph_numpy(graph)
+    n_pad = nodes - graph.node_capacity
+    e_pad = edges - graph.edge_capacity
+
+    def eyes(k, n):
+        return np.broadcast_to(np.eye(k, dtype=np.float32), (n, k, k))
+
+    return _graph_torch(dict(
+        gnp, poses=np.concatenate([gnp["poses"], eyes(4, n_pad)]),
+        edge_i=np.concatenate([gnp["edge_i"], np.zeros(e_pad, np.int64)]),
+        edge_j=np.concatenate([gnp["edge_j"], np.zeros(e_pad, np.int64)]),
+        edge_T=np.concatenate([gnp["edge_T"], eyes(4, e_pad)]),
+        edge_info=np.concatenate([gnp["edge_info"], eyes(6, e_pad)]),
+        edge_mask=np.concatenate([gnp["edge_mask"], np.zeros(e_pad, bool)])),
+        graph.poses.device)
+
+
+def check_pcg_case(name, graph, params, stop_after=None):
+    """The chunk kernel against its plain version (``_pcg_iterations``) on
+    one chunk of PCG_CHUNK iterations from the CG start of ``graph``'s
+    first GN iteration: x, r, p within PCG_RTOL_OF_MAX of each one's
+    largest magnitude, the same count of iterations that did work (with
+    ``stop_after``, a tolerance that the plain iterations cross after that
+    many: an early stop), two launches bit-equal; times (a call resets the
+    state and launches the kernel), the kernel's device time, a call in a
+    replayed CUDA graph, and the bound from ``pcg_work``."""
+    import dataclasses
+
+    import torch
+
+    from tpu_slam_torch.graph import pose_graph as pg
+    from tpu_slam_torch.kernels.pcg import pcg_chunk, smem_plan
+    from tpu_slam_torch.utils import tracing
+
+    b, diag, terms = pg._build_rhs_and_diag(graph, params)
+    Minv, *start = pg._pcg_start(graph, params, b, diag, terms)
+    if stop_after is not None:
+        r = pg._pcg_iterations(graph, params, terms, Minv, *start,
+                               stop_after)[1]
+        params = dataclasses.replace(
+            params, cg_tolerance=float(pg._dot(r, r)) * 1.01)
+    inc = pg.node_incidence(graph)
+    counter = tracing.device_counter("cg_iters_used", graph.poses.device)
+    state = [t.clone() for t in start]
+
+    def kernel():
+        for dst, src in zip(state, start):
+            dst.copy_(src)
+        pcg_chunk(graph.edge_i, graph.edge_j, graph.edge_mask, *inc,
+                  terms[1], terms[2], Minv, *state, counter,
+                  params.prior_weight, params.damping, params.cg_tolerance,
+                  PCG_CHUNK)
+
+    def plain():
+        return pg._pcg_iterations(graph, params, terms, Minv, *start,
+                                  PCG_CHUNK)
+
+    def used_by(fn):
+        c0 = int(counter)
+        out = fn()
+        return out, int(counter) - c0
+
+    label = f"pcg_chunk {name}"
+    _, used = used_by(kernel)
+    got = [t.clone() for t in state]
+    kernel()
+    if not all(torch.equal(a, c) for a, c in zip(got, state)):
+        raise AssertionError(f"{label}: two launches differ")
+    want, want_used = used_by(plain)
+    if used != want_used or not 0 < used <= PCG_CHUNK or (
+            (stop_after is None) != (used == PCG_CHUNK)):
+        raise AssertionError(f"{label}: {used} iterations, plain "
+                             f"{want_used}")
+    errs, rel = [], {}
+    for vec, a, w in zip("xrp", got, want):
+        err = float((a - w).abs().max())
+        scale = float(w.abs().max())
+        if not err <= PCG_RTOL_OF_MAX * max(scale, 1e-30):
+            raise AssertionError(f"{label}: {vec} off by {err} (scale "
+                                 f"{scale})")
+        errs.append(err)
+        rel[vec] = err / max(scale, 1e-30)
+    ms = time_ms(kernel, 50)
+    clocks = clocks_now()
+    plain_ms = time_ms(plain, 5)
+    per_kernel, _ = device_time_us(kernel, 20)
+    kernel_us = sum(v for k, v in per_kernel.items()
+                    if "pcg_chunk_kernel" in k)
+    graph_us, graph_error = graph_time_us(kernel)
+    nbytes, flops, counts = pcg_work(graph, used)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    copied, _, smem = smem_plan(graph.node_capacity, graph.edge_capacity)
+    extra = dict(graph_error=graph_error) if graph_error else {}
+    return dict(case=name, node_slots=graph.node_capacity,
+                edge_slots=graph.edge_capacity, edges_copied=copied,
+                smem_bytes=smem, cg_tolerance=params.cg_tolerance,
+                iterations=used, max_abs_err=max(errs),
+                rel_err_of_max=rel, ms=ms, plain_ms=plain_ms,
+                kernel_device_us=kernel_us or None,
+                device_events={k[:60]: t for k, t in per_kernel.items()},
+                graph_us_per_call=graph_us, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, flops=flops, clocks_after_timing=clocks,
+                **counts, **extra)
+
+
+def pcg_solve_ms(graphs, params, reps=3):
+    """``params``' captured PCG solve of each graph (name -> graph) with
+    the chunk kernel and with the plain iterations (``pg._chunk_kernel``
+    swapped out): ms a solve after the capture, the kernel's timed
+    ``reps`` times, the plain path's once."""
+    import torch
+
+    from tpu_slam_torch.graph import pose_graph as pg
+
+    fits, out = pg._chunk_kernel, {}
+    try:
+        for name, graph in graphs.items():
+            row = {}
+            for label, on, n in (("kernel", True, reps),
+                                 ("plain_iterations", False, 1)):
+                pg._chunk_kernel = fits if on else (lambda g: False)
+                pg._solves.clear()          # a solve keeps the path it chose
+                pg.optimize_pose_graph(graph, params)          # the capture
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    pg.optimize_pose_graph(graph, params)
+                torch.cuda.synchronize()
+                row[label] = (time.perf_counter() - t0) / n * 1e3
+            out[name] = row
+    finally:
+        pg._chunk_kernel = fits
+        pg._solves.clear()
+    return out
+
+
+def phase_pcg_kernel(run):
+    """The PCG's chunk kernel against the plain iterations on config 4's
+    final graph (288 node and 1,024 edge slots) at cg_tolerance 1e-8 and
+    with a tolerance that stops it early, and on that graph padded to the
+    default SLAMConfig's 512 and 2,048 (whose copy of the edge matrices
+    holds fewer slots than there are live edges); then config 4's sweep
+    solve of both graphs, captured, with the kernel and with the plain
+    iterations."""
+    import dataclasses
+
+    graph = run["state"].graph
+    padded = padded_graph(graph, 512, 2048)
+    params = dataclasses.replace(config4().graph, cg_tolerance=1e-8)
+    cases = [check_pcg_case("config4_288x1024", graph, params),
+             check_pcg_case("config4_288x1024_early_stop", graph, params,
+                            stop_after=4),
+             check_pcg_case("config4_padded_512x2048", padded, params)]
+    solves = pcg_solve_ms({"config4_288x1024": graph,
+                           "config4_padded_512x2048": padded},
+                          config4().graph)
+    emit("kernels", kernels=["pcg_chunk"], cases=cases, solve_ms=solves,
+         check=f"x, r, p within {PCG_RTOL_OF_MAX} of their largest "
+               "magnitude, iterations equal, two launches bit-equal")
     return cases
 
 
@@ -6636,6 +6841,7 @@ def main() -> int:
     # the captured step and solve against the eager ones
     phase_compiled(clouds, gt, run, c4_clouds, c4_gt)
     nn_cases = phase_nn_kernels(run)
+    pcg_cases = phase_pcg_kernel(run)
 
     icp_launches, nn_c1_launches, pairs, c1_rates = phase_pair_icp()
     icp_cases, nn_c1_cases = phase_icp_kernels(pairs)
@@ -6752,6 +6958,13 @@ def main() -> int:
              launches_by_path=dict(
                  config1=icp_launches,
                  compiled_registration=reg_launches["icp_terms_raster"])),
+        # pcg_chunk: the reference's CG loop is XLA ops; the launches of
+        # the slam phase's sweep solves and final refinement
+        dict(kernel_entry("pcg_chunk", src + "pcg_chunk.cu",
+                          "none: tpu_slam/graph/pose_graph.py _solve_pcg's "
+                          "CG loop (XLA ops)", run["pcg_launches"],
+                          pcg_cases, pcg_cases[0]),
+             launches_by_path=dict(config4=run["pcg_launches"])),
         kernel_entry("gather_rows", src + "gather.cu",
                      "benchmarks/_pallas_gather_probe.py:62 (k_take; and "
                      "k_taa :68, k_adv :75, k_scalar :96); "

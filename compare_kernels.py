@@ -17,6 +17,7 @@ runs when its old source is in the directory given:
     git show 00c6537:tpu_slam_torch/csrc/ndt_terms.cu > _checkout/old/ndt_terms.cu
     git show 00c6537:tpu_slam_torch/csrc/icp_terms.cu > _checkout/old/icp_terms.cu
     python3 compare_kernels.py _checkout/old [--config4] [--sweep] [--orders]
+        [--pcg-orders]
 
 Both versions are built with the same nvcc flags and run on the same
 tensors:
@@ -58,7 +59,15 @@ version's. ``--orders`` runs config 4 end to end (chip_smoke's
 ``phase_slam``) with other summation orders of the NDT sums: 4 and 32
 lanes, a 132-block grid, and the old kernel with its wrapper's sum, each
 in place of the shipped kernel; one line each with the keyframe ATE,
-loops and keyframes (~2.5 minutes a run).
+loops and keyframes (~2.5 minutes a run). ``--pcg-orders`` runs config
+4 end to end twice, with the pose-graph PCG's chunk kernel
+(``kernels/pcg.py``: node-major sums, the shipped path) and with the plain
+CG iterations (sort-based scatter-adds) in its place, one line each with
+the keyframe ATE; then config 4's solve on the first run's final graph
+both ways in turns (plain, kernel, kernel, plain), and the per-call us
+of a replayed CUDA graph of 20 launches of the kernel at 1, 16 and 64
+iterations on that graph's CG state (each call restores the state first:
+four small copies).
 
 Every run also times empty kernels launched the same way (a ctypes call on
 the current stream, after a torch.empty of the result): the floor that a
@@ -665,6 +674,74 @@ def slam_orders(old_lib):
                           "error": error}), flush=True)
 
 
+def pcg_orders():
+    """``--pcg-orders`` (module docstring)."""
+    import time
+
+    import tpu_slam_torch.graph.pose_graph as pg
+    from tpu_slam_torch.kernels.pcg import pcg_chunk
+    from tpu_slam_torch.utils.capture import kernel_launches
+
+    clouds, gt = cs.config4_scans("cuda")
+    fits, graph = pg._chunk_kernel, None
+
+    def use_kernel(on):
+        pg._chunk_kernel = fits if on else (lambda g: False)
+        pg._solves.clear()              # a solve keeps the path it chose
+
+    for label, on in (("chunk_kernel", True), ("plain_iterations", False)):
+        use_kernel(on)
+        before = kernel_launches(pcg_chunk)
+        try:
+            run = cs.phase_slam(clouds, gt)
+            fields = run["fields"]
+            line = {k: fields[k] for k in (
+                "kf_ate_m", "odometry_ate_m", "loops", "keyframes",
+                "seconds")}
+            line["graph_s"] = fields["stage_seconds"].get("graph")
+            graph = graph or run["state"].graph
+            error = None
+        except AssertionError as e:        # a missed limit is a result here
+            line, error = {}, str(e)
+        line["pcg_chunk_launches"] = kernel_launches(pcg_chunk) - before
+        print(json.dumps({"pcg_orders": label, **line, "error": error}),
+              flush=True)
+    use_kernel(True)
+    if graph is None:
+        return
+    params = cs.config4().graph
+    turns = []
+    for on in (False, True, True, False):
+        use_kernel(on)
+        pg.optimize_pose_graph(graph, params)       # capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            pg.optimize_pose_graph(graph, params)
+        torch.cuda.synchronize()
+        turns.append(((time.perf_counter() - t0) / 3 * 1e3, on))
+    use_kernel(True)
+    print(json.dumps({"pcg_solve_ms": turns, "n_nodes": graph.n_nodes,
+                      "clock": cs.clocks_now()}), flush=True)
+    b, diag, terms = pg._build_rhs_and_diag(graph, params)
+    Minv, *state = pg._pcg_start(graph, params, b, diag, terms)
+    inc = pg.node_incidence(graph)
+    used = torch.zeros((), dtype=torch.int64, device=b.device)
+    for iters in (1, 16, 64):
+        xs = [t.clone() for t in state]
+
+        def call(iters=iters, xs=xs):
+            for dst, src in zip(xs, state):
+                dst.copy_(src)
+            # tol -1: every iteration runs
+            pcg_chunk(graph.edge_i, graph.edge_j, graph.edge_mask, *inc,
+                      terms[1], terms[2], Minv, *xs, used,
+                      params.prior_weight, params.damping, -1.0, iters)
+        graph_us, _ = cs.graph_time_us(call)
+        print(json.dumps({"pcg_chunk_graph_us": iters, "us": graph_us,
+                          "clock": cs.clocks_now()}), flush=True)
+
+
 def empty_launch():
     """The bound launch function of an empty kernel: (out, blocks,
     threads, stream)."""
@@ -733,6 +810,8 @@ def main() -> int:
                                          "gather_3191f90"), dev, empty)
     if "--sweep" in sys.argv:
         sweep_gather(dev, empty)
+    if "--pcg-orders" in sys.argv:
+        pcg_orders()
     print(cs.nvidia_smi_line(), flush=True)
     return 0
 

@@ -1,5 +1,6 @@
 """The CUDA kernels (NDT terms, brute-force NN, ICP terms, the probes'
-gathers) against their plain versions, on the GPU.
+gathers, the pose-graph PCG's chunk) against their plain versions, on the
+GPU.
 
 These tests build csrc/*.cu with nvcc and run on a CUDA device; without
 one their fixture skips them. On a GPU machine (the tests' conftest
@@ -18,8 +19,9 @@ def cuda():
         pytest.skip("needs a CUDA device and nvcc (the kernels have no "
                     "CPU mode; their plain versions are tested in "
                     "test_torch_ndt_terms.py, test_torch_nn_search.py, "
-                    "test_torch_icp_raster.py and "
-                    "test_torch_gather_probes.py)")
+                    "test_torch_icp_raster.py, "
+                    "test_torch_gather_probes.py and "
+                    "test_torch_pose_graph.py)")
     return torch.device("cuda")
 
 
@@ -739,6 +741,166 @@ def test_captured_pose_graph_solve_matches_eager(cuda):
             got, chi = pg.optimize_pose_graph(g, params)
             assert torch.equal(got.poses, eager.poses)
             assert torch.equal(chi, chi_e)
+
+
+def _pcg_graph(device, drop=0, n=216, node_cap=288, edge_cap=1024,
+               loops=60):
+    """A noisy circle of n nodes with three loops and ``loops`` more at
+    c4's capacities, its poses jolted off the optimum, and with ``drop``
+    its first nodes dropped (the padding then keeps stale indices)."""
+    import dataclasses
+
+    import numpy as np
+
+    import chip_smoke
+    from tpu_slam_torch.core import se3
+    from tpu_slam_torch.graph import pose_graph as pg
+    from test_torch_compiled_rest import _circle_graph
+
+    g = _circle_graph(n=n, node_cap=node_cap, edge_cap=edge_cap)
+    rng = np.random.default_rng(7)
+    for _ in range(loops):
+        i = int(rng.integers(0, n - 10))
+        j = int(rng.integers(i + 10, n))
+        g = pg.add_edge(g, i, j, se3.inverse(g.poses[i]) @ g.poses[j],
+                        info=400.0 * torch.eye(6))
+    if drop:
+        g = pg.drop_node_prefix(g, drop)
+    noise = rng.normal(0, 0.05, (node_cap, 6))
+    g = dataclasses.replace(g, poses=se3.exp(torch.as_tensor(
+        noise, dtype=torch.float32)) @ g.poses)
+    return chip_smoke._graph_torch(chip_smoke._graph_numpy(g), device)
+
+
+def _pcg_chunk_case(g, params):
+    """The CG state at the start of g's first GN iteration."""
+    from tpu_slam_torch.graph import pose_graph as pg
+
+    b, diag, terms = pg._build_rhs_and_diag(g, params)
+    return terms, pg._pcg_start(g, params, b, diag, terms)
+
+
+def _run_chunk_kernel(g, params, terms, start, iters=16):
+    """One launch of the chunk kernel on copies of ``start``: (x, r, p,
+    rz) and the iterations it counted."""
+    from tpu_slam_torch.graph import pose_graph as pg
+    from tpu_slam_torch.kernels.pcg import pcg_chunk
+
+    Minv, *state = start
+    state = [t.clone() for t in state]
+    used = torch.zeros((), dtype=torch.int64, device=g.poses.device)
+    before = pcg_chunk.launches
+    pcg_chunk(g.edge_i, g.edge_j, g.edge_mask, *pg.node_incidence(g),
+              terms[1], terms[2], Minv, *state, used, params.prior_weight,
+              params.damping, params.cg_tolerance, iters)
+    torch.cuda.synchronize()
+    assert pcg_chunk.launches == before + 1
+    return state, int(used)
+
+
+@pytest.mark.parametrize("drop", [0, 5])
+@pytest.mark.parametrize("tolerance", [1e-8, 5e3])
+@pytest.mark.parametrize("caps", [(288, 1024), (512, 2048)])
+def test_pcg_chunk_kernel_matches_plain_iterations(cuda, drop, tolerance,
+                                                   caps):
+    """The chunk kernel against its plain version, the masked iterations
+    of ``_pcg_iterations``, from the same CG state, at c4's capacities and
+    at the default SLAMConfig's (whose copy of the edge matrices holds 215
+    slots, so the last live edges are read from device memory): x, r, p
+    within 1e-3 of each one's largest magnitude (float32 sums in another
+    order, 16 iterations on, with the gauge prior and the loops' weights
+    making H ill-conditioned; the H100 read at most 1.5e-4), the same
+    count of iterations that did work, an early stop included; two
+    launches bit-equal."""
+    import dataclasses
+
+    from tpu_slam_torch.graph import pose_graph as pg
+    from tpu_slam_torch.kernels.pcg import smem_plan
+    from tpu_slam_torch.utils import tracing
+
+    g = _pcg_graph(cuda, drop=drop, node_cap=caps[0], edge_cap=caps[1])
+    assert (smem_plan(*caps)[0] < int(g.edge_mask.sum())) == (caps[0] == 512)
+    params = dataclasses.replace(pg.GraphSolveParams(),
+                                 cg_tolerance=tolerance)
+    terms, start = _pcg_chunk_case(g, params)
+    counter = tracing.device_counter("cg_iters_used", cuda)
+    c0 = int(counter)
+    want = pg._pcg_iterations(g, params, terms, *start, 16)
+    want_used = int(counter) - c0
+    assert (want_used == 16) == (tolerance == 1e-8) and want_used > 0
+    got, used = _run_chunk_kernel(g, params, terms, start)
+    again, _ = _run_chunk_kernel(g, params, terms, start)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert used == want_used
+    for a, w in zip(got[:3], want[:3]):
+        err = float((a - w).abs().max())
+        assert err <= 1e-3 * float(w.abs().max()), err
+
+
+def test_captured_solve_at_c4_capacities_runs_the_chunk_kernel(cuda):
+    """optimize_pose_graph at c4's capacities: the captured solve replays
+    the chunk kernel (one launch a chunk) and is bit-equal to the eager
+    solve, which calls the same kernel; a loose tolerance stops early,
+    with the same count of iterations both ways; at 1e-8 the poses within
+    1e-3 m of the solve through the plain iterations (4 GN iterations of
+    200 CG iterations in another summation order; the H100 read 1.3e-4
+    m)."""
+    import dataclasses
+
+    from tpu_slam_torch.graph import pose_graph as pg
+    from tpu_slam_torch.kernels.pcg import pcg_chunk
+    from tpu_slam_torch.utils import capture, tracing
+
+    g = _pcg_graph(cuda, drop=5)
+    assert pg._chunk_kernel(g)
+    counter = tracing.device_counter("cg_iters_used", cuda)
+    for tol in (1e-8, 10.0):
+        params = dataclasses.replace(pg.GraphSolveParams(
+            gn_iterations=4, cg_iterations=200), cg_tolerance=tol)
+        solve = pg.captured_solve(g, params)
+        c0 = int(counter)
+        eager, chi_e = pg.optimize_pose_graph(g, params, compiled=False)
+        eager_used = int(counter) - c0
+        assert 0 < eager_used and (tol < 1 or eager_used < 4 * 200)
+        for _ in range(2):
+            launches = capture.kernel_launches(pcg_chunk)
+            replays = sum(c.replays for c in solve.chunk.values())
+            c0 = int(counter)
+            got, chi = pg.optimize_pose_graph(g, params)
+            assert int(counter) - c0 == eager_used
+            assert (capture.kernel_launches(pcg_chunk) - launches
+                    == sum(c.replays for c in solve.chunk.values())
+                    - replays > 0)
+            assert torch.equal(got.poses, eager.poses)
+            assert torch.equal(chi, chi_e)
+        if tol > 1:
+            continue
+        fits = pg._chunk_kernel
+        pg._chunk_kernel = lambda graph: False
+        try:
+            plain, _ = pg.optimize_pose_graph(g, params, compiled=False)
+        finally:
+            pg._chunk_kernel = fits
+        assert float((plain.poses - got.poses).abs().max()) <= 1e-3
+
+
+def test_pcg_over_the_kernel_limit_raises(cuda):
+    """A graph whose CG state does not fit one block (1,024 nodes, 4,096
+    edges): the kernel refuses it with ValueError before any launch, and
+    so do the eager and the captured solve on the card."""
+    from tpu_slam_torch.graph import pose_graph as pg
+    from tpu_slam_torch.kernels.pcg import pcg_chunk
+
+    g = _pcg_graph(cuda, n=40, node_cap=1024, edge_cap=4096)
+    params = pg.GraphSolveParams(gn_iterations=2, cg_iterations=40)
+    terms, start = _pcg_chunk_case(g, params)
+    before = pcg_chunk.launches
+    with pytest.raises(ValueError, match="do not fit one block"):
+        _run_chunk_kernel(g, params, terms, start)
+    for compiled in (False, True):
+        with pytest.raises(ValueError, match="do not fit one block"):
+            pg.optimize_pose_graph(g, params, compiled=compiled)
+    assert pcg_chunk.launches == before
 
 
 # ---------------------------------------------------------------------------

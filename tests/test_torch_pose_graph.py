@@ -4,7 +4,9 @@ The same noisy circle graph (numpy seed) is built in both packages:
 residuals and Jacobians, the matrix-free H v against a dense H, the PCG and
 dense GN steps, full optimizations with Huber, Cauchy, annealing and
 trusted loops (a wrong loop edge included), the host helpers, and a
-scatter with repeated indices.
+scatter with repeated indices. Then the port's own pieces of the CG chunk
+kernel (``kernels/pcg.py``): each node's incidence list and its sum to
+H v, the kernel's shared-memory plan, and its wrapper's checks.
 """
 
 import dataclasses
@@ -242,3 +244,113 @@ def test_graph_is_a_dataclass_with_host_counts():
     g2, k = pg.add_node(g, torch.eye(4))
     assert k == 0 and g2.n_nodes == 1 and g.n_nodes == 0
     assert dataclasses.is_dataclass(g2)
+
+
+def _incidence_graph(case):
+    """The circle with its wrong loop, a live node with no edge, and for
+    ``dropped`` the first 5 nodes dropped (its masked edges keep stale
+    indices; a fresh graph's padding holds index 0)."""
+    poses, edges, _ = _circle(bad_loop=True)
+    _, g = _graphs(poses, edges)
+    if case == "dropped":
+        g = pg.drop_node_prefix(g, 5)
+    g, _ = pg.add_node(g, g.poses[0])
+    padding = g.edge_i[~g.edge_mask]
+    assert bool((padding != 0).any()) == (case == "dropped")
+    return g
+
+
+@pytest.mark.parametrize("case", ["fresh", "dropped"])
+def test_node_incidence_lists_live_edges_in_hv_order(case):
+    g = _incidence_graph(case)
+    ptr, entries = pg.node_incidence(g)
+    assert ptr.dtype == entries.dtype == torch.int32
+    assert ptr.shape == (g.node_capacity + 1,)
+    assert entries.shape == (2 * g.edge_capacity,)
+    ei, ej = g.edge_i.numpy(), g.edge_j.numpy()
+    live = np.flatnonzero(g.edge_mask.numpy())
+    ptr, entries = ptr.numpy(), entries.numpy()
+    assert ptr[0] == 0 and ptr[-1] == 2 * len(live)
+    for n in range(g.node_capacity):
+        # its edge_i edges in edge order, then its edge_j edges
+        want = ([2 * e for e in live if ei[e] == n]
+                + [2 * e + 1 for e in live if ej[e] == n])
+        assert entries[ptr[n]:ptr[n + 1]].tolist() == want, n
+    # every live edge twice, once at each end; no masked edge
+    listed = np.sort(entries[:ptr[-1]])
+    np.testing.assert_array_equal(listed, np.sort(np.concatenate(
+        [2 * live, 2 * live + 1])))
+    # the live node without edges and every slot past the live nodes
+    for n in range(g.n_nodes - 1, g.node_capacity):
+        assert ptr[n] == ptr[n + 1], n
+
+
+@pytest.mark.parametrize("case", ["fresh", "dropped"])
+def test_node_incidence_sums_to_hv(case):
+    """The chunk kernel's node-major H·v: each node's signed sum of the
+    edge terms J_j^T W J_j (v_j - v_i) over its incidence list (a minus
+    for an entry 2e, a plus for 2e + 1), with the gauge prior and the
+    damping, is ``_hv`` (both in float64, so only the order of the sums
+    differs)."""
+    g = _incidence_graph(case)
+    params = pg.GraphSolveParams()
+    _, Jj, info = pg._build_rhs_and_diag(g, params)[2]
+    Jj, info = Jj.double(), info.double()
+    v = torch.as_tensor(np.random.default_rng(5).normal(
+        0, 1, (g.node_capacity, 6)))
+    u = torch.einsum("eab,eb->ea", Jj, v[g.edge_j] - v[g.edge_i])
+    q = torch.einsum("eba,eb->ea", Jj, torch.einsum("eab,eb->ea", info, u))
+    ptr, entries = (t.tolist() for t in pg.node_incidence(g))
+    got = torch.zeros_like(v)
+    for n in range(g.node_capacity):
+        for c in entries[ptr[n]:ptr[n + 1]]:
+            got[n] += q[c // 2] if c % 2 else -q[c // 2]
+    got[0] += params.prior_weight * v[0]
+    got += params.damping * v
+    want = pg._hv(g, params, (None, Jj, info), v)
+    assert float((got - want).abs().max()) <= 1e-12 * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("caps, copied, fixed", [
+    ((288, 1024), 491, 90_900), ((512, 2048), 215, 170_388),
+    ((513, 64), None, None), ((1024, 4096), None, None)])
+def test_pcg_chunk_smem_plan(caps, copied, fixed):
+    """The chunk kernel's shared memory: c4's capacities and the default
+    SLAMConfig's copy the matrices of their first 491 and 215 edge slots
+    (an odd stride) within the 227 KB a block may use; more than 512 node
+    slots, or a fixed part past the limit, raise ValueError."""
+    from tpu_slam_torch.kernels.pcg import SMEM_LIMIT, smem_plan
+
+    if copied is None:
+        with pytest.raises(ValueError):
+            smem_plan(*caps)
+        return
+    count, stride, nbytes = smem_plan(*caps)
+    assert (count, stride) == (copied, copied)
+    assert nbytes == fixed + 288 * stride <= SMEM_LIMIT
+    assert nbytes + 288 * 2 > SMEM_LIMIT
+
+
+@pytest.mark.parametrize("case", ["cpu", "float64"])
+def test_pcg_chunk_takes_cuda_float32_only(case):
+    """The chunk kernel's wrapper refuses CPU tensors and float64 ones
+    with ValueError, before it builds anything (the CPU runs
+    ``_pcg_iterations``)."""
+    from tpu_slam_torch.kernels.pcg import pcg_chunk
+
+    g = _incidence_graph("fresh")
+    if case == "float64":
+        g = dataclasses.replace(g, poses=g.poses.double(),
+                                edge_T=g.edge_T.double(),
+                                edge_info=g.edge_info.double())
+    params = pg.GraphSolveParams()
+    b, diag, terms = pg._build_rhs_and_diag(g, params)
+    Minv, x, r, p, rz = pg._pcg_start(g, params, b, diag, terms)
+    used = torch.zeros((), dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA" if case == "cpu" else
+                       "float32"):
+        pcg_chunk(g.edge_i, g.edge_j, g.edge_mask, *pg.node_incidence(g),
+                  terms[1], terms[2], Minv, x, r, p, rz, used,
+                  params.prior_weight, params.damping, params.cg_tolerance,
+                  16)

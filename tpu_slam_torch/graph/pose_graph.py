@@ -9,7 +9,10 @@ static capacities with a validity mask:
   * H @ v is two gathers, batched 6x6 products and two scatter-adds; every
     scatter-add is ``core.scatter.accumulate_rows`` (sort-based, no float
     atomics, the same result run to run), which sums repeated indices
-    where ``x[idx] += v`` would keep one write per index;
+    where ``x[idx] += v`` would keep one write per index. On a CUDA device
+    a chunk of CG iterations is one kernel instead (``kernels/pcg.py``,
+    float32 and at most 512 node slots), where each node sums its incident
+    live edges in a fixed order (``node_incidence``);
   * block-Jacobi preconditioned CG solves each GN step (a dense solve is
     kept for small graphs and tests); the gauge is fixed by a prior on
     pose 0.
@@ -47,6 +50,7 @@ import torch
 
 from tpu_slam_torch.core import se3
 from tpu_slam_torch.core.scatter import accumulate_rows
+from tpu_slam_torch.kernels.pcg import pcg_chunk
 from tpu_slam_torch.utils import tracing
 from tpu_slam_torch.utils.capture import compiled_call
 
@@ -239,6 +243,52 @@ def _pcg_iterations(graph, params, edge_terms, Minv, x, r, p, rz, n: int):
     return x, r, p, rz
 
 
+def node_incidence(graph: PoseGraph) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each node's live edges as a CSR over the node slots, for the chunk
+    kernel's node-major H·v.
+
+    Returns ``ptr`` (N + 1,) and ``entries`` (2E,), both int32: node n's
+    list is entries[ptr[n]:ptr[n + 1]], an entry 2e for a live edge e with
+    edge_i = n (its term enters H·v with a minus) and 2e + 1 for one with
+    edge_j = n. A list holds the node's edge_i edges in edge order, then
+    its edge_j edges in edge order: the order of ``_hv``'s two
+    scatter-adds. Masked edges, whatever their indices, fall after
+    ptr[N]. Sync-free (one stable sort), so a graph captures it.
+    """
+    n, m = graph.node_capacity, graph.edge_capacity
+    dev = graph.edge_i.device
+    live = torch.cat([graph.edge_mask, graph.edge_mask])
+    node = torch.where(live, torch.cat([graph.edge_i, graph.edge_j]), n)
+    key, order = torch.sort(node, stable=True)
+    e = torch.arange(m, device=dev)
+    code = torch.cat([2 * e, 2 * e + 1])
+    ptr = torch.searchsorted(key, torch.arange(n + 1, device=dev))
+    return ptr.int(), code[order].int()
+
+
+def _chunk_kernel(graph: PoseGraph) -> bool:
+    """Whether ``graph``'s CG chunks run the kernel of ``kernels/pcg.py``:
+    on a CUDA device, which raises ValueError for a graph it cannot take;
+    the CPU runs ``_pcg_iterations``. (A comparison on the card may swap
+    this out to run the plain iterations there.)"""
+    return graph.poses.is_cuda
+
+
+def _cg_chunk(graph, params, edge_terms, Minv, x, r, p, rz, n: int, inc):
+    """``n`` masked CG iterations: the chunk kernel, in place on (x, r, p,
+    rz), where ``inc`` (``node_incidence``) is given, else
+    ``_pcg_iterations``."""
+    if inc is None:
+        return _pcg_iterations(graph, params, edge_terms, Minv, x, r, p, rz,
+                               n)
+    _, Jj, info = edge_terms
+    pcg_chunk(graph.edge_i, graph.edge_j, graph.edge_mask, *inc, Jj, info,
+              Minv, x, r, p, rz,
+              tracing.device_counter("cg_iters_used", x.device),
+              params.prior_weight, params.damping, params.cg_tolerance, n)
+    return x, r, p, rz
+
+
 def _chunks(params: GraphSolveParams):
     """The CG iterations in chunks of CG_CHECK_EVERY (the last one
     shorter); the host reads the flag before each."""
@@ -249,11 +299,12 @@ def _chunks(params: GraphSolveParams):
 def _solve_pcg(graph, params, b, diag, edge_terms):
     """Block-Jacobi preconditioned CG for H x = b (masked iterations)."""
     Minv, x, r, p, rz = _pcg_start(graph, params, b, diag, edge_terms)
+    inc = node_incidence(graph) if _chunk_kernel(graph) else None
     for n in _chunks(params):
         if not bool(_cg_active(r, params)):
             break
-        x, r, p, rz = _pcg_iterations(graph, params, edge_terms, Minv, x, r,
-                                      p, rz, n)
+        x, r, p, rz = _cg_chunk(graph, params, edge_terms, Minv, x, r, p, rz,
+                                n, inc)
         tracing.count("cg_iters_run", n)
     return x
 
@@ -375,7 +426,9 @@ class CapturedSolve:
     preconditioner, the CG iterate and its flag). ``fixed[delta]`` builds
     a GN iteration's rhs and preconditioner and starts the CG (one graph
     for each robust width), ``chunk[n]`` runs n masked CG iterations in
-    place, ``retract`` applies the step to the live nodes.
+    place (one launch of the chunk kernel; ``incidence``, replayed once a
+    solve, builds the nodes' edge lists), ``retract`` applies the step to
+    the live nodes.
     """
 
     def __init__(self, graph: PoseGraph, params: GraphSolveParams):
@@ -390,9 +443,13 @@ class CapturedSolve:
         # the strides the eager solve's tensors have (a product's kernel,
         # and so its bits, may follow the strides)
         self.bufs: Dict[str, torch.Tensor] = {}
+        self.kernel = _chunk_kernel(graph)
+        if self.kernel:
+            self.incidence = Captured(self._incidence, dev)
         self.fixed = {d: Captured(lambda d=d: self._fixed(d), dev)
                       for d in sorted(set(_robust_deltas(params)))}
-        self.chunk = {k: Captured(lambda k=k: self._chunk(k), dev)
+        self.chunk = {k: Captured(lambda k=k: self._chunk(k), dev,
+                                  counters=(pcg_chunk,))
                       for k in sorted(set(_chunks(params)))}
         self.retract = Captured(self._retract, dev)
 
@@ -402,6 +459,10 @@ class CapturedSolve:
             if name not in self.bufs:
                 self.bufs[name] = torch.empty_like(v)
             self.bufs[name].copy_(v)
+
+    def _incidence(self):
+        ptr, inc = node_incidence(self.graph)
+        self._keep(inc_ptr=ptr, inc=inc)
 
     def _set_cg(self, x, r, p, rz):
         self._keep(x=x, r=r, p=p, rz=rz, active=_cg_active(r, self.params))
@@ -418,9 +479,10 @@ class CapturedSolve:
 
     def _chunk(self, k: int):
         s = self.bufs
-        self._set_cg(*_pcg_iterations(
+        inc = (s["inc_ptr"], s["inc"]) if self.kernel else None
+        self._set_cg(*_cg_chunk(
             self.graph, self.params, (None, s["Jj"], s["info"]), s["Minv"],
-            s["x"], s["r"], s["p"], s["rz"], k))
+            s["x"], s["r"], s["p"], s["rz"], k, inc))
 
     def _retract(self):
         g = self.graph
@@ -434,6 +496,8 @@ class CapturedSolve:
         for f in _GRAPH_TENSORS:
             getattr(g, f).copy_(getattr(graph, f))
         self.n_nodes.fill_(graph.n_nodes)
+        if self.kernel:
+            self.incidence.replay()
         for delta in _robust_deltas(self.params):
             self.fixed[delta].replay()
             for k in _chunks(self.params):

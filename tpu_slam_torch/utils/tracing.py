@@ -19,9 +19,10 @@ stretch, and what it kept of the last one is dropped:
 * ``count(name, n)`` adds to a host counter while recording;
   ``device_count(name, n)`` adds ``n`` (a device tensor or an int) to a
   static int64 counter on the device, always, inside a CUDA graph too, so
-  a replay sums it and nothing is read back. ``counters()`` gives the host
-  counters and each device counter's change since the stretch began (one
-  read of the device).
+  a replay sums it and nothing is read back (``device_counter`` hands a
+  counter's tensor to a kernel that adds to it itself). ``counters()``
+  gives the host counters and each device counter's change since the
+  stretch began (one read of the device).
 * Stage marks: inside ``stage_marks(device)`` (one scan step of the dense
   engine), ``mark(stage)`` opens one of ``STAGES``. On a CUDA device a
   mark is a one-thread kernel, ``span_mark<stage_...>``
@@ -359,6 +360,12 @@ def device_count(name: str, n, device=None) -> None:
     other, read only by ``counters``."""
     dev = n.device if isinstance(n, torch.Tensor) else device
     RECORDER.device_counter(name, dev).add_(n)
+
+
+def device_counter(name: str, device) -> torch.Tensor:
+    """The device counter ``name``'s () int64 tensor on ``device``, for a
+    kernel that adds to it itself (as ``device_count`` would)."""
+    return RECORDER.device_counter(name, device)
 
 
 def spans() -> List[Span]:
