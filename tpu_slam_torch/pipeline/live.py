@@ -19,7 +19,12 @@ and its encoder angle) in one pinned buffer, copies it to the device once
 and runs the line's program (its transform and the aggregation) as one
 CUDA graph replay (``ScanAggregator.add_staged_line``), then reads one
 flag back (is the 3D scan complete?), in the reference's order; that read
-also orders the next line's staging after this line's copy.
+also orders the next line's staging after this line's copy. That work is
+``feed_line``, which ``run`` calls for each line the socket delivers and
+which an offline replay of a recorded stream calls itself (``begin``
+first), with no socket: the same code path, bit for bit. While the
+recorder records (``utils.tracing``) each line is the span ``live.line``
+and adds one to the host counter ``live_lines``.
 ``compiled=False`` runs the line eagerly from three copies (points, valid
 flags, intensities), with the same bits. Everything the chain builds or
 initialises at first use (the native library, the kernels of the SLAM
@@ -46,6 +51,7 @@ from tpu_slam_torch.ingest.aggregator import (AggregatorConfig,
 from tpu_slam_torch.ingest.frames import (EncoderHistory, FrameChain,
                                           SensorModel, front_laser_transform)
 from tpu_slam_torch.ingest.native import NativeFeeder, NativeLms
+from tpu_slam_torch.utils import tracing
 
 # the CUDA libraries SLAMSystem's path launches (NDT terms in every LM
 # evaluation, brute-force NN in loop verification)
@@ -118,6 +124,8 @@ class LivePipeline:
         self.lines = 0
         self.dropped_lines = 0
         self.slam_state = None
+        self._agg_state = None
+        self._step_deg = 0.5
 
     # -- producer ----------------------------------------------------------
 
@@ -163,7 +171,7 @@ class LivePipeline:
         if self._dirs is not None and self._dirs.shape[0] == n_beams:
             return self._dirs
         meta = self._meta0
-        step = math.radians(meta.ang_step_deg) if meta else math.radians(0.5)
+        step = math.radians(meta.ang_step_deg if meta else self._step_deg)
         a0 = math.radians(self.config.start_angle_deg)
         ang = a0 + step * np.arange(n_beams)
         if self.config.invert_scan:
@@ -200,6 +208,67 @@ class LivePipeline:
             cloud, _ = self.aggregator.emit(self.aggregator.init_state())
             self.slam.warm_up(cloud)
 
+    def begin(self, init_pose=None, ang_step_deg: float = 0.5) -> None:
+        """Start a stream: an empty aggregation, no line counted, and with
+        a SLAM system its initial state at ``init_pose`` (the identity when
+        None). ``run`` begins each stream so, and its scanner's first
+        telegram then gives the beam step; an offline replay calls it
+        (after ``warm_up``) before its first ``feed_line``, with the beam
+        step of its lines (``ang_step_deg``, the LMS100's 0.5 by
+        default)."""
+        self._step_deg = ang_step_deg
+        self._dirs = None
+        self._agg_state = self.aggregator.init_state()
+        self.slam_state = (self.slam.init_state(init_pose)
+                           if self.slam is not None else None)
+        self.lines = 0
+
+    def feed_line(self, ranges: np.ndarray, intensities: np.ndarray,
+                  angle: float) -> Optional[Tuple]:
+        """One scan line through the chain, the consumer's work a line:
+        ``ranges`` (n,) m of the line's beams (0 or out of the range gates:
+        no return) and their ``intensities``, at encoder ``angle`` (rad).
+        The line is staged, copied, transformed and aggregated, and the
+        scan-complete flag read back (the span ``live.line``). Returns None
+        until the line completes a 3D scan; then the scan is emitted, fed
+        through the SLAM system when there is one (``slam_state`` is the
+        state after it), and (cloud, SLAM metrics or None) returned."""
+        cfg = self.config
+        dev = self.device
+        with tracing.span("live.line"):
+            n = ranges.shape[0]
+            pts = self._directions(n) * ranges[:, None]
+            valid = (ranges >= cfg.range_min) & (ranges <= cfg.range_max)
+            if self.compiled:
+                # the staging buffer is free again: the last line's ready
+                # read came after its copy
+                stage_line(self._staging.numpy(), pts, valid, intensities,
+                           float(angle))
+                self._agg_state = self.aggregator.add_staged_line(
+                    self._agg_state, self._staging.to(dev, non_blocking=True),
+                    self.chain)
+            else:
+                L = cfg.line_capacity
+                pts_p = np.zeros((L, 3), np.float32)
+                val_p = np.zeros((L,), bool)
+                int_p = np.zeros((L,), np.float32)
+                pts_p[:n], val_p[:n], int_p[:n] = pts, valid, intensities
+                T = self.chain.base_from_laser(float(angle), device=dev)
+                self._agg_state = self.aggregator.add_line(
+                    self._agg_state, torch.from_numpy(pts_p).to(dev),
+                    torch.from_numpy(val_p).to(dev), T,
+                    torch.from_numpy(int_p).to(dev))
+            self.lines += 1
+            tracing.count("live_lines", 1)
+            done = bool(self.aggregator.ready(self._agg_state))
+        if not done:
+            return None
+        cloud, self._agg_state = self.aggregator.emit(self._agg_state)
+        metrics = None
+        if self.slam is not None:
+            self.slam_state, metrics = self.slam.step(self.slam_state, cloud)
+        return cloud, metrics
+
     def run(self, lms: NativeLms,
             angle_source: Callable[[], float],
             max_scans: Optional[int] = None,
@@ -219,15 +288,12 @@ class LivePipeline:
         used are recorded in ``self.line_angles``.
         """
         cfg = self.config
-        dev = self.device
         sampler = None
         self._enc_hist = None
         self._sampler_stop = threading.Event()
         self._producer_done.clear()
         self._producer_error = None
         self.line_angles = []
-        self.lines = 0
-        self.slam_state = None
         if encoder_rate_hz > 0:
             hist = EncoderHistory()
             self._enc_hist = hist
@@ -250,8 +316,7 @@ class LivePipeline:
             target=self._produce, args=(lms, feeder, angle_source, max_lines),
             daemon=True)
         self.warm_up()
-        agg_state = self.aggregator.init_state()
-        slam_state = self.slam.init_state() if self.slam is not None else None
+        self.begin()
         results: List[Tuple] = []
         if sampler is not None:
             # t_ref after the warm-up: a reference sample taken long before
@@ -261,7 +326,6 @@ class LivePipeline:
             self._enc_hist.push(0.0, float(angle_source()))
             sampler.start()
         producer.start()
-        L = cfg.line_capacity
         try:
             while max_scans is None or len(results) < max_scans:
                 out = feeder.pop(timeout_ms=100)
@@ -281,39 +345,11 @@ class LivePipeline:
                         time.sleep(0.25 / encoder_rate_hz)
                     angle = self._enc_hist.at(q)
                     self.line_angles.append((t_arr, angle))
-                n = ranges.shape[0]
-                dirs = self._directions(n)
-                pts = dirs * ranges[:, None]
-                valid = (ranges >= cfg.range_min) & (ranges <= cfg.range_max)
-                if self.compiled:
-                    # the staging buffer is free again: the last line's
-                    # ready read came after its copy
-                    stage_line(self._staging.numpy(), pts, valid, intens,
-                               float(angle))
-                    agg_state = self.aggregator.add_staged_line(
-                        agg_state, self._staging.to(dev, non_blocking=True),
-                        self.chain)
-                else:
-                    pts_p = np.zeros((L, 3), np.float32)
-                    val_p = np.zeros((L,), bool)
-                    int_p = np.zeros((L,), np.float32)
-                    pts_p[:n], val_p[:n], int_p[:n] = pts, valid, intens
-                    T = self.chain.base_from_laser(float(angle), device=dev)
-                    agg_state = self.aggregator.add_line(
-                        agg_state, torch.from_numpy(pts_p).to(dev),
-                        torch.from_numpy(val_p).to(dev), T,
-                        torch.from_numpy(int_p).to(dev))
-                self.lines += 1
-                if bool(self.aggregator.ready(agg_state)):
-                    cloud, agg_state = self.aggregator.emit(agg_state)
-                    metrics = None
-                    if self.slam is not None:
-                        slam_state, metrics = self.slam.step(slam_state,
-                                                             cloud)
-                        self.slam_state = slam_state
-                    results.append((cloud, metrics))
+                out = self.feed_line(ranges, intens, angle)
+                if out is not None:
+                    results.append(out)
                     if on_scan is not None:
-                        on_scan(cloud, metrics)
+                        on_scan(*out)
         finally:
             self._producer_done.wait(timeout=cfg.poll_timeout_ms / 1e3 + 1.0)
             producer.join(timeout=2.0)
@@ -324,7 +360,6 @@ class LivePipeline:
             feeder.close()
         if self._producer_error is not None:
             raise self._producer_error
-        self.slam_state = slam_state
         return results
 
     # -- second (front) static laser ----------------------------------------

@@ -18,7 +18,13 @@ the engine's device; the loop and its decisions live on the host. A scan:
 
 The NDT field is cached and rebuilt only on the scan after the map
 changed (an insert, an eviction or a rebase); ``field_builds`` counts the
-builds. The reference's compiled programs on the step each run, with
+builds. While the recorder records (``utils.tracing``) a tracked scan's
+parts are spans: ``host.prep`` (deskew and downsample), ``host.field``
+(a field build; the host counter ``host_field_builds`` counts them),
+``host.register`` (the registrations and the gating read) and
+``host.insert`` (the map insert and its overflow read); the first two
+close on a device synchronisation, the last two end on their reads.
+The reference's compiled programs on the step each run, with
 ``compiled=True`` (the default), as one CUDA graph replay on a CUDA
 device and in their sync-free form on the CPU: each NDT registration (the
 coarse one, then the fine one; ``registration.ndt.compiled_register``),
@@ -63,6 +69,7 @@ from tpu_slam_torch.pipeline.config import OdometryConfig
 from tpu_slam_torch.pipeline.metrics import MetricsLog, ScanMetrics, Stopwatch
 from tpu_slam_torch.registration.icp import icp
 from tpu_slam_torch.registration.ndt import compiled_register, ndt_field
+from tpu_slam_torch.utils import tracing
 from tpu_slam_torch.utils.capture import CapturedCall, compiled_call
 
 
@@ -335,9 +342,10 @@ class LidarOdometry:
         """Process one scan (body-frame points)."""
         cfg = self.config
         with Stopwatch() as sw:
-            if cfg.deskew and state.scan_index > 0:
-                cloud = self._deskew(cloud, state.last_delta)
-            scan = self.downsample(cloud)
+            with tracing.span("host.prep", device=self.device):
+                if cfg.deskew and state.scan_index > 0:
+                    cloud = self._deskew(cloud, state.last_delta)
+                scan = self.downsample(cloud)
             if state.scan_index == 0:
                 new_state, fields = self._bootstrap(state, cloud, scan)
             else:
@@ -374,24 +382,27 @@ class LidarOdometry:
         # (re)build the cached NDT field(s) only when the map changed
         field = state.field
         if cfg.method == "ndt" and field is None:
-            field = self._build_fields(state.vmap, center=pose_loc[:3, 3])
+            with tracing.span("host.field", device=self.device):
+                field = self._build_fields(state.vmap, center=pose_loc[:3, 3])
+            tracing.count("host_field_builds", 1)
         init_T = (pose_loc @ self._clamped_delta(state.last_delta)
                   if cfg.use_constant_velocity else pose_loc)
-        T, iters, resid, frac = self._register(scan, init_T, state.vmap,
-                                               field)
+        with tracing.span("host.register"):
+            T, iters, resid, frac = self._register(scan, init_T, state.vmap,
+                                                   field)
 
-        # ONE device-to-host read carries every gating decision; T and
-        # init_T are map-local, the relative delta frame-invariant
-        delta_reg = se3.inverse(pose_loc) @ T
-        xi_reg = se3.log(delta_reg)
-        stats = torch.cat([
-            torch.stack([frac.to(f32),
-                         torch.as_tensor(iters, dtype=f32,
-                                         device=self.device),
-                         resid.to(f32),
-                         torch.linalg.vector_norm(xi_reg[:3]),
-                         torch.linalg.vector_norm(xi_reg[3:])]),
-            T[:3, 3], init_T[:3, 3]]).cpu().numpy()
+            # ONE device-to-host read carries every gating decision; T and
+            # init_T are map-local, the relative delta frame-invariant
+            delta_reg = se3.inverse(pose_loc) @ T
+            xi_reg = se3.log(delta_reg)
+            stats = torch.cat([
+                torch.stack([frac.to(f32),
+                             torch.as_tensor(iters, dtype=f32,
+                                             device=self.device),
+                             resid.to(f32),
+                             torch.linalg.vector_norm(xi_reg[:3]),
+                             torch.linalg.vector_norm(xi_reg[3:])]),
+                T[:3, 3], init_T[:3, 3]]).cpu().numpy()
         frac_h, iters_h, resid_h, dt_h, dr_h = (float(v) for v in stats[:5])
 
         # divergence guard: coast on the prediction when the match
@@ -408,9 +419,10 @@ class LidarOdometry:
         vmap = state.vmap
         if (state.scan_index % cfg.insert_every == 0 and not rejected
                 and frac_h >= cfg.min_insert_fraction):
-            vmap = insert_cloud(vmap, cloud.transform(T), self.map_spec,
-                                stamp=float(state.scan_index),
-                                compiled=self.compiled)
+            with tracing.span("host.insert"):
+                vmap = insert_cloud(vmap, cloud.transform(T), self.map_spec,
+                                    stamp=float(state.scan_index),
+                                    compiled=self.compiled)
             field = None                # the map changed
 
         occ = state.occ

@@ -12,7 +12,9 @@ stretch, and what it kept of the last one is dropped:
 
 * ``span(name)`` keeps name, start and end (``time.time_ns()``, the clock
   the profiler's events carry), its own id, its parent's and the id of the
-  scan step that caused it (the outermost span opened with ``step=True``).
+  scan step that caused it (the outermost span opened with ``step=True``);
+  ``span(name, device=...)`` closes on a synchronisation of the device
+  while it records, for a span whose work is launched and not read back.
   Under the profiler it is also a ``record_function`` range (of function
   scope: not mirrored onto the device's timeline), so it shows in the
   Chrome trace. While nothing records, a span costs one check.
@@ -309,16 +311,21 @@ RECORDER = Recorder()
 
 
 class _SpanContext:
-    __slots__ = ("name", "step", "open")
+    __slots__ = ("name", "step", "open", "device")
 
-    def __init__(self, name: str, step: bool):
+    def __init__(self, name: str, step: bool, device=None):
         self.name, self.step, self.open = name, step, None
+        self.device = device
 
     def __enter__(self):
         self.open = RECORDER.open(self.name, self.step)
         return self
 
     def __exit__(self, *exc):
+        if self.open is not None and self.device is not None:
+            dev = torch.device(self.device)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         RECORDER.close(self.open)
         return False
 
@@ -342,11 +349,14 @@ def enable():
         RECORDER.enabled -= 1
 
 
-def span(name: str, step: bool = False) -> _SpanContext:
+def span(name: str, step: bool = False, device=None) -> _SpanContext:
     """A span of the enclosed region; ``step`` makes it a scan step's own
     (its id becomes the step id of what it encloses) unless a step is
-    open already."""
-    return _SpanContext(name, step)
+    open already. With a CUDA ``device`` the span, while it records,
+    closes after a synchronisation of that device, so the device work
+    launched inside it ends inside it (nothing records: no
+    synchronisation)."""
+    return _SpanContext(name, step, device)
 
 
 def count(name: str, n: int) -> None:
